@@ -6,16 +6,19 @@
 Phases (any failed check exits non-zero and prints no result line):
   1. build the hand-written CUDA kernels from memcnet_tpu_torch/csrc;
   2. hold each kernel against its plain PyTorch version on the card, in bf16
-     and in float32, at the shapes of the 720p MEMC_Net_star serving path
-     (1280x720 padded to 1344x768), and time the kernel, its plain version
-     and, where one PyTorch call computes the same function, that call;
-  3. serve: build_model(MEMC_Net_star, seeded random weights, bf16) and
-     PaddedInterp on 3 synthetic 1280x720 frame pairs, counting each
-     kernel's launches, and hold the served path against the CPU plain path
-     on a small pair in float32;
-  4. where one frame's time goes: the forward alone (CUDA events), its
-     kernels by device time (torch.profiler) and one served frame split into
-     host stages (pad, copy in, forward, copy out).
+     and in float32, at the shapes of the 720p serving paths (1280x720 padded
+     to 1344x768): K1-K4 at MEMC_Net_star's, K5 (grid sample) and K4 at each
+     of the five convs of SPyNet's top level (MEMC_Net_s); time the kernel,
+     its plain version and, where one PyTorch call computes the same
+     function, that call;
+  3. serve, each model with seeded random weights in bf16 through
+     build_model and PaddedInterp on synthetic 1280x720 frame pairs, the
+     launch counts set to 0 just before and read just after: MEMC_Net_star
+     (3 pairs), MEMC_Net_s (3 pairs), MEMC_Net (1 pair); each model is also
+     held against the CPU plain path on a small float32 pair;
+  4. where one frame's time goes, for each model: the forward alone (CUDA
+     events), its kernels by device time (torch.profiler) and one served
+     frame split into host stages (pad, copy in, forward, copy out).
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.  Long output (the kernels' build
 log, the full results) goes to chiprun_out/chip_smoke/.
@@ -34,13 +37,19 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out", "chip_smoke")
 H, W = 768, 1344            # 1280x720 padded (data/padding.py)
 FRAME_H, FRAME_W = 720, 1280
-N_FRAMES = 3
+SERVED = (("MEMC_Net_star", 3), ("MEMC_Net_s", 3), ("MEMC_Net", 1))  # (model, pairs)
 # published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # float32: CUDA cores
-# launches per served frame
-EXPECTED_PER_FRAME = {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 1,
-                      "conv2d_small": 1}
+# launches per served frame (SPyNet: 6 levels of 5 convs and 1 warp at 720p)
+EXPECTED_PER_FRAME = {
+    "MEMC_Net_star": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 1,
+                      "conv2d_small": 1, "grid_sample": 0},
+    "MEMC_Net_s": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 1,
+                   "conv2d_small": 30, "grid_sample": 6},
+    "MEMC_Net": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 1,
+                 "conv2d_small": 0, "grid_sample": 0},
+}
 TPU_KERNELS = {
     "filter_interp_warp": ("memcnet_tpu_torch/csrc/warp.cu",
                            "memcnet_tpu/ops/pallas/warp_kernel.py:827"),
@@ -50,6 +59,8 @@ TPU_KERNELS = {
                    "memcnet_tpu/ops/pallas/fill_kernel.py:114"),
     "conv2d_small": ("memcnet_tpu_torch/csrc/conv.cu",
                      "memcnet_tpu/ops/pallas/conv_kernel.py:119"),
+    "grid_sample": ("memcnet_tpu_torch/csrc/gather.cu",
+                    "memcnet_tpu/ops/pallas/gather_kernel.py:135"),
 }
 
 
@@ -94,29 +105,34 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def bf16_ulps(got, ref):
-    """Largest |got - ref| in bf16 units in the last place of each reference
-    value (a zero reference must be matched exactly)."""
+def bf16_ulps(got, ref, slack=0.0):
+    """Largest |got - ref| - slack in bf16 units in the last place of each
+    reference value (with no slack a zero reference must be matched exactly)."""
     import torch
 
     r = ref.float().abs()
     e = torch.floor(torch.log2(torch.where(r > 0, r, torch.ones_like(r))))
     ulp = torch.where(r > 0, torch.exp2(e - 7), torch.full_like(r, 2.0 ** -133))
-    return float(((got.float() - ref.float()).abs() / ulp).max())
+    return float((((got.float() - ref.float()).abs() - slack).clamp(min=0.0) / ulp).max())
 
 
-def compare(pairs, f32_atol):
+def compare(pairs, f32_atol, long_sums=False):
     """(max_abs_err, measure, limit, rule) over (kernel, plain) pairs.
     float32: max |kernel - plain| <= f32_atol (the same float32 arithmetic
     summed in another order).  bf16: both sides sum in float32 in different
     orders and round once to bf16, so a rounding may flip: at most 2 bf16
-    units in the last place of each plain value."""
+    units in the last place of each plain value.  With ``long_sums`` (K4's
+    thousands of terms, which may cancel to near zero) the float32 sums may
+    differ by f32_atol before that rounding: at most 2 ulps beyond f32_atol."""
     import torch
 
     err = max(max_err(g, r) for g, r in pairs)
     if pairs[0][1].dtype == torch.float32:
         return err, err, f32_atol, f"max abs err <= {f32_atol:.3g}"
-    ulps = max(bf16_ulps(g, r) for g, r in pairs)
+    slack = f32_atol if long_sums else 0.0
+    ulps = max(bf16_ulps(g, r, slack) for g, r in pairs)
+    if long_sums:
+        return err, ulps, 2.0, f"<= 2 bf16 ulps of each plain value beyond {f32_atol:.3g}"
     return err, ulps, 2.0, "<= 2 bf16 ulps of each plain value"
 
 
@@ -146,9 +162,16 @@ def bound(nbytes, flops, dtype):
 def phase_kernels(torch, results):
     import torch.nn.functional as F
 
+    from memcnet_tpu_torch.models import spynet
     from memcnet_tpu_torch.nn import init as I
     from memcnet_tpu_torch.ops import projection
-    from memcnet_tpu_torch.ops.cuda import conv_kernel, fill_kernel, scatter_kernel, warp_kernel
+    from memcnet_tpu_torch.ops.cuda import (
+        conv_kernel,
+        fill_kernel,
+        gather_kernel,
+        scatter_kernel,
+        warp_kernel,
+    )
 
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
@@ -252,6 +275,60 @@ def phase_kernels(torch, results):
                nbytes=2 * H * W * (3 + 64) * esize + w.numel() * esize,
                flops=2 * 2 * H * W * 64 * 3 * 49, op_dtype=dtype_name)
         del frame, ctx, filt, got, ref
+
+        # --- K5 grid sample of SPyNet's top level: x (2, 3, H, W) and the
+        # float32 grid _backward_warp builds from both directions' flows
+        x = torch.rand((2, 3, H, W), generator=gen, device=dev).to(dt)
+        grid = spynet.warp_grid(flow).contiguous()
+        got = gather_kernel.launch(x, grid)
+        ref = gather_kernel.reference(x, grid)
+
+        def lib_gs():
+            return F.grid_sample(x, grid.to(dt), mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
+
+        if dt == torch.float32:  # a second oracle, in float32 only
+            lib_err = max_err(got, lib_gs())
+            log(f"  grid_sample         float32  vs F.grid_sample: max_abs_err {lib_err:.3e} "
+                f"(tol 1e-5)")
+            if not lib_err <= 1e-5:
+                raise CheckFailed(f"grid_sample float32 disagrees with F.grid_sample ({lib_err})")
+        zero_px = int((ref == 0).all(dim=1).sum())
+        # float32: 4-term sums of values in [0, 1)
+        record("grid_sample", dtype_name, compare([(got, ref)], 1e-5),
+               timed_ms(torch, lambda: gather_kernel.launch(x, grid), flush=flush),
+               timed_ms(torch, lambda: gather_kernel.reference(x, grid), flush=flush),
+               timed_ms(torch, lib_gs, flush=flush),
+               nbytes=2 * H * W * (3 * esize + 2 * 4 + 3 * esize),
+               flops=2 * H * W * 3 * 4 * 2, op_dtype="float32",
+               extra=dict(zero_pixels=zero_px))
+        del x, grid, got, ref
+
+        # --- K4 at each conv of SPyNet's top level: B = 2, 7x7, bias, ReLU on
+        # the first four; torch-0.2 default weights
+        wgen = torch.Generator().manual_seed(2)
+        for j, (cin, cout) in enumerate(spynet.BASIC):
+            relu = j < len(spynet.BASIC) - 1
+            x = (torch.rand((2, cin, H, W), generator=gen, device=dev) * 4.0 - 2.0).to(dt)
+            w = I.torch_default_uniform((cout, cin, 7, 7), wgen).to(dev).to(dt)
+            b = I.torch_default_uniform((cout,), wgen, fan_in=cin * 49).to(dev)
+            got = conv_kernel.launch(x, w, b, relu=relu)
+            ref = conv_kernel.reference(x, w, b, relu=relu)
+
+            def lib_conv():
+                out = F.conv2d(x, w, b.to(dt), padding=3)
+                return out.clamp_(min=0.0) if relu else out
+
+            # float32: up to 3,136-term sums of |x w| <= 2 / sqrt(fan_in)
+            record(f"conv2d_small[spynet {cin}->{cout}]", dtype_name,
+                   compare([(got, ref)], 5e-4, long_sums=True),
+                   timed_ms(torch, lambda: conv_kernel.launch(x, w, b, relu=relu), flush=flush),
+                   timed_ms(torch, lambda: conv_kernel.reference(x, w, b, relu=relu),
+                            flush=flush),
+                   timed_ms(torch, lib_conv, flush=flush),
+                   nbytes=2 * H * W * (cin + cout) * esize + w.numel() * esize + 4 * cout,
+                   flops=2 * 2 * H * W * cout * cin * 49, op_dtype=dtype_name)
+            del x, w, b, got, ref
         torch.cuda.empty_cache()
     results["kernels"] = rows
 
@@ -273,29 +350,55 @@ def synthetic_frames(seed):
     return np.ascontiguousarray(x0), np.ascontiguousarray(x2)
 
 
-def phase_serve(torch, results):
+def offset_spynet(torch, model):
+    """Scale SPyNet's last convs and give them a constant bias, so the flow of
+    a 128x128 input sits near (0.7, 0.42) px: far from the integer cell
+    boundaries where the projection and the warp are discontinuous and the
+    card and the CPU, summing in other orders, could land in other cells."""
+    with torch.no_grad():
+        for basic in model.flownets.moduleBasic:
+            last = basic.moduleBasic[8]
+            last.weight.mul_(0.02)
+            last.bias.copy_(torch.tensor([0.1, 0.06]))
+    return model
+
+
+def small_pair_check(torch, name):
+    """A small float32 pair: the card's path against the CPU plain path,
+    same weights."""
+    from memcnet_tpu_torch.cli.runner import PaddedInterp, build_model
+
+    rng = np.random.RandomState(1)
+    a = rng.rand(3, 100, 120).astype(np.float32)
+    b = np.roll(a, (2, 3), axis=(1, 2))
+    outs = []
+    for dev in ("cpu", "cuda"):
+        model = build_model(name, seed=0, device=dev)
+        if name == "MEMC_Net_s":
+            offset_spynet(torch, model)
+        outs.append(PaddedInterp(model, device=dev)(a, b)[0])
+    err = float(np.abs(outs[1] - outs[0]).max())
+    log(f"  {name} small pair f32, card vs CPU plain path: max_abs_err {err:.3e} (tol 1e-3)")
+    if not (err <= 1e-3):
+        raise CheckFailed(f"{name}: served output on the card disagrees with the CPU path ({err})")
+    return err
+
+
+def phase_serve(torch, name, n_pairs, results):
+    """Serve ``n_pairs`` synthetic 1280x720 pairs in bf16 through PaddedInterp,
+    the launch counts set to 0 just before and read just after."""
     from memcnet_tpu_torch.cli.runner import PaddedInterp, build_model
     from memcnet_tpu_torch.ops import cuda as K
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-
-    # small f32 pair: the card's path against the CPU plain path, same weights
-    rng = np.random.RandomState(1)
-    a = rng.rand(3, 100, 120).astype(np.float32)
-    b = np.roll(a, (2, 3), axis=(1, 2))
-    ref_out, _ = PaddedInterp(build_model(seed=0, device="cpu"), device="cpu")(a, b)
-    got_out, _ = PaddedInterp(build_model(seed=0, device="cuda"), device="cuda")(a, b)
-    small_err = float(np.abs(got_out - ref_out).max())
-    log(f"  small pair f32, card vs CPU plain path: max_abs_err {small_err:.3e} (tol 1e-3)")
-    if not (small_err <= 1e-3):
-        raise CheckFailed(f"served output on the card disagrees with the CPU path ({small_err})")
+    small_err = small_pair_check(torch, name)
 
     t0 = time.perf_counter()
-    model = build_model("MEMC_Net_star", seed=0, dtype=torch.bfloat16, device="cuda")
+    model = build_model(name, seed=0, dtype=torch.bfloat16, device="cuda")
     interp = PaddedInterp(model, dtype=torch.bfloat16, device="cuda")
-    log(f"  build_model MEMC_Net_star bf16: {time.perf_counter() - t0:.2f} s")
-    pairs = [synthetic_frames(s) for s in range(N_FRAMES)]
+    log(f"  build_model {name} bf16: {time.perf_counter() - t0:.2f} s")
+    pairs = [synthetic_frames(s) for s in range(n_pairs)]
     interp(*pairs[0])  # warm-up (cuDNN algorithm choice), not counted
     torch.cuda.synchronize()
 
@@ -308,23 +411,25 @@ def phase_serve(torch, results):
         ms.append((time.perf_counter() - t0) * 1e3)
         outs.append((out, aux))
     counts = K.launch_counts()
-    log(f"  served {N_FRAMES} pairs: ms/frame {', '.join(f'{m:.3f}' for m in ms)}; "
+    log(f"  {name}: served {n_pairs} pairs: ms/frame {', '.join(f'{m:.3f}' for m in ms)}; "
         f"launches {counts}")
-    for name, per in EXPECTED_PER_FRAME.items():
-        if counts[name] != per * N_FRAMES:
-            raise CheckFailed(f"{name}: {counts[name]} launches in {N_FRAMES} frames, "
-                              f"expected {per * N_FRAMES}")
+    for kname, per in EXPECTED_PER_FRAME[name].items():
+        if counts[kname] != per * n_pairs:
+            raise CheckFailed(f"{name}: {kname} launched {counts[kname]} times in {n_pairs} "
+                              f"frames, expected {per * n_pairs}")
     for out, aux in outs:
         if out.shape != (3, FRAME_H, FRAME_W) or not np.isfinite(out).all():
-            raise CheckFailed(f"served output: shape {out.shape}, finite {np.isfinite(out).all()}")
+            raise CheckFailed(f"{name} served output: shape {out.shape}, "
+                              f"finite {np.isfinite(out).all()}")
         if aux["offsets"][0].shape != (2, FRAME_H, FRAME_W):
-            raise CheckFailed(f"offsets shape {aux['offsets'][0].shape}")
-    results["serve"] = dict(ms_per_frame=ms, launches=counts, small_pair_err=small_err,
-                            out_dtype=str(interp.last_out_dtype))
+            raise CheckFailed(f"{name} offsets shape {aux['offsets'][0].shape}")
+    results.setdefault("serve", {})[name] = dict(
+        ms_per_frame=ms, launches=counts, small_pair_err=small_err,
+        out_dtype=str(interp.last_out_dtype))
     return model, pairs[0]
 
 
-def phase_profile(torch, model, pair, results):
+def phase_profile(torch, name, model, pair, results):
     """Where one served frame's time goes: the model forward alone (CUDA
     events, no host copies) and its kernels by device time (torch.profiler),
     with the device's idle share over the profiled forward; then one served
@@ -351,16 +456,16 @@ def phase_profile(torch, model, pair, results):
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     ours = sum(r[1] for r in rows if "memc::" in r[0])  # csrc/*.cu namespace
-    log(f"  forward alone (bf16, device time, 5 runs median): {fwd_ms:.3f} ms; profiled "
+    log(f"  {name} forward alone (bf16, device time, 5 runs median): {fwd_ms:.3f} ms; profiled "
         f"forward: wall {wall_ms:.3f} ms, kernels {busy:.3f} ms, idle share "
         f"{max(0.0, 1 - busy / wall_ms):.3f}; port kernels {ours:.3f} ms")
-    with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as f:
         for key, ms_, n in rows:
             f.write(f"{ms_:10.4f} ms {n:5d}x  {key}\n")
     for key, ms_, n in rows[:12]:
         log(f"    {ms_:9.4f} ms {100 * ms_ / max(busy, 1e-9):5.1f}% {n:4d}x  {key[:90]}")
-    results["profile"] = dict(forward_ms=fwd_ms, wall_ms=wall_ms, kernel_ms=busy,
-                              port_kernel_ms=ours, top=rows[:25])
+    prof_res = results.setdefault("profile", {})[name] = dict(
+        forward_ms=fwd_ms, wall_ms=wall_ms, kernel_ms=busy, port_kernel_ms=ours, top=rows[:25])
 
     # one served frame stage by stage, as PaddedInterp runs it (host clock,
     # each stage ends in a synchronise)
@@ -380,9 +485,9 @@ def phase_profile(torch, model, pair, results):
         (interp, rect), offs, filts, occs = stage("forward", lambda: model(*xs))
         stage("to_host", lambda: [unpad_frame(t[0].float().cpu().numpy(), plan, FRAME_H, FRAME_W)
                                   for t in (rect, interp, *offs, *filts, *occs)])
-    log("  one served frame by stage (host ms): "
+    log(f"  {name}: one served frame by stage (host ms): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    results["profile"]["host_stages_ms"] = stages
+    prof_res["host_stages_ms"] = stages
 
 
 def main():
@@ -419,12 +524,17 @@ def main():
         log(f"  built in {build_s:.2f} s (cached: {_lib.build_info['cached']})")
         results["build_s"] = build_s
 
-        log("phase 2: kernels vs plain versions at the 720p path's shapes")
+        log("phase 2: kernels vs plain versions at the 720p paths' shapes")
         phase_kernels(torch, results)
-        log("phase 3: serve MEMC_Net_star 1280x720 through PaddedInterp")
-        model, pair = phase_serve(torch, results)
+        log("phase 3: serve 1280x720 through PaddedInterp")
+        served = {}
+        for name, n_pairs in SERVED:
+            served[name] = phase_serve(torch, name, n_pairs, results)
         log("phase 4: where the time of one frame goes")
-        phase_profile(torch, model, pair, results)
+        for name, _ in SERVED:
+            phase_profile(torch, name, *served[name], results)
+            del served[name]
+            torch.cuda.empty_cache()
     except Exception:  # every failure ends the run with no result line
         traceback.print_exc()
         with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
@@ -432,21 +542,32 @@ def main():
         return 1
 
     # the row that matches bf16 serving: K2 scatters a float32 payload made
-    # from bf16 flows; K3 fills the float32 projected average
+    # from bf16 flows; K3 fills the float32 projected average; K4's main row is
+    # the ctx conv, its SPyNet shapes are listed beside it
     main_dtype = {"filter_interp_warp": "bfloat16", "base_scatter": "bfloat16",
-                  "fill_holes": "float32", "conv2d_small": "bfloat16"}
+                  "fill_holes": "float32", "conv2d_small": "bfloat16", "grid_sample": "bfloat16"}
+    krows = results["kernels"]
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
-        r = results["kernels"][name][main_dtype[name]]
-        other = results["kernels"][name]["float32" if main_dtype[name] == "bfloat16" else "bfloat16"]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": results["serve"]["launches"][name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "dtype": main_dtype[name], "other_dtype_max_abs_err": other["max_abs_err"],
-            "other_dtype_ms": other["ms"],
-        })
+        dt = main_dtype[name]
+        other = "float32" if dt == "bfloat16" else "bfloat16"
+        by_path = {m: results["serve"][m]["launches"][name] for m, _ in SERVED}
+
+        def row(key):
+            r, o = krows[key][dt], krows[key][other]
+            return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"], "dtype": dt,
+                    "other_dtype_max_abs_err": o["max_abs_err"], "other_dtype_ms": o["ms"],
+                    "other_dtype_library_ms": o["library_ms"]}
+
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": sum(by_path.values()), "launches_by_path": by_path, **row(name)}
+        if name == "conv2d_small":
+            entry["spynet_shapes"] = [
+                {"shape": key.split("spynet ")[1].rstrip("]"), **row(key)}
+                for key in krows if key.startswith("conv2d_small[spynet")]
+        kernels.append(entry)
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump(results, f, indent=1)
     print(json.dumps({"kernels": kernels}))

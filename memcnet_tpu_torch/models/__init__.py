@@ -1,13 +1,14 @@
 """Model registry of the port (mirrors memcnet_tpu/models/__init__.py).
-Only what is ported is listed; the other reference models are queued in
-ROADMAP.md Queue A."""
+Only what is ported is listed; MEMC_Net_VE is queued in ROADMAP.md Queue A."""
 
-from memcnet_tpu_torch.models.memc_net import MEMCNetStar
+from memcnet_tpu_torch.models.memc_net import MEMCNet, MEMCNetS, MEMCNetStar
 
 _REGISTRY = {
+    "MEMC_Net": MEMCNet,
+    "MEMC_Net_s": MEMCNetS,
     "MEMC_Net_star": MEMCNetStar,
 }
-_NOT_PORTED = ("MEMC_Net", "MEMC_Net_s", "MEMC_Net_VE")
+_NOT_PORTED = ("MEMC_Net_VE",)
 
 __all__ = tuple(_REGISTRY)
 

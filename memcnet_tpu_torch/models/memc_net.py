@@ -1,75 +1,94 @@
-"""MEMC_Net_star 2x frame interpolation, eval mode (port of
-memcnet_tpu/models/memc_net.py:49-218; reference MEMC_Net_star.py:78-169).
+"""The three frame-interpolation models in eval mode: MEMC_Net, MEMC_Net_s
+and MEMC_Net_star (port of memcnet_tpu/models/memc_net.py; reference
+MEMC_Net.py:69-146, MEMC_Net_s.py:62-145, MEMC_Net_star.py:78-169).
 
 Pipeline, for frames x0 and x2:
-  flow:      FlowNetS on both directions batched, x (20/2), bilinear x4 upsample,
+  flow:      FlowNetS on both directions batched, x (20/2), bilinear x4 upsample
+             [_s: SPyNet(first, second) / 2, at full resolution already],
              flow_project to the middle time with the hole fill
-  filter:    MonoNet5 trunk (no BN for star) -> two fs^2-channel branches
+  filter:    MonoNet5 trunk -> two fs^2-channel branches
   occlusion: MonoNet5 trunk -> 0.5 + two 1-channel branches
              (filter and occlusion nets run as one groups=2 walk)
-  context:   ResNet conv1 (3 -> 64, 7x7) of both frames, one batched call
-  warp:      filter_interp_warp_split of (frame, context) per frame
-  blend:     occ0 * w0 + occ1 * w1
-  rectify:   blend + EDSR(169 ch, 10 resblocks, 128 feats) over
-             (blend, offsets, filters, occlusions, warped contexts detached)
+             [_s: one thin trunk; occlusions = filter branch 0, channel 0]
+  [star]:    ResNet conv1 (3 -> 64, 7x7) contexts of both frames, one call
+  warp:      filter_interp_warp per frame [star: of (frame, context)]
+  blend:     occ0 * w0 + occ1 * w1  [_s: w0 / 2 + w1 / 2]
+  rectify:   blend + 8-conv RectifyNet over (blend, offsets, filters,
+             occlusions)  [star: EDSR(169 ch, 10 resblocks, 128 feats) with
+             the warped contexts, detached]
 
-``MEMCNet`` carries the skeleton shared with MEMC_Net; MEMC_Net itself (BN
-MonoNets and the conv RectifyNet), MEMC_Net_s, MEMC_Net_VE and train mode are
-still to port (ROADMAP.md Queue A).  Module attribute names make the
-state-dict keys equal the JAX flat-dict keys.
+Train mode and MEMC_Net_VE are still to port (ROADMAP.md Queue A).  Module
+attribute names make the state-dict keys equal the JAX flat-dict keys.
 """
 
 import torch
 from torch import nn
 
 from memcnet_tpu_torch.models import ctx as ctx_mod
-from memcnet_tpu_torch.models import edsr, flownets
+from memcnet_tpu_torch.models import edsr, flownets, spynet
 from memcnet_tpu_torch.models.mononet import (
     branch_specs,
     build_modulelist,
     forward_dual_path,
+    forward_single_path,
     init_specs,
     mononet5_specs,
+    rectify_specs,
 )
 from memcnet_tpu_torch.nn import init as I
 from memcnet_tpu_torch.nn.layers import upsample_bilinear
-from memcnet_tpu_torch.ops import flow_project, filter_interp_warp_split
+from memcnet_tpu_torch.ops import filter_interp_warp, filter_interp_warp_split, flow_project
 
 DIV_FLOW = 20.0
 
 
 class MEMCNet(nn.Module):
-    """Skeleton shared by the interpolation models: FlowNetS flow, paired
-    MonoNet5 filter / occlusion nets and the occlusion-weighted blend.
-    Subclasses supply the rectifier (``_rectify``) and init rule."""
+    """MEMC_Net: FlowNetS flow, paired BN MonoNet5 filter / occlusion nets,
+    the occlusion-weighted blend and the 8-conv RectifyNet; kaiming init.
+    Subclasses change the flow net, trunk, rectifier and blend."""
 
+    variant = "full"
     with_bn = True
     init_fn = staticmethod(I.kaiming_uniform)
+    has_occlusion_net = True
+    flow_net = flownets.FlowNetS
 
     def __init__(self, filter_size=4, channel=3):
         super().__init__()
         self.filter_size = filter_size
         fs2 = filter_size * filter_size
-        self.trunk_specs = mononet5_specs(channel, self.with_bn)
+        self.trunk_specs = mononet5_specs(channel, self.with_bn, variant=self.variant)
         self.filter_branch_specs = branch_specs(fs2)
         self.occ_branch_specs = branch_specs(1)
         self.initScaleNets_filter = build_modulelist(self.trunk_specs)
         self.initScaleNets_filter1 = build_modulelist(self.filter_branch_specs)
         self.initScaleNets_filter2 = build_modulelist(self.filter_branch_specs)
-        self.initScaleNets_occlusion = build_modulelist(self.trunk_specs)
-        self.initScaleNets_occlusion1 = build_modulelist(self.occ_branch_specs)
-        self.initScaleNets_occlusion2 = build_modulelist(self.occ_branch_specs)
-        self.flownets = flownets.FlowNetS()
+        if self.has_occlusion_net:
+            self.initScaleNets_occlusion = build_modulelist(self.trunk_specs)
+            self.initScaleNets_occlusion1 = build_modulelist(self.occ_branch_specs)
+            self.initScaleNets_occlusion2 = build_modulelist(self.occ_branch_specs)
+        self.flownets = self.flow_net()
+        self._build_rectify()
+
+    def _build_rectify(self):
+        fs2 = self.filter_size * self.filter_size
+        self.rectify_in = 3 + 4 + 2 * fs2 + 2  # MEMC_Net.py:32
+        self.rectify_specs = rectify_specs(self.rectify_in)
+        self.rectifyNet = build_modulelist(self.rectify_specs)
 
     def _mononet_parts(self):
-        return [
+        parts = [
             (self.initScaleNets_filter, self.trunk_specs),
             (self.initScaleNets_filter1, self.filter_branch_specs),
             (self.initScaleNets_filter2, self.filter_branch_specs),
-            (self.initScaleNets_occlusion, self.trunk_specs),
-            (self.initScaleNets_occlusion1, self.occ_branch_specs),
-            (self.initScaleNets_occlusion2, self.occ_branch_specs),
         ]
+        if self.has_occlusion_net:
+            parts += [
+                (self.initScaleNets_occlusion, self.trunk_specs),
+                (self.initScaleNets_occlusion1, self.occ_branch_specs),
+                (self.initScaleNets_occlusion2, self.occ_branch_specs),
+            ]
+        return parts
 
     def init_params(self, generator):
         """Seeded init with the reference's rules, in the JAX init order
@@ -82,19 +101,23 @@ class MEMCNet(nn.Module):
         return self
 
     def _init_rectify(self, generator):
-        raise NotImplementedError
+        init_specs(self.rectifyNet, self.rectify_specs, self.init_fn, generator)
 
     def _init_extra(self, generator):
         pass
 
-    def _flows(self, x0, x2, fillhole):
-        # both directions batched, sample-major (B, 2, ...), as memc_net.py:94-108
+    def _flow(self, x0, x2):
+        """Both directions' flows, batched sample-major as (2B, 2, H, W)
+        (memc_net.py:94-108): FlowNetS x (20/2), bilinear x4 upsample."""
         B = x0.shape[0]
         p01 = torch.cat((x0, x2), dim=1)
         p10 = torch.cat((x2, x0), dim=1)
         pairs = torch.stack((p01, p10), dim=1).reshape((2 * B,) + p01.shape[1:])
-        f = upsample_bilinear(self.flownets(pairs) * (DIV_FLOW / 2.0), 4)
-        off = flow_project(f, fillhole=fillhole).reshape((B, 2, 2) + f.shape[2:])
+        return upsample_bilinear(self.flownets(pairs) * (DIV_FLOW / 2.0), 4)
+
+    def _flows(self, x0, x2, fillhole):
+        f = self._flow(x0, x2)
+        off = flow_project(f, fillhole=fillhole).reshape((x0.shape[0], 2, 2) + f.shape[2:])
         return off[:, 0], off[:, 1]
 
     def _filters_and_occlusions(self, pair):
@@ -109,6 +132,51 @@ class MEMCNet(nn.Module):
     def _blend(self, warped0, warped1, occ):
         return occ[0] * warped0 + occ[1] * warped1  # MEMC_Net.py:263
 
+    def _rectify(self, blended, offs, filters, occs):
+        rin = torch.cat((blended, offs[0], offs[1], filters[0], filters[1], occs[0], occs[1]),
+                        dim=1)
+        return blended + forward_single_path(self.rectifyNet, self.rectify_specs, rin)
+
+    def forward(self, x0, x2):
+        """x0, x2: (B, 3, H, W), H and W multiples of 128 (padded upstream).
+        Returns ((interp, rectified), (off0, off1), (filt0, filt1),
+        (occ0, occ1)), as the JAX forward in eval mode."""
+        fs = self.filter_size
+        pair = torch.cat((x0, x2), dim=1)
+        offs = self._flows(x0, x2, fillhole=True)
+        filters, occs = self._filters_and_occlusions(pair)
+        w0 = filter_interp_warp(x0, offs[0], filters[0], filter_size=fs)
+        w1 = filter_interp_warp(x2, offs[1], filters[1], filter_size=fs)
+        blended = self._blend(w0, w1, occs)
+        return (blended, self._rectify(blended, offs, filters, occs)), offs, filters, occs
+
+
+class MEMCNetS(MEMCNet):
+    """MEMC_Net_s: SPyNet flow at full resolution halved (MEMC_Net_s.py:147-156),
+    one thin BN MonoNet5 trunk with the paired filter branches, no occlusion
+    net (pseudo-occlusions from filter branch 0, channel 0, :111-114) and the
+    plain average blend (:260-266)."""
+
+    variant = "thin"
+    has_occlusion_net = False
+    flow_net = spynet.SPyNet
+
+    def _flow(self, x0, x2):
+        B = x0.shape[0]
+        first = torch.stack((x0, x2), dim=1).reshape((2 * B,) + x0.shape[1:])
+        second = torch.stack((x2, x0), dim=1).reshape((2 * B,) + x0.shape[1:])
+        return self.flownets(first, second) / 2.0
+
+    def _filters_and_occlusions(self, pair):
+        t = forward_single_path(self.initScaleNets_filter, self.trunk_specs, pair)
+        filters = forward_dual_path(self.initScaleNets_filter1, self.initScaleNets_filter2,
+                                    self.filter_branch_specs, t)
+        occ = filters[0][:, :1]
+        return filters, (occ, occ)
+
+    def _blend(self, warped0, warped1, occ):
+        return warped0 / 2.0 + warped1 / 2.0  # MEMC_Net_s.py:264
+
 
 class MEMCNetStar(MEMCNet):
     """MEMC-Net*: ResNet-conv1 contexts (warped, detached) and the EDSR
@@ -120,10 +188,12 @@ class MEMCNetStar(MEMCNet):
 
     def __init__(self, filter_size=4, channel=3):
         super().__init__(filter_size, channel)
-        fs2 = filter_size * filter_size
+        self.ctxNet = ctx_mod.ContextNet()
+
+    def _build_rectify(self):
+        fs2 = self.filter_size * self.filter_size
         self.rectify_in = 3 + 2 * 2 + 2 * fs2 + 64 * 2 + 1 * 2  # MEMC_Net_star.py:35
         self.rectifyNet = edsr.EDSR(self.rectify_in, n_resblocks=10, n_feats=128)
-        self.ctxNet = ctx_mod.ContextNet()
 
     def _init_rectify(self, generator):
         self.rectifyNet.init_params(generator, init_fn=self.init_fn)

@@ -1,6 +1,6 @@
-"""MonoNet5 U-Net trunk and its conv-relu-conv branches as layer specs (port
-of memcnet_tpu/models/mononet.py; reference MEMC_Net.py:154-250,
-MEMC_Net_star.py:204-262).
+"""MonoNet5 U-Net trunks, their conv-relu-conv branches and the RectifyNet as
+layer specs (port of memcnet_tpu/models/mononet.py; reference
+MEMC_Net.py:154-250, MEMC_Net_s.py:192-239, MEMC_Net_star.py:204-262).
 
 A spec list ``[(kind, flat_idx, meta)]`` mirrors the reference's flat
 nn.ModuleList; ``build_modulelist`` makes that ModuleList, so state-dict keys
@@ -18,25 +18,49 @@ from memcnet_tpu_torch.nn import layers as L
 
 
 def _blocks_to_specs(blocks, with_bn):
-    """blocks: ('c'|'cp'|'cu', cin, cout) -> flat spec list mirroring
+    """blocks: ('c'|'cp'|'cu'|'uc', cin, cout) -> flat spec list mirroring
     ModuleList order ('cp' = conv-relu[-bn]-maxpool, 'cu' =
-    conv-relu[-bn]-upsample)."""
+    conv-relu[-bn]-upsample, 'uc' = upsample-conv-relu[-bn], MEMC_Net_s's
+    order, where the skip add lands before the conv)."""
     specs = []
     i = 0
     for kind, cin, cout in blocks:
+        if kind == "uc":
+            specs.append(("upsample", i, None)); i += 1
         specs.append(("conv", i, (cin, cout))); i += 1
         specs.append(("relu", i, None)); i += 1
-        if kind in ("cp", "cu"):
+        if kind in ("cp", "cu", "uc"):
             if with_bn:
                 specs.append(("bn", i, cout)); i += 1
-            specs.append(("maxpool" if kind == "cp" else "upsample", i, None)); i += 1
+            if kind == "cp":
+                specs.append(("maxpool", i, None)); i += 1
+            elif kind == "cu":
+                specs.append(("upsample", i, None)); i += 1
     return specs
 
 
-def mononet5_specs(channel_in, with_bn=True):
-    """Trunk specs of the full MonoNet5; the first conv takes the two stacked
-    frames.  (MEMC_Net_s's thin variant is still to port.)"""
+def mononet5_specs(channel_in, with_bn=True, *, variant="full"):
+    """Trunk specs; ``channel_in`` is per frame and the first conv takes the
+    two stacked frames.  ``variant``: "full" (MEMC_Net, MEMC_Net_star) or
+    "thin" (MEMC_Net_s, one conv per block)."""
     c2 = channel_in * 2
+    if variant == "thin":  # MEMC_Net_s.py:192-239
+        blocks = [
+            ("c", c2, 16), ("cp", 16, 32),
+            ("cp", 32, 64),
+            ("cp", 64, 128),
+            ("cp", 128, 256),
+            ("cp", 256, 512),
+            ("c", 512, 512),
+            ("uc", 512, 256),
+            ("uc", 256, 128),
+            ("uc", 128, 64),
+            ("uc", 64, 32),
+            ("uc", 32, 16),
+        ]
+        return _blocks_to_specs(blocks, with_bn)
+    if variant != "full":
+        raise ValueError(variant)
     blocks = [
         ("c", c2, 32), ("c", 32, 32), ("cp", 32, 32),
         ("c", 32, 64), ("cp", 64, 64),
@@ -56,6 +80,14 @@ def mononet5_specs(channel_in, with_bn=True):
 def branch_specs(channel_out):
     """conv_relu_conv branch: Conv(16,16) / ReLU / Conv(16,out)."""
     return [("conv", 0, (16, 16)), ("relu", 1, None), ("conv", 2, (16, channel_out))]
+
+
+def rectify_specs(channel_in):
+    """get_RectifyNet2 (MEMC_Net.py:240-250): 7 conv-relu (-> 64) and a final
+    conv to 3 channels."""
+    specs = _blocks_to_specs([("c", channel_in, 64)] + [("c", 64, 64)] * 6, with_bn=False)
+    specs.append(("conv", specs[-1][1] + 1, (64, 3)))
+    return specs
 
 
 def build_modulelist(specs):

@@ -9,6 +9,9 @@ seed; tests that compare the two packages move weights across with
   * flownets_normal: normal(0, 0.02 / n), n = kh*kw*out_channels (OIHW);
     flownets_normal_iohw for conv-transpose weights (IOHW).
   * resnet_msra: normal(0, sqrt(2 / n)), n = kh*kw*out_channels.
+  * torch_default_uniform (SPyNet, weights and biases): the torch-0.2 Conv2d
+    default, uniform(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in = I*kh*kw of the
+    conv (spynet.py:28-32, :41-43).
 """
 
 import math
@@ -55,3 +58,11 @@ def flownets_normal_iohw(shape, generator, dtype=torch.float32):
 def resnet_msra(shape, generator, dtype=torch.float32):
     o, _i, kh, kw = shape
     return _normal(shape, math.sqrt(2.0 / (kh * kw * o)), generator, dtype)
+
+
+def torch_default_uniform(shape, generator, dtype=torch.float32, fan_in=None):
+    """``fan_in`` defaults to that of an OIHW ``shape``; a bias passes its
+    conv's fan_in."""
+    if fan_in is None:
+        fan_in, _ = _fans(shape)
+    return _uniform(shape, 1.0 / math.sqrt(fan_in), generator, dtype)

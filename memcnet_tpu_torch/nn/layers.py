@@ -7,10 +7,17 @@ name for name.  PyTorch-0.2 semantics kept: bilinear upsampling is
 align_corners=True; BatchNorm eval uses running statistics with eps 1e-5.
 The JAX package's sub-pixel form of ConvTranspose2d (layers.py:166-197) is a
 TPU workaround and is not carried over.
+
+``grid_sample_bilinear`` is the one layer here with a hand kernel (K5,
+ops/cuda/gather_kernel.py); the JAX package's same-size-grid gate and its
+lax.cond budget around the Pallas gather (layers.py:329, :418) were TPU
+choices, so every grid shape takes the kernel on CUDA tensors.
 """
 
 import torch
 import torch.nn.functional as F
+
+from memcnet_tpu_torch.ops.cuda import gather_kernel
 
 
 def _cast(t, dtype):
@@ -36,6 +43,25 @@ def upsample_bilinear(x, scale_factor=2):
 
 def max_pool2d(x, k=2, s=None):
     return F.max_pool2d(x, k, k if s is None else s)
+
+
+def avg_pool2d(x, k=2, s=None):
+    """Average pool, 'VALID' windows: odd sizes floor (layers.py:243-246)."""
+    return F.avg_pool2d(x, k, k if s is None else s)
+
+
+def replication_pad2d(x, pad):
+    """pad = (left, right, top, bottom), PyTorch ReplicationPad2d order."""
+    return F.pad(x, tuple(pad), mode="replicate")
+
+
+def grid_sample_bilinear(x, grid):
+    """F.grid_sample semantics, mode='bilinear', padding_mode='zeros',
+    align_corners=True (layers.py:312-360): each out-of-range tap adds zero.
+    x (B, C, H, W); grid (B, Ho, Wo, 2) normalised to [-1, 1], [..., 0] = x.
+    Coordinates and tap weights are float32 whatever x's type; the result has
+    x's type.  Kernel K5 on CUDA tensors, its plain version on CPU tensors."""
+    return gather_kernel.grid_sample(x, grid)
 
 
 def relu(x):

@@ -9,11 +9,18 @@ on CUDA tensors (or raises) and takes the plain version only for CPU tensors.
   scatter_kernel  K2  projection base scatter     (csrc/scatter.cu)
   fill_kernel     K3  projection hole fill        (csrc/fill.cu)
   conv_kernel     K4  small-C direct conv         (csrc/conv.cu)
+  gather_kernel   K5  bilinear grid sample        (csrc/gather.cu)
 """
 
-from memcnet_tpu_torch.ops.cuda import conv_kernel, fill_kernel, scatter_kernel, warp_kernel
+from memcnet_tpu_torch.ops.cuda import (
+    conv_kernel,
+    fill_kernel,
+    gather_kernel,
+    scatter_kernel,
+    warp_kernel,
+)
 
-KERNELS = (warp_kernel, scatter_kernel, fill_kernel, conv_kernel)
+KERNELS = (warp_kernel, scatter_kernel, fill_kernel, conv_kernel, gather_kernel)
 
 
 def reset_counters():

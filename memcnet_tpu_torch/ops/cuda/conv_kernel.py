@@ -10,13 +10,17 @@ inputs' exact products, NCHW in and out, output rounded once to the input
 type.  It serves any spatial size; the TPU path's 96x96 gate was a TPU
 heuristic.
 
+Its callers: the ctx conv (3 -> 64) and every conv of SPyNet's 7x7 stacks
+(8 -> 32 -> 64 -> 32 -> 16 -> 2, bias, ReLU on the first four).
+
 What bounds it on the H100: in bf16 the ideal kernel is bound by writing the
-output (64 channels per pixel on the main path); this direct form runs its
-C*K*K multiply-adds per output on the float32 CUDA cores and is bound by them.
-Its design: a block stages a 64 x 8 input tile with its halo and a
-16-output-channel weight slice in shared memory; each thread keeps
-2 pixels x 16 channels of float32 sums in registers.  A tensor-core version
-is later work.
+output for the ctx conv and by its operations (tensor-core rate) for SPyNet's
+convs; this direct form runs its C*K*K multiply-adds per output on the float32
+CUDA cores and is bound by them.  Its design: a block owns a 64 x 8 pixel
+tile and 16 output channels and walks the input channels in chunks of 8: each
+chunk's input tile with its halo and weight slice are staged in shared memory
+(at most 56 KB at K = 7, whatever C) and accumulated into 2 pixels x 16
+channels of float32 sums per thread.  A tensor-core version is later work.
 """
 
 import torch
@@ -44,9 +48,6 @@ def launch(x, w, b=None, relu=False):
     if Cw != C or K != K2 or K not in KERNEL_SIZES:
         raise ValueError(f"{what}: weight {tuple(w.shape)} does not fit input {tuple(x.shape)} "
                          f"(square odd K in {KERNEL_SIZES})")
-    # shared memory: (8+K-1) x (64+K-1) input tile + K*K*16 weights per channel
-    if 4 * C * ((8 + K - 1) * (64 + K - 1) + K * K * 16) > 227 * 1024:
-        raise ValueError(f"{what}: C={C} is too many input channels for this kernel")
     code = _lib.dtype_code(x.dtype)
     x = x.contiguous()
     w = w.to(x.dtype).contiguous()

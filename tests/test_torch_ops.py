@@ -233,6 +233,22 @@ def test_bf16_landing_cells_are_float32(rng):
     assert int(ixL[0, 0, 1001]) == 1001 and bool(valid.all())
 
 
+def test_bf16_spynet_warp_grid_is_float32():
+    """A bf16 SPyNet warp with zero flow at W = 1344 returns column 1172 of
+    the source to within one bf16 rounding: its base grid is float32.  (The
+    JAX package builds it in bf16, spynet.py:77-81, and reads a column up to
+    7 px away; ROADMAP.md Queue C.)"""
+    from memcnet_tpu_torch.models import spynet as tspynet
+
+    H, W = 4, 1344
+    src = torch.zeros(1, 1, H, W, dtype=torch.bfloat16)
+    src[..., 1172] = 1.0
+    out = tspynet._backward_warp(src, torch.zeros(1, 2, H, W, dtype=torch.bfloat16))
+    assert out.dtype == torch.bfloat16
+    assert float((out.float() - src.float()).abs().max()) <= 2.0 ** -8
+    assert int(out[0, 0, 0].float().argmax()) == 1172
+
+
 # -- ctx conv ------------------------------------------------------------------
 
 
@@ -280,8 +296,10 @@ SLICE_MODULES = [
     "memcnet_tpu_torch.io.params", "memcnet_tpu_torch.models", "memcnet_tpu_torch.models.ctx",
     "memcnet_tpu_torch.models.edsr", "memcnet_tpu_torch.models.flownets",
     "memcnet_tpu_torch.models.memc_net", "memcnet_tpu_torch.models.mononet",
+    "memcnet_tpu_torch.models.spynet",
     "memcnet_tpu_torch.nn.init", "memcnet_tpu_torch.nn.layers", "memcnet_tpu_torch.ops",
     "memcnet_tpu_torch.ops.cuda", "memcnet_tpu_torch.ops.cuda._lib",
+    "memcnet_tpu_torch.ops.cuda.gather_kernel",
     "memcnet_tpu_torch.ops.projection", "memcnet_tpu_torch.ops.warp",
 ]
 
@@ -330,10 +348,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_get_model_lists_only_ported():
-    assert TM.__all__ == ("MEMC_Net_star",)
-    for name in ("MEMC_Net", "MEMC_Net_s", "MEMC_Net_VE"):
-        with pytest.raises(NotImplementedError, match="Queue A"):
-            TM.get_model(name)
+    assert TM.__all__ == ("MEMC_Net", "MEMC_Net_s", "MEMC_Net_star")
+    for name in TM.__all__:
+        assert isinstance(TM.get_model(name), torch.nn.Module)
+    with pytest.raises(NotImplementedError, match="Queue A"):
+        TM.get_model("MEMC_Net_VE")
     with pytest.raises(KeyError):
         TM.get_model("nope")
 
