@@ -7,8 +7,9 @@ Phases (any failed check exits non-zero and prints no result line):
   1. build the hand-written CUDA kernels from memcnet_tpu_torch/csrc;
   2. hold each kernel against its plain PyTorch version on the card, in bf16
      and in float32, at the shapes of the 720p serving paths (1280x720 padded
-     to 1344x768): K1-K4 at MEMC_Net_star's, K5 (grid sample) and K4 at each
-     of the five convs of SPyNet's top level (MEMC_Net_s); time the kernel,
+     to 1344x768): K1-K4 at MEMC_Net_star's, K5 (grid sample) at SPyNet's
+     top level and K4 at each of the five convs of every SPyNet level,
+     768x1344 down to 24x42 (MEMC_Net_s); time the kernel,
      its plain version and, where one PyTorch call computes the same
      function, that call;
   3. serve, each model with seeded random weights in bf16 through
@@ -304,31 +305,36 @@ def phase_kernels(torch, results):
                extra=dict(zero_pixels=zero_px))
         del x, grid, got, ref
 
-        # --- K4 at each conv of SPyNet's top level: B = 2, 7x7, bias, ReLU on
-        # the first four; torch-0.2 default weights
+        # --- K4 at each conv of every SPyNet level: B = 2, 7x7, bias, ReLU on
+        # the first four; torch-0.2 default weights.  The top level keeps its
+        # row names; level l (l = 1..5, 2**l times smaller) is tagged "L<l>".
         wgen = torch.Generator().manual_seed(2)
-        for j, (cin, cout) in enumerate(spynet.BASIC):
-            relu = j < len(spynet.BASIC) - 1
-            x = (torch.rand((2, cin, H, W), generator=gen, device=dev) * 4.0 - 2.0).to(dt)
-            w = I.torch_default_uniform((cout, cin, 7, 7), wgen).to(dev).to(dt)
-            b = I.torch_default_uniform((cout,), wgen, fan_in=cin * 49).to(dev)
-            got = conv_kernel.launch(x, w, b, relu=relu)
-            ref = conv_kernel.reference(x, w, b, relu=relu)
+        for lvl in range(spynet.LEVELS):
+            h, w_ = H >> lvl, W >> lvl
+            tag = "" if lvl == 0 else f"L{lvl} {h}x{w_} "
+            for j, (cin, cout) in enumerate(spynet.BASIC):
+                relu = j < len(spynet.BASIC) - 1
+                x = (torch.rand((2, cin, h, w_), generator=gen, device=dev) * 4.0 - 2.0).to(dt)
+                w = I.torch_default_uniform((cout, cin, 7, 7), wgen).to(dev).to(dt)
+                b = I.torch_default_uniform((cout,), wgen, fan_in=cin * 49).to(dev)
+                got = conv_kernel.launch(x, w, b, relu=relu)
+                ref = conv_kernel.reference(x, w, b, relu=relu)
 
-            def lib_conv():
-                out = F.conv2d(x, w, b.to(dt), padding=3)
-                return out.clamp_(min=0.0) if relu else out
+                def lib_conv():
+                    out = F.conv2d(x, w, b.to(dt), padding=3)
+                    return out.clamp_(min=0.0) if relu else out
 
-            # float32: up to 3,136-term sums of |x w| <= 2 / sqrt(fan_in)
-            record(f"conv2d_small[spynet {cin}->{cout}]", dtype_name,
-                   compare([(got, ref)], 5e-4, long_sums=True),
-                   timed_ms(torch, lambda: conv_kernel.launch(x, w, b, relu=relu), flush=flush),
-                   timed_ms(torch, lambda: conv_kernel.reference(x, w, b, relu=relu),
-                            flush=flush),
-                   timed_ms(torch, lib_conv, flush=flush),
-                   nbytes=2 * H * W * (cin + cout) * esize + w.numel() * esize + 4 * cout,
-                   flops=2 * 2 * H * W * cout * cin * 49, op_dtype=dtype_name)
-            del x, w, b, got, ref
+                # float32: up to 3,136-term sums of |x w| <= 2 / sqrt(fan_in)
+                record(f"conv2d_small[spynet {tag}{cin}->{cout}]", dtype_name,
+                       compare([(got, ref)], 5e-4, long_sums=True),
+                       timed_ms(torch, lambda: conv_kernel.launch(x, w, b, relu=relu),
+                                flush=flush),
+                       timed_ms(torch, lambda: conv_kernel.reference(x, w, b, relu=relu),
+                                reps=10 if lvl == 0 else 5, flush=flush),
+                       timed_ms(torch, lib_conv, flush=flush),
+                       nbytes=2 * h * w_ * (cin + cout) * esize + w.numel() * esize + 4 * cout,
+                       flops=2 * 2 * h * w_ * cout * cin * 49, op_dtype=dtype_name)
+                del x, w, b, got, ref
         torch.cuda.empty_cache()
     results["kernels"] = rows
 
@@ -518,8 +524,8 @@ def main():
             text = open(blog).read()
             with open(os.path.join(OUT_DIR, "build.log"), "w") as f:
                 f.write(text)
-            for line in text.splitlines():
-                if "registers" in line or "spill" in line:
+            for line in text.splitlines():  # only the instances that spill
+                if "spill" in line and " 0 bytes spill stores" not in line:
                     log("    " + line.strip())
         log(f"  built in {build_s:.2f} s (cached: {_lib.build_info['cached']})")
         results["build_s"] = build_s

@@ -13,19 +13,42 @@
 // written to separate outputs, so the model never concatenates frame and
 // context.
 //
-// Bound on the H100: memory.  Each output pixel reads 2 flow values, fs^2
-// filter values and writes C outputs; the fs^2 taps per channel hit a small
-// neighbourhood that neighbouring threads share, so they are served from L1/L2
-// and the DRAM traffic is close to one read of every input plane and one write
-// of every output plane.  Design: one thread per output pixel (threads of a
-// warp on neighbouring x, so flow/filter reads and output writes coalesce);
-// the 16 tap weights and clamped tap offsets are computed once per pixel in
-// registers and reused across every channel of every source.
+// Bound on the H100: memory -- each output pixel reads 2 flow values, fs^2
+// filter values and one value per channel of its fs x fs source patch, and
+// writes one value per channel; counted once, that is 0.095 ms for star's
+// 67-channel bf16 warp at 1344x768.  What held the one-thread-per-pixel
+// kernel this replaced at 6.4x that bound was not DRAM and not the count of load
+// instructions but the gathers' spread: fs^2 scalar gathers per channel, each
+// warp-wide load touching several cache lines, the same source rows fetched
+// again by the blocks of the neighbouring output rows (PERF.md times the
+// steps: 16 loads per channel that all hit the pixel itself cost less than
+// four real gathers).
+//
+// Design: a block owns a 32 x 8 pixel tile.  Each thread computes its
+// pixel's gate, clamped tap rows and columns and its fs^2 tap weights once.
+// The block reduces the bounding box of its valid pixels' patches; where that
+// box holds at most 768 source pixels (smooth flow: about 40 x 14), the block
+// walks the channels two at a time, loads each channel's box once with
+// coalesced loads (the next pair's loads in flight while this pair is
+// summed), stores the two channels interleaved in shared memory, and sums
+// each pixel's taps from there: one shared load serves a tap of both
+// channels.  Blocks whose patches spread wider (noisy or discontinuous flow)
+// and launches of at most 4 channels in all (the 3-channel frame warps of
+// MEMC_Net and MEMC_Net_s), where staging does not pay, gather straight from global memory as
+// before.  Tap sums run in the same (j, i) order on both paths, so the two
+// agree bit for bit.
 #include "common.cuh"
+
+#include <climits>
 
 namespace memc {
 
 constexpr int kMaxSources = 4;
+constexpr int kWarpBX = 32;   // block tile: 32 x 8 output pixels
+constexpr int kWarpBY = 8;
+constexpr int kGatherChannels = 4;  // up to this many channels in all: no box
+constexpr int kBoxLoads = 3;  // box elements per thread and channel
+constexpr int kBoxMax = kBoxLoads * kWarpBX * kWarpBY;  // largest box staged: 768 elements
 
 // Mirrored by ctypes.Structure _WarpSources in ops/cuda/warp_kernel.py.
 struct WarpSources {
@@ -35,75 +58,215 @@ struct WarpSources {
   int n;
 };
 
+// The per-pixel part shared by both paths: gate, tap rows and columns
+// (edge-clamped) and tap weights rounded to the source type.
 template <typename T, int FS>
-__global__ void __launch_bounds__(128)
+struct PixelTaps {
+  bool valid;
+  int row[FS];  // clamped tap rows
+  int col[FS];  // clamped tap columns
+  float wt[FS * FS];
+
+  __device__ __forceinline__ void init(const float* __restrict__ flow, const T* __restrict__ filt,
+                                       int b, int x, int y, int H, int W) {
+    const int plane = H * W;
+    const int pix = y * W + x;
+    const float* fl = flow + static_cast<int64_t>(2 * b) * plane;
+    const float fx = fl[pix];
+    const float fy = fl[plane + pix];
+    const float x2 = static_cast<float>(x) + fx;
+    const float y2 = static_cast<float>(y) + fy;
+    valid = x2 >= 0.f && y2 >= 0.f && x2 <= static_cast<float>(W - 1) &&
+            y2 <= static_cast<float>(H - 1) && fabsf(fx) < 0.5f * W && fabsf(fy) < 0.5f * H;
+    if (!valid) return;
+    // int() truncation == floor on the valid domain (x2, y2 >= 0)
+    const int ix = clampi(static_cast<int>(x2), 0, W - 1);
+    const int iy = clampi(static_cast<int>(y2), 0, H - 1);
+    const float alpha = x2 - static_cast<float>(ix);
+    const float beta = y2 - static_cast<float>(iy);
+    constexpr int half = FS / 2;
+#pragma unroll
+    for (int j = 0; j < FS; ++j) row[j] = clampi(iy + 1 - half + j, 0, H - 1);
+#pragma unroll
+    for (int i = 0; i < FS; ++i) col[i] = clampi(ix + 1 - half + i, 0, W - 1);
+    const T* fp = filt + static_cast<int64_t>(b) * FS * FS * plane + pix;
+#pragma unroll
+    for (int j = 0; j < FS; ++j) {
+      const float wy = j >= half ? beta : 1.f - beta;
+#pragma unroll
+      for (int i = 0; i < FS; ++i) {
+        const float wx = i >= half ? alpha : 1.f - alpha;
+        const float w = to_f32(fp[(j * FS + i) * plane]) * wy;
+        wt[j * FS + i] = round_to<T>(w * wx);
+      }
+    }
+  }
+};
+
+// The plane of flat channel f (sources in order) of batch item b, and its
+// output plane.
+template <typename T>
+__device__ __forceinline__ void channel_planes(const WarpSources& s, int f, int b, int64_t plane,
+                                               const T** src, T** out) {
+  int k = 0;
+  while (f >= s.channels[k]) f -= s.channels[k++];
+  const int64_t off = (static_cast<int64_t>(b) * s.channels[k] + f) * plane;
+  *src = static_cast<const T*>(s.src[k]) + off;
+  *out = static_cast<T*>(s.out[k]) + off;
+}
+
+// Two channels' values of one box element, interleaved in shared memory.
+template <typename T>
+struct __align__(2 * sizeof(T)) Pair {
+  T a, b;
+};
+
+template <typename T, int FS, bool BOX>
+__global__ void __launch_bounds__(kWarpBX * kWarpBY, 4)
 filter_interp_warp_kernel(WarpSources s, const float* __restrict__ flow,
                           const T* __restrict__ filt, int H, int W) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
+  __shared__ Pair<T> box_s[BOX ? 2 : 1][BOX ? kBoxMax : 1];
+  __shared__ int red_s[4][BOX ? kWarpBY : 1];
+  const int x = blockIdx.x * kWarpBX + threadIdx.x;
+  const int y = blockIdx.y * kWarpBY + threadIdx.y;
   const int b = blockIdx.z;
-  if (x >= W) return;
-  const int64_t plane = static_cast<int64_t>(H) * W;
-  const int64_t pix = static_cast<int64_t>(y) * W + x;
+  const int tid = threadIdx.y * kWarpBX + threadIdx.x;
+  const bool inside = x < W && y < H;
+  const int plane = H * W;
+  const int pix = y * W + x;
 
-  const float fx = flow[(2 * b) * plane + pix];
-  const float fy = flow[(2 * b + 1) * plane + pix];
-  const float x2 = static_cast<float>(x) + fx;
-  const float y2 = static_cast<float>(y) + fy;
-  const bool valid = x2 >= 0.f && y2 >= 0.f && x2 <= static_cast<float>(W - 1) &&
-                     y2 <= static_cast<float>(H - 1) && fabsf(fx) < 0.5f * W &&
-                     fabsf(fy) < 0.5f * H;
+  PixelTaps<T, FS> p;
+  p.valid = false;
+  if (inside) p.init(flow, filt, b, x, y, H, W);
 
-  if (!valid) {
+  int total = 0;
+  for (int k = 0; k < s.n; ++k) total += s.channels[k];
+  bool use_box = false;
+  int lo_x = 0, lo_y = 0, bw = 0, bh = 0;
+  if constexpr (BOX) {
+    // the block's source box: the bounding box of its valid pixels' patches
+    int hi_x = INT_MIN, hi_y = INT_MIN;
+    lo_x = lo_y = INT_MAX;
+    if (p.valid) {
+      lo_x = p.col[0];
+      hi_x = p.col[FS - 1];
+      lo_y = p.row[0];
+      hi_y = p.row[FS - 1];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      lo_x = min(lo_x, __shfl_xor_sync(0xffffffffu, lo_x, o));
+      hi_x = max(hi_x, __shfl_xor_sync(0xffffffffu, hi_x, o));
+      lo_y = min(lo_y, __shfl_xor_sync(0xffffffffu, lo_y, o));
+      hi_y = max(hi_y, __shfl_xor_sync(0xffffffffu, hi_y, o));
+    }
+    if (threadIdx.x == 0) {
+      red_s[0][threadIdx.y] = lo_x;
+      red_s[1][threadIdx.y] = hi_x;
+      red_s[2][threadIdx.y] = lo_y;
+      red_s[3][threadIdx.y] = hi_y;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kWarpBY; ++w) {
+      lo_x = min(lo_x, red_s[0][w]);
+      hi_x = max(hi_x, red_s[1][w]);
+      lo_y = min(lo_y, red_s[2][w]);
+      hi_y = max(hi_y, red_s[3][w]);
+    }
+    bw = hi_x - lo_x + 1;
+    bh = hi_y - lo_y + 1;
+    use_box = hi_x >= lo_x && bw <= kBoxMax && bh <= kBoxMax && bw * bh <= kBoxMax;  // uniform
+  }
+
+  if (!use_box) {
+    // patches spread too far (or none valid): gather from global memory
+    if (!inside) return;
     for (int k = 0; k < s.n; ++k) {
       const int C = s.channels[k];
-      const T* src = static_cast<const T*>(s.src[k]) + b * C * plane + pix;
-      T* out = static_cast<T*>(s.out[k]) + b * C * plane + pix;
-      for (int c = 0; c < C; ++c) out[c * plane] = src[c * plane];
+      const int64_t off = static_cast<int64_t>(b) * C * plane;
+      const T* src = static_cast<const T*>(s.src[k]) + off;
+      T* out = static_cast<T*>(s.out[k]) + off + pix;
+      for (int c = 0; c < C; ++c) {
+        const T* sp = src + c * plane;
+        if (!p.valid) {
+          out[c * plane] = sp[pix];
+          continue;
+        }
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < FS; ++j) {
+#pragma unroll
+          for (int i = 0; i < FS; ++i) acc = fmaf(p.wt[j * FS + i], to_f32(sp[p.row[j] * W + p.col[i]]), acc);
+        }
+        out[c * plane] = from_f32<T>(acc);
+      }
     }
     return;
   }
 
-  // int() truncation == floor on the valid domain (x2, y2 >= 0)
-  const int ix = clampi(static_cast<int>(x2), 0, W - 1);
-  const int iy = clampi(static_cast<int>(y2), 0, H - 1);
-  const float alpha = x2 - static_cast<float>(ix);
-  const float beta = y2 - static_cast<float>(iy);
-  constexpr int half = FS / 2;
-
-  int64_t row[FS];
-  int col[FS];
+  // box path: two channels at a time, each channel's box loaded once,
+  // coalesced, into shared memory with the two channels interleaved (one
+  // shared load serves a tap of both), the next pair's loads in flight while
+  // this pair's taps are summed
+  constexpr int kThreads = kWarpBX * kWarpBY;
+  int ld_off[kBoxLoads];  // this thread's box elements: offset in the plane, -1 if none
 #pragma unroll
-  for (int j = 0; j < FS; ++j) row[j] = static_cast<int64_t>(clampi(iy + 1 - half + j, 0, H - 1)) * W;
+  for (int r = 0; r < kBoxLoads; ++r) {
+    const int i = tid + r * kThreads;
+    const int br = i / bw;
+    ld_off[r] = i < bw * bh ? (lo_y + br) * W + lo_x + (i - br * bw) : -1;
+  }
+  int tap_off[FS * FS];
+  if (p.valid) {
 #pragma unroll
-  for (int i = 0; i < FS; ++i) col[i] = clampi(ix + 1 - half + i, 0, W - 1);
-
-  float wt[FS * FS];
-  const T* fp = filt + static_cast<int64_t>(b) * FS * FS * plane + pix;
+    for (int j = 0; j < FS; ++j)
 #pragma unroll
-  for (int j = 0; j < FS; ++j) {
-    const float wy = j >= half ? beta : 1.f - beta;
-#pragma unroll
-    for (int i = 0; i < FS; ++i) {
-      const float wx = i >= half ? alpha : 1.f - alpha;
-      const float w = to_f32(fp[(j * FS + i) * plane]) * wy;
-      wt[j * FS + i] = round_to<T>(w * wx);
-    }
+      for (int i = 0; i < FS; ++i) tap_off[j * FS + i] = (p.row[j] - lo_y) * bw + p.col[i] - lo_x;
   }
 
-  for (int k = 0; k < s.n; ++k) {
-    const int C = s.channels[k];
-    const T* src = static_cast<const T*>(s.src[k]) + b * C * plane;
-    T* out = static_cast<T*>(s.out[k]) + b * C * plane + pix;
-    for (int c = 0; c < C; ++c) {
-      const T* sp = src + c * plane;
-      float acc = 0.f;
+  T v[2][kBoxLoads];
+  auto load_pair = [&](int f0) {
 #pragma unroll
-      for (int j = 0; j < FS; ++j) {
+    for (int u = 0; u < 2; ++u) {
+      if (f0 + u < total) {
+        const T* sp;
+        T* op;
+        channel_planes<T>(s, f0 + u, b, plane, &sp, &op);
 #pragma unroll
-        for (int i = 0; i < FS; ++i) acc = fmaf(wt[j * FS + i], to_f32(sp[row[j] + col[i]]), acc);
+        for (int r = 0; r < kBoxLoads; ++r) {
+          if (ld_off[r] >= 0) v[u][r] = sp[ld_off[r]];
+        }
       }
-      out[c * plane] = from_f32<T>(acc);
+    }
+  };
+  load_pair(0);
+  for (int f0 = 0; f0 < total; f0 += 2) {
+    Pair<T>* buf = box_s[(f0 >> 1) & 1];
+#pragma unroll
+    for (int r = 0; r < kBoxLoads; ++r) {
+      if (ld_off[r] >= 0) buf[tid + r * kThreads] = Pair<T>{v[0][r], v[1][r]};
+    }
+    __syncthreads();
+    if (f0 + 2 < total) load_pair(f0 + 2);
+    if (!inside) continue;
+    float acc[2] = {0.f, 0.f};
+    if (p.valid) {
+#pragma unroll
+      for (int t = 0; t < FS * FS; ++t) {
+        const Pair<T> q = buf[tap_off[t]];
+        acc[0] = fmaf(p.wt[t], to_f32(q.a), acc[0]);
+        acc[1] = fmaf(p.wt[t], to_f32(q.b), acc[1]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (f0 + u < total) {
+        const T* sp;
+        T* op;
+        channel_planes<T>(s, f0 + u, b, plane, &sp, &op);
+        op[pix] = p.valid ? from_f32<T>(acc[u]) : sp[pix];
+      }
     }
   }
 }
@@ -111,12 +274,19 @@ filter_interp_warp_kernel(WarpSources s, const float* __restrict__ flow,
 template <typename T>
 cudaError_t launch_warp(const WarpSources& s, const float* flow, const T* filt, int B, int H, int W,
                         int fs, cudaStream_t stream) {
-  const dim3 block(128);
-  const dim3 grid(ceil_div(W, 128), H, B);
+  if (static_cast<int64_t>(H) * W >= (int64_t{1} << 31)) return cudaErrorInvalidValue;
+  const dim3 block(kWarpBX, kWarpBY);
+  const dim3 grid(ceil_div(W, kWarpBX), ceil_div(H, kWarpBY), B);
+  int total = 0;
+  for (int k = 0; k < s.n; ++k) total += s.channels[k];
+  // a few channels do not repay staging the box: gather them directly
+  const bool box = total > kGatherChannels;
   if (fs == 4) {
-    filter_interp_warp_kernel<T, 4><<<grid, block, 0, stream>>>(s, flow, filt, H, W);
+    if (box) filter_interp_warp_kernel<T, 4, true><<<grid, block, 0, stream>>>(s, flow, filt, H, W);
+    else filter_interp_warp_kernel<T, 4, false><<<grid, block, 0, stream>>>(s, flow, filt, H, W);
   } else if (fs == 2) {
-    filter_interp_warp_kernel<T, 2><<<grid, block, 0, stream>>>(s, flow, filt, H, W);
+    if (box) filter_interp_warp_kernel<T, 2, true><<<grid, block, 0, stream>>>(s, flow, filt, H, W);
+    else filter_interp_warp_kernel<T, 2, false><<<grid, block, 0, stream>>>(s, flow, filt, H, W);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -131,6 +301,9 @@ MEMC_API int memc_filter_interp_warp(const memc::WarpSources* sources, const voi
                                      const void* filt, int B, int H, int W, int fs, int dtype,
                                      void* stream) {
   if (sources->n < 1 || sources->n > memc::kMaxSources) return cudaErrorInvalidValue;
+  for (int k = 0; k < sources->n; ++k) {
+    if (sources->channels[k] < 1) return cudaErrorInvalidValue;
+  }
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* fl = static_cast<const float*>(flow);
   if (dtype == memc::kFloat32) {

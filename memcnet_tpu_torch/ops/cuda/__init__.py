@@ -8,7 +8,7 @@ on CUDA tensors (or raises) and takes the plain version only for CPU tensors.
   warp_kernel     K1  filter-interpolation warp   (csrc/warp.cu)
   scatter_kernel  K2  projection base scatter     (csrc/scatter.cu)
   fill_kernel     K3  projection hole fill        (csrc/fill.cu)
-  conv_kernel     K4  small-C direct conv         (csrc/conv.cu)
+  conv_kernel     K4  small-C conv: bf16 on tensor cores, float32 direct  (csrc/conv.cu)
   gather_kernel   K5  bilinear grid sample        (csrc/gather.cu)
 """
 

@@ -128,8 +128,10 @@ def _declare(lib):
     lib.memc_fill_holes.restype = i
     lib.memc_fill_scratch_floats.argtypes = [i, i, i]
     lib.memc_fill_scratch_floats.restype = ctypes.c_int64
-    lib.memc_conv2d_small.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
+    lib.memc_conv2d_small.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
     lib.memc_conv2d_small.restype = i
+    lib.memc_conv2d_igemm.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp]
+    lib.memc_conv2d_igemm.restype = i
     lib.memc_grid_sample.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, vp]
     lib.memc_grid_sample.restype = i
 

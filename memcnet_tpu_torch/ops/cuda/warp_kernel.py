@@ -8,13 +8,16 @@ filter_interp_warp_bands_hcw2`` (and with it the A/B variants
 ``memcnet_tpu_torch/csrc/warp.cu``.
 
 What bounds it on the H100: memory -- every input plane read once and every
-output plane written once (the fs x fs taps of neighbouring pixels overlap and
-are served from L1/L2).  Its design: one thread per output pixel computes the
-fs^2 tap weights once, in float32 from float32 landing coordinates, and reuses
-them across all channels of every source; sources and outputs stay separate
-tensors, so frame and context are never concatenated.  The TPU band plans,
-the ``hcw_ok`` budget and the ``lax.cond`` XLA fallback existed for TPU DMA
-alignment and have no counterpart: a CUDA thread gathers from any address.
+output plane written once.  Its design (csrc/warp.cu): a block owns a 32 x 8
+pixel tile; each thread computes its pixel's fs^2 tap weights once, in
+float32 from float32 landing coordinates; the block stages the bounding box
+of its patches in shared memory two channels at a time (coalesced loads,
+channels interleaved) and sums every tap from there, or gathers from global
+memory where the box is too wide or the launch has at most 4 channels.
+Sources and outputs stay separate tensors, so frame and context are never
+concatenated.  The TPU band plans, the ``hcw_ok`` budget and the
+``lax.cond`` XLA fallback existed for TPU DMA alignment and have no
+counterpart.
 
 Landing coordinates are float32 whatever the activation type: the JAX bf16
 path builds its pixel grid in bf16 (``ops/warp.py::_base_coords``), which

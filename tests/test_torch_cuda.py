@@ -89,6 +89,40 @@ def test_warp_kernel_matches_plain(rng, dev, dtype, fs):
         close(g, r)
 
 
+def border_flow(rng, B, H, W):
+    """Small random flow, with bands of pixels that land just inside each
+    border, so the patches clamp at all four borders."""
+    ys, xs = np.meshgrid(np.arange(H, dtype=np.float32), np.arange(W, dtype=np.float32),
+                         indexing="ij")
+    f = (rng.randn(B, 2, H, W) * 2.0).astype(np.float32)
+    f[:, 0, :, :5] = 0.3 - xs[:, :5]               # land at x = 0.3
+    f[:, 0, :, -5:] = (W - 1.2) - xs[:, -5:]       # land at x = W - 1.2
+    f[:, 1, :4] = 0.6 - ys[:4]                     # land at y = 0.6
+    f[:, 1, -4:] = (H - 1.1) - ys[-4:]             # land at y = H - 1.1
+    f[:, 0, 10:12, 20:30] = 2.0 * W                # out of range: copied through
+    return torch.from_numpy(f)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels", [(3,), (3, 64), (1, 2, 5), (4, 3, 2, 7)])
+@pytest.mark.parametrize("W", [150, 151, 152])
+@pytest.mark.parametrize("fs", [4, 2])
+def test_warp_kernel_sources_borders_and_widths(rng, dev, dtype, channels, W, fs):
+    """1-4 split sources; W = 152 is a multiple of 8 (the bf16 interior
+    patches take the aligned row loads), 150 and 151 are not multiples of 4;
+    patches clamped at every border."""
+    B, H = 2, 29
+    ims = [torch.from_numpy(rng.rand(B, c, H, W).astype(np.float32)).to(dev, dtype)
+           for c in channels]
+    flow = border_flow(rng, B, H, W).to(dev)
+    filt = torch.from_numpy(rng.rand(B, fs * fs, H, W).astype(np.float32)).to(dev, dtype)
+    got = warp_kernel.launch(ims, flow, filt, fs)
+    ref = warp_kernel.reference(ims, flow, filt, fs)
+    assert len(got) == len(channels)
+    for g, r in zip(got, ref):
+        close(g, r)
+
+
 @pytest.mark.parametrize("amp", [1.5, 12.0])
 def test_scatter_kernel_matches_plain(rng, dev, amp):
     flow = flow_field(rng, 2, 40, 96, amp).to(dev)
@@ -116,12 +150,32 @@ def test_fill_kernel_matches_plain(rng, dev, dtype, density):
                                         (64, 32, 7, True), (32, 16, 7, True), (16, 2, 7, False),
                                         (20, 24, 3, True)])
 def test_conv_kernel_matches_plain(rng, dev, dtype, C, O, k, bias):
-    """C > 8 takes K4's channel-tiled path (chunks of 8, a ragged last one
-    for C = 20); SPyNet's shapes are the 7x7 ones."""
+    """C > 8 takes K4's channel-chunked paths (float32: chunks of 8, a ragged
+    last one for C = 20; bf16: 16-channel chunks, C = 20 padded to 32);
+    SPyNet's shapes are the 7x7 ones."""
     x = torch.from_numpy(rng.randn(2, C, 33, 70).astype(np.float32)).to(dev, dtype)
     w = torch.from_numpy((rng.randn(O, C, k, k) * 0.1).astype(np.float32)).to(dev, dtype)
     b = torch.from_numpy(rng.randn(O).astype(np.float32)).to(dev) if bias else None
     close(conv_kernel.launch(x, w, b, relu=bias), conv_kernel.reference(x, w, b, relu=bias),
+          long_sums=C > 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [3, 5, 7])
+@pytest.mark.parametrize("O", [2, 16, 32, 64])
+@pytest.mark.parametrize("C", [3, 8, 16, 32, 64])
+def test_conv_kernel_tiling_cases(rng, dev, dtype, C, O, K):
+    """Every tiling case of K4: C = 3 (4 taps per 16-deep bf16 step), 8 (2
+    taps), 16-64 (16-channel chunks); O padded to 16, 32 or 64; B = 2; H and W
+    not multiples of the bf16 tile (16 wide, 16 or 32 tall) or of the 64 x 8
+    float32 one; W alternately a multiple of 8 (16-byte stores) and odd."""
+    H, W = (37, 72) if (C + O + K) % 2 else (33, 71)
+    x = torch.from_numpy(rng.randn(2, C, H, W).astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy((rng.randn(O, C, K, K) / np.sqrt(C * K * K)).astype(np.float32))
+    w = w.to(dev, dtype)
+    b = torch.from_numpy(rng.randn(O).astype(np.float32) * 0.1).to(dev)
+    relu = O != 2
+    close(conv_kernel.launch(x, w, b, relu=relu), conv_kernel.reference(x, w, b, relu=relu),
           long_sums=C > 8)
 
 
