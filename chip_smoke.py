@@ -9,7 +9,10 @@ Phases (any failed check exits non-zero and prints no result line):
      and in float32, at the shapes of the 720p serving paths (1280x720 padded
      to 1344x768): K1-K4 at MEMC_Net_star's, K5 (grid sample) at SPyNet's
      top level and K4 at each of the five convs of every SPyNet level,
-     768x1344 down to 24x42 (MEMC_Net_s); time the kernel,
+     768x1344 down to 24x42 (MEMC_Net_s); the projection's K2 and K3 stages
+     each, and the whole op (flow_project) against its plain composition on
+     smooth, +-200 px and all-invalid flows, with its device operations per
+     call from torch.profiler (at most 4 with the fill); time the kernel,
      its plain version and, where one PyTorch call computes the same
      function, that call;
   3. serve, each model with seeded random weights in bf16 through
@@ -54,9 +57,9 @@ EXPECTED_PER_FRAME = {
 TPU_KERNELS = {
     "filter_interp_warp": ("memcnet_tpu_torch/csrc/warp.cu",
                            "memcnet_tpu/ops/pallas/warp_kernel.py:827"),
-    "base_scatter": ("memcnet_tpu_torch/csrc/scatter.cu",
+    "base_scatter": ("memcnet_tpu_torch/csrc/project.cu",
                      "memcnet_tpu/ops/pallas/scatter_kernel.py:156"),
-    "fill_holes": ("memcnet_tpu_torch/csrc/fill.cu",
+    "fill_holes": ("memcnet_tpu_torch/csrc/project.cu",
                    "memcnet_tpu/ops/pallas/fill_kernel.py:114"),
     "conv2d_small": ("memcnet_tpu_torch/csrc/conv.cu",
                      "memcnet_tpu/ops/pallas/conv_kernel.py:119"),
@@ -137,27 +140,24 @@ def compare(pairs, f32_atol, long_sums=False):
     return err, ulps, 2.0, "<= 2 bf16 ulps of each plain value"
 
 
-def synthetic_flow(torch, B, dev, seed=0):
-    """Smooth low-frequency flow of up to ~20 px with blocks whose landing
-    falls outside the frame, so the gates and the holes are exercised."""
-    rng = np.random.RandomState(seed)
-    ys, xs = np.meshgrid(np.arange(H, dtype=np.float32), np.arange(W, dtype=np.float32),
-                         indexing="ij")
-    flows = []
-    for _ in range(B):
-        a, b, c = rng.uniform(0, 2 * np.pi, 3)
-        fx = 20.0 * np.sin(2 * np.pi * ys / H + a) * np.cos(2 * np.pi * xs / W + b)
-        fy = 12.0 * np.cos(2 * np.pi * xs / (0.7 * W) + c)
-        fx[100:140, 200:300] = 2000.0
-        fy[600:620, 50:90] = -900.0
-        flows.append(np.stack([fx, fy]))
-    return torch.from_numpy(np.stack(flows).astype(np.float32)).to(dev)
-
-
 def bound(nbytes, flops, dtype):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_projection_exact(torch, what, S, S_ref, masks, masks_ref):
+    """The projection's counts (base and folded) and its has-value masks
+    are sums of 1.0 and bits: the kernel must match its plain version
+    exactly."""
+    from memcnet_tpu_torch.ops.cuda import project_kernel as P
+
+    if not torch.equal(S[:, 2], S_ref[:, 2]) or not torch.equal(
+            P.fold(S)[:, 2], P.fold(S_ref)[:, 2]):
+        raise CheckFailed(f"{what}: counts differ from the plain version")
+    for name, m, r in zip(masks._fields, masks, masks_ref):
+        if not torch.equal(m, r):
+            raise CheckFailed(f"{what}: mask {name} differs from the plain version")
 
 
 def phase_kernels(torch, results):
@@ -166,13 +166,9 @@ def phase_kernels(torch, results):
     from memcnet_tpu_torch.models import spynet
     from memcnet_tpu_torch.nn import init as I
     from memcnet_tpu_torch.ops import projection
-    from memcnet_tpu_torch.ops.cuda import (
-        conv_kernel,
-        fill_kernel,
-        gather_kernel,
-        scatter_kernel,
-        warp_kernel,
-    )
+    from memcnet_tpu_torch.ops.cuda import conv_kernel, gather_kernel, warp_kernel
+    from memcnet_tpu_torch.ops.cuda import project_kernel as P
+    from memcnet_tpu_torch.probe import device_ops, synthetic_flow
 
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
@@ -197,53 +193,103 @@ def phase_kernels(torch, results):
             raise CheckFailed(f"{name} {dtype}: kernel disagrees with its plain version "
                               f"({rule}: {measure})")
 
-    flow2 = synthetic_flow(torch, 2, dev)           # both directions, f32
+    flow2 = synthetic_flow(2, dev)  # both directions, f32
     for dtype_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         esize = torch.tensor([], dtype=dt).element_size()
-        # in bf16 serving the flows are bf16 activations
-        flow = flow2.to(dt).float()
+        # in bf16 serving the flows are bf16 activations: the projection reads
+        # them in their type, K1 and K5 take them as float32
+        flow_dt = flow2.to(dt)
+        flow = flow_dt.float()
+        B = flow.shape[0]
+        HW = H * W
 
-        # --- K2 base scatter: float32 payload [-fx, -fy, 1] of both directions
-        valid, ixL, iyT = projection._landing_cells(flow)
+        # --- K2: memset, scatter and fold-and-divide of both directions' flows
+        S, avg, masks = P.launch_sums(flow_dt, True)
+        S_ref, avg_ref, masks_ref = P.sums_stage_reference(flow_dt, True)
+        check_projection_exact(torch, f"base_scatter {dtype_name}", S, S_ref, masks, masks_ref)
+        valid, ixL, iyT = P.landing_cells(flow)
         payload = torch.where(valid[:, None], torch.cat([-flow, torch.ones_like(flow[:, :1])], 1),
                               0.0).contiguous()
-        lin = torch.where(valid, iyT * W + ixL, torch.full_like(iyT, -1)).contiguous()
-        got = scatter_kernel.launch(payload, lin)
-        ref = scatter_kernel.reference(payload, lin)
-        cnt_err = max_err(got[:, 2], ref[:, 2])
-        if cnt_err != 0.0:
-            raise CheckFailed(f"base_scatter {dtype_name}: counts differ by {cnt_err}")
-        B, P = payload.shape[:2]
-        lin64 = lin.clamp(min=0).long().view(B, 1, H * W).expand(B, P, H * W)
+        lin64 = torch.where(valid, iyT * W + ixL, 0).long().view(B, 1, HW).expand(B, 3, HW)
 
-        def lib_scatter():
-            return torch.zeros(B, P, H * W, device=dev).scatter_add_(
-                2, lin64, payload.view(B, P, H * W))
+        def lib_scatter():  # the base scatter alone, as one PyTorch call
+            return torch.zeros(B, 3, HW, device=dev).scatter_add_(2, lin64, payload.view(B, 3, HW))
 
-        # float32 sums of up to ~10 values of |f| <= 2000 in a run-dependent order
-        record("base_scatter", dtype_name, compare([(got, ref)], 1e-3),
-               timed_ms(torch, lambda: scatter_kernel.launch(payload, lin), flush=flush),
-               timed_ms(torch, lambda: scatter_kernel.reference(payload, lin), flush=flush),
+        mask_bytes = 4 * sum(m.numel() for m in masks)
+        # float32 sums of up to ~10 values of |f| <= 20 in a run-dependent order
+        record("base_scatter", dtype_name, compare([(avg, avg_ref)], 1e-3),
+               timed_ms(torch, lambda: P.launch_sums(flow_dt, True), flush=flush),
+               timed_ms(torch, lambda: P.sums_stage_reference(flow_dt, True), flush=flush),
                timed_ms(torch, lib_scatter, flush=flush),
-               nbytes=B * H * W * (4 * P + 4 + 4 * P), flops=0, op_dtype="float32",
-               extra=dict(count_err=cnt_err, valid_pixels=int(valid.sum())))
+               nbytes=B * HW * (2 * esize + 2 * 4) + mask_bytes, flops=0, op_dtype="float32",
+               extra=dict(valid_pixels=int(valid.sum())))
+        del S, S_ref, avg, masks, payload, lin64
 
-        # --- K3 hole fill of the projected average (in the activation type)
-        S = ref
-        T = S + projection._shift_fold_last(S, 3)
-        out = T + projection._shift_fold_last(T, 2)
-        cnt = out[:, 2].contiguous()
-        avg = (out[:, :2] / torch.where(cnt > 0, cnt, 1.0)[:, None]).to(dt).contiguous()
-        holes = int((cnt == 0).sum())
+        # --- K3: the fill of the plain stage's average and masks -----------
+        holes = int((~P.unpack_bits(masks_ref.rows, W)).sum())
         if holes == 0:
             raise CheckFailed("fill_holes: the synthetic flow left no holes to fill")
-        got = fill_kernel.launch(avg, cnt)
-        ref = fill_kernel.reference(avg, cnt)
+        got = P.launch_fill(avg_ref, masks_ref, dt)
+        ref = P.fill_stage_reference(avg_ref, masks_ref, dt)
+        # every pixel a hole with nothing to find: the searches' worst case
+        none = P.pack_masks(torch.zeros((B, H, W), dtype=torch.bool, device=dev))
+        zeros = torch.zeros_like(avg_ref)
+        if P.launch_fill(zeros, none, dt).any():
+            raise CheckFailed(f"fill_holes {dtype_name}: holes with no value became nonzero")
         record("fill_holes", dtype_name, compare([(got, ref)], 1e-5),
-               timed_ms(torch, lambda: fill_kernel.launch(avg, cnt), flush=flush),
-               timed_ms(torch, lambda: fill_kernel.reference(avg, cnt), flush=flush),
-               None, nbytes=B * H * W * (2 * esize + 4 + 2 * esize), flops=0,
-               op_dtype="float32", extra=dict(holes=holes))
+               timed_ms(torch, lambda: P.launch_fill(avg_ref, masks_ref, dt), flush=flush),
+               timed_ms(torch, lambda: P.fill_stage_reference(avg_ref, masks_ref, dt),
+                        flush=flush),
+               None, nbytes=B * HW * (2 * 4 + 2 * esize) + mask_bytes, flops=0,
+               op_dtype="float32",
+               extra=dict(holes=holes, all_holes_ms=timed_ms(
+                   torch, lambda: P.launch_fill(zeros, none, dt), flush=flush)))
+        del avg_ref, masks_ref, got, ref, zeros
+
+        # --- the whole op, flow_project with the fill, against the plain
+        # composition: the smooth flow (the row), +-200 px noise and a flow
+        # whose every landing is invalid; and once without the fill
+        flows = {"smooth": flow_dt,
+                 "pm200": (torch.rand(flow_dt.shape, generator=gen, device=dev) * 400.0
+                           - 200.0).to(dt),
+                 "all_invalid": torch.full_like(flow_dt, 3.0 * W)}
+        extra = {}
+        for tag, fl in flows.items():
+            for fillhole in (True, False) if tag == "smooth" else (True,):
+                got = projection.flow_project(fl, fillhole=fillhole)
+                ref = projection.reference(fl, fillhole=fillhole)
+                err, measure, limit, rule = compare([(got, ref)], 1e-3)
+                n_ops, dev_ms, by_kernel = device_ops(
+                    lambda: projection.flow_project(fl, fillhole=fillhole))
+                most = 4 if fillhole else 3
+                name = f"{tag}{'' if fillhole else ', no fill'}"
+                log(f"  flow_project        {dtype_name:<8} {name}: max_abs_err {err:.3e} "
+                    f"[{rule}: {measure:.3g}]; device ops per call {n_ops} (at most {most}), "
+                    f"device ms {dev_ms:.4f}: "
+                    + ", ".join(f"{k[:40]} {v:.4f}" for k, v in by_kernel.items()))
+                if not measure <= limit:
+                    raise CheckFailed(f"flow_project {dtype_name} {name}: kernel disagrees with "
+                                      f"the plain composition ({rule}: {measure})")
+                if not 0 < n_ops <= most:
+                    raise CheckFailed(f"flow_project {dtype_name} {name}: {n_ops} device "
+                                      f"operations per call seen, 1 to {most} expected")
+                if tag == "all_invalid" and got.any():
+                    raise CheckFailed(f"flow_project {dtype_name}: an all-invalid flow gave "
+                                      "nonzero values")
+                extra[name] = dict(max_abs_err=err, device_ops=n_ops, device_ms=dev_ms,
+                                   device_ms_by_kernel=by_kernel)
+                if tag != "smooth":
+                    extra[name]["ms"] = timed_ms(
+                        torch, lambda: projection.flow_project(fl, fillhole=True), flush=flush)
+        record("flow_project", dtype_name, compare([(projection.flow_project(flow_dt, fillhole=True),
+                                                     projection.reference(flow_dt, fillhole=True))],
+                                                    1e-3),
+               timed_ms(torch, lambda: projection.flow_project(flow_dt, fillhole=True), flush=flush),
+               timed_ms(torch, lambda: projection.reference(flow_dt, fillhole=True), flush=flush),
+               None, nbytes=2 * B * HW * 2 * esize, flops=0, op_dtype="float32",
+               extra=dict(device_ops=extra["smooth"]["device_ops"],
+                          device_ms=extra["smooth"]["device_ms"], flows=extra))
+        del flows, got, ref
 
         # --- K1 warp of (frame, context) with one direction's flow ----------
         f1 = flow[:1].contiguous()
@@ -547,11 +593,11 @@ def main():
             json.dump(results, f, indent=1)
         return 1
 
-    # the row that matches bf16 serving: K2 scatters a float32 payload made
-    # from bf16 flows; K3 fills the float32 projected average; K4's main row is
-    # the ctx conv, its SPyNet shapes are listed beside it
+    # the row that matches bf16 serving: K2 reads the bf16 flows, K3 writes
+    # the bf16 projected flow; K4's main row is the ctx conv, its SPyNet
+    # shapes are listed beside it; K2 and K3 carry the whole op beside them
     main_dtype = {"filter_interp_warp": "bfloat16", "base_scatter": "bfloat16",
-                  "fill_holes": "float32", "conv2d_small": "bfloat16", "grid_sample": "bfloat16"}
+                  "fill_holes": "bfloat16", "conv2d_small": "bfloat16", "grid_sample": "bfloat16"}
     krows = results["kernels"]
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
@@ -569,6 +615,9 @@ def main():
 
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": sum(by_path.values()), "launches_by_path": by_path, **row(name)}
+        if name in ("base_scatter", "fill_holes"):
+            entry["whole_op"] = {"name": "flow_project", **row("flow_project"),
+                                 "device_ops_per_call": krows["flow_project"][dt]["device_ops"]}
         if name == "conv2d_small":
             entry["spynet_shapes"] = [
                 {"shape": key.split("spynet ")[1].rstrip("]"), **row(key)}

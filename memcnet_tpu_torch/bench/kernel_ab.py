@@ -1,14 +1,19 @@
-"""Kernels K1 (warp) and K4 (small conv) timed on one card at the 720p paths'
-shapes, against another checkout of the repo and against K1's design steps.
+"""Kernels K1 (warp) and K4 (small conv) and the flow projection (K2 and K3)
+timed on one card at the 720p paths' shapes, against another checkout of the
+repo and against K1's design steps.
 
     python memcnet_tpu_torch/bench/kernel_ab.py [--other DIR] [--out FILE]
 
 Measures this tree's K1 -- MEMC_Net_star's split warp of (frame, context),
-67 channels, and the 3-channel frame warp, on the smooth +-20 px flow of
-chip_smoke.py, bf16 and float32 -- and K4 -- the ctx conv (3 -> 64) and
-SPyNet's five 7x7 convs at each of its six pyramid levels, B = 2, bf16 and
-float32 -- each the median device time of repeated launches after a 256 MB L2
-flush, and each checked against the tree's own plain version.
+67 channels, and the 3-channel frame warp, on the smooth +-20 px flow that
+chip_smoke.py checks (``memcnet_tpu_torch/probe.py``), bf16 and float32 --
+and K4 -- the ctx conv (3 -> 64) and SPyNet's five 7x7 convs at each of its
+six pyramid levels, B = 2, bf16 and float32 -- and ``flow_project`` with the fill at B = 2 (both directions of
+the smooth flow), bf16 and float32, with its device operations and device ms
+per call from torch.profiler and, in this tree, its K2 and K3 stages; each the
+median device time of repeated launches after a 256 MB L2 flush, and each
+checked against the tree's own plain version (the projection against the
+tree's CPU path).
 
 With ``--other DIR`` (a checkout of another commit, e.g. the parent unpacked
 with ``git archive``), the same measurements run on that tree's kernels too,
@@ -26,6 +31,7 @@ survives.  Results go to ``--out`` as JSON (default
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import os
 import subprocess
@@ -33,7 +39,22 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
-H, W = 768, 1344  # 1280x720 padded (data/padding.py)
+
+
+def _load_probe():
+    """This tree's ``memcnet_tpu_torch/probe.py`` (the flow chip_smoke.py
+    checks, the device-operation count), loaded by its path: the measuring
+    process imports the package of the tree it measures, which may be
+    another checkout's."""
+    spec = importlib.util.spec_from_file_location(
+        "memcnet_probe", os.path.join(ROOT, "memcnet_tpu_torch", "probe.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+PROBE = _load_probe()
+H, W = PROBE.H, PROBE.W  # 1280x720 padded (data/padding.py)
 LEVELS = 6
 BASIC = [(8, 32), (32, 64), (64, 32), (32, 16), (16, 2)]  # models/spynet.py
 WARP_STEPS = ["128x1 gather (earlier tile)", "32x4 gather", "128x1 vector rows",
@@ -44,24 +65,8 @@ def noisy_flow(torch, dev):
     """The smooth flow plus +-30 px white noise: the patches of a block
     spread too far for K1's shared-memory box."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    flow = smooth_flow(torch, dev)
+    flow = PROBE.synthetic_flow(1, dev)
     return (flow + 30.0 * torch.randn(flow.shape, generator=gen, device=dev)).contiguous()
-
-
-def smooth_flow(torch, dev):
-    """chip_smoke.py's synthetic flow, first direction: +-20 px, with blocks
-    that land outside the frame."""
-    import numpy as np
-
-    rng = np.random.RandomState(0)
-    ys, xs = np.meshgrid(np.arange(H, dtype=np.float32), np.arange(W, dtype=np.float32),
-                         indexing="ij")
-    a, b, c = rng.uniform(0, 2 * np.pi, 3)
-    fx = 20.0 * np.sin(2 * np.pi * ys / H + a) * np.cos(2 * np.pi * xs / W + b)
-    fy = 12.0 * np.cos(2 * np.pi * xs / (0.7 * W) + c)
-    fx[100:140, 200:300] = 2000.0
-    fy[600:620, 50:90] = -900.0
-    return torch.from_numpy(np.stack([fx, fy])[None].astype(np.float32)).to(dev)
 
 
 def timed_ms(torch, fn, flush, reps=10):
@@ -98,6 +103,7 @@ def measure(root, steps):
     import torch
 
     from memcnet_tpu_torch.nn import init as I
+    from memcnet_tpu_torch.ops import projection
     from memcnet_tpu_torch.ops.cuda import _lib, conv_kernel, warp_kernel
 
     torch.backends.cudnn.allow_tf32 = False
@@ -109,7 +115,21 @@ def measure(root, steps):
     if steps:
         res["mma probe"] = mma_probe(torch, build(_lib, "mma_probe"))
     for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        smooth = smooth_flow(torch, dev).to(dt).float()
+        pflow = PROBE.synthetic_flow(2, dev).to(dt)  # both directions, as served
+        # both trees' CPU path is the plain composition
+        ref = projection.flow_project(pflow.cpu(), fillhole=True).to(dev)
+        got = projection.flow_project(pflow, fillhole=True)
+        n_ops, dev_ms, by_kernel = PROBE.device_ops(
+            lambda: projection.flow_project(pflow, fillhole=True))
+        key = f"flow_project {name}"
+        res[key] = dict(ms=timed_ms(torch, lambda: projection.flow_project(pflow, fillhole=True),
+                                    flush),
+                        err=max_ulps(torch, got, ref, 0.0), launches=n_ops, device_ms=dev_ms,
+                        kernels=by_kernel)
+        if steps:
+            res[key]["steps"] = projection_steps(torch, projection, pflow, flush)
+        del ref, got
+        smooth = PROBE.synthetic_flow(1, dev).to(dt).float()
         frame = torch.rand((1, 3, H, W), generator=gen, device=dev).to(dt)
         ctx = torch.randn((1, 64, H, W), generator=gen, device=dev).to(dt)
         filt = (torch.rand((1, 16, H, W), generator=gen, device=dev) / 8.0).to(dt)
@@ -147,6 +167,25 @@ def measure(root, steps):
             del x, w, b, got, ref
         torch.cuda.empty_cache()
     return res
+
+
+def projection_steps(torch, projection, flow, flush):
+    """The fused projection's stages, this tree only: K2 (memset, scatter,
+    fold-and-divide) with and without the fill's masks, K3 (the fill), and
+    the whole op without the L2 flush before it (host time shows)."""
+    from memcnet_tpu_torch.ops.cuda import project_kernel as P
+
+    _, avg, masks = P.launch_sums(flow, True)
+    steps = {
+        "K2 stage (memset, scatter, fold-and-divide, masks)":
+            timed_ms(torch, lambda: P.launch_sums(flow, True), flush),
+        "K2 stage without the fill (result in the flow's type)":
+            timed_ms(torch, lambda: P.launch_sums(flow, False), flush),
+        "K3 stage (fill)": timed_ms(torch, lambda: P.launch_fill(avg, masks, flow.dtype), flush),
+    }
+    steps["whole op, no L2 flush before it"] = timed_ms(
+        torch, lambda: projection.flow_project(flow, fillhole=True), torch.empty(0, device="cuda"))
+    return steps
 
 
 def build(_lib, name):
@@ -249,6 +288,10 @@ def main():
         for name, rs in runs.items():
             row[f"{name}_ms"] = sum(r[key]["ms"] for r in rs) / len(rs)
             row[f"{name}_err"] = max(r[key]["err"] for r in rs)
+            if "launches" in rs[0][key]:
+                row[f"{name}_launches"] = rs[0][key]["launches"]
+                row[f"{name}_device_ms"] = sum(r[key]["device_ms"] for r in rs) / len(rs)
+                row[f"{name}_kernels"] = rs[0][key]["kernels"]
         if "steps" in runs["this"][0][key]:
             row["steps_ms"] = runs["this"][0][key]["steps"]
         table[key] = row
@@ -263,7 +306,13 @@ def main():
         line = f"{key:<34} this {row['this_ms']:.4f} ms (err {row['this_err']:.3g})"
         if "other_ms" in row:
             line += f"  other {row['other_ms']:.4f} ms (err {row['other_err']:.3g})"
+        if "this_launches" in row:
+            line += "  device ops, device ms a call: " + ", ".join(
+                f"{n} {row[f'{n}_launches']}, {row[f'{n}_device_ms']:.4f}" for n in runs)
         print(line)
+        for n in runs:
+            for k, ms in row.get(f"{n}_kernels", {}).items():
+                print(f"    {n} kernel {k[:70]:<70} {ms:.4f} ms")
         for label, ms in row.get("steps_ms", {}).items():
             print(f"    step {label:<32} {ms:.4f} ms")
     return 0

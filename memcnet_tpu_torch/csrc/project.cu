@@ -1,0 +1,326 @@
+// K2 and K3 -- the flow projection as one op on the card.
+//
+// Replaces the TPU kernels memcnet_tpu/ops/pallas/scatter_kernel.py::
+// scatter_bands (K2, the base scatter) and memcnet_tpu/ops/pallas/
+// fill_kernel.py::fill_holes (K3, the hole fill), and the XLA glue between
+// them (memcnet_tpu/ops/projection.py::_scatter4, the divide,
+// _directional_fill).  A call is at most four device operations:
+//
+//   K2  memset         zero the three float32 planes of the base sums S and,
+//                      with the fill, the mask summaries behind them;
+//       project_scatter_kernel
+//                      one thread per source pixel reads the flow in its own
+//                      type, takes the landing cell in float32 exactly as
+//                      ops/cuda/project_kernel.py::landing_cells does, and
+//                      atomicAdds (-fx, -fy, 1) into S at the base cell;
+//       project_fold_kernel
+//                      one thread per target pixel gathers the two border
+//                      folds from S (the gather form of _shift_fold_last: T
+//                      from S at x and x - 1, the result from T at y and
+//                      y - 1, folded at x = W - 1 and y = H - 1, added in the
+//                      plain version's order) and divides by the count.
+//                      Without the fill it writes the result in the flow's
+//                      type.  With it, it writes the float32 average and the
+//                      has-value bitmask (count > 0) twice: by rows (one
+//                      __ballot_sync per warp) and, transposed in shared
+//                      memory, by columns; plus one summary bit per non-empty
+//                      mask word;
+//   K3  project_fill_kernel
+//                      one thread per pixel: a hole takes the mean of the
+//                      nearest value to its left, right and above (no
+//                      down-scan: the reference disabled it by accident,
+//                      my_lib_kernel.cu:1799); every pixel is written in the
+//                      flow's type.
+//
+// Bound on the H100: memory -- the flow read once, the result written once;
+// S (24.8 MB for B = 2 at 768x1344) and the average stay in the 50 MB L2.
+// The TPU kernels' band plans and bucket walk turned a scatter into vector
+// shifted adds and their cross-band carry relied on grid steps running in
+// order; Hopper has float atomics in L2, and the nearest-value searches are
+// bit scans: the word of the pixel first, then the summary word, which names
+// the nearest non-empty word at once.  A search costs O(1 + L / 1024) word
+// reads for a line of L pixels whatever the holes, so a flow whose every
+// landing is invalid (every pixel a hole) costs no more than any other.
+// Float sums land in a run-dependent order; counts (sums of 1.0) are exact.
+#include "common.cuh"
+
+namespace memc {
+
+constexpr int kTile = 32;  // the fold kernel's tile: 32 columns x 32 rows
+constexpr int kTileWarps = 8;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+__host__ __device__ inline int words_for(int bits) { return (bits + 31) / 32; }
+
+// What the border-folding shift of one axis adds at index i of a line of L:
+// "scatter to min(i + 1, L - 1)" (my_lib_kernel.cu:1668-1669 clamps), with
+// prev the value at i - 1 and cur the value at i.  L = 1 doubles the value.
+__device__ __forceinline__ float fold_term(float prev, float cur, int i, int L) {
+  if (L == 1) return cur;
+  if (i == 0) return 0.f;
+  return i < L - 1 ? prev : prev + cur;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+project_scatter_kernel(const T* __restrict__ flow, float* __restrict__ sums, int H, int W,
+                       int64_t HW, int64_t total) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int64_t b = idx / HW;
+  const int64_t p = idx - b * HW;
+  const int y = static_cast<int>(p / W);
+  const int x = static_cast<int>(p - static_cast<int64_t>(y) * W);
+  const T* f = flow + 2 * b * HW + p;
+  const float fx = to_f32(f[0]);
+  const float fy = to_f32(f[HW]);
+  const float x2 = static_cast<float>(x) + fx;
+  const float y2 = static_cast<float>(y) + fy;
+  // NaN fails every test, as in the plain version
+  if (!(x2 >= 0.f && y2 >= 0.f && x2 <= static_cast<float>(W - 1) &&
+        y2 <= static_cast<float>(H - 1)))
+    return;
+  // truncation equals floor on the valid domain (memcnet_tpu/ops/warp.py:107-109)
+  const int ix = clampi(__float2int_rz(x2), 0, W - 1);
+  const int iy = clampi(__float2int_rz(y2), 0, H - 1);
+  float* s = sums + 3 * b * HW + static_cast<int64_t>(iy) * W + ix;
+  atomicAdd(s, -fx);
+  atomicAdd(s + HW, -fy);
+  atomicAdd(s + 2 * HW, 1.f);
+}
+
+// T (the x fold of S) at row y of one plane.
+__device__ __forceinline__ float fold_x(const float* __restrict__ plane, int y, int x, int W) {
+  const float* r = plane + static_cast<int64_t>(y) * W;
+  const float cur = r[x];
+  const float prev = x > 0 ? r[x - 1] : 0.f;
+  return cur + fold_term(prev, cur, x, W);
+}
+
+// OutT is the flow's type without the fill and float (the average) with it.
+// Block: 32 x 8 threads over a tile of 32 columns x 32 rows, grid
+// (words_for(W), words_for(H), B), so tile (i, j) is row word i and column
+// word j of the masks.
+template <typename OutT, bool kFill>
+__global__ void __launch_bounds__(kTile * kTileWarps)
+project_fold_kernel(const float* __restrict__ sums, OutT* __restrict__ out,
+                    uint32_t* __restrict__ rows, uint32_t* __restrict__ row_sums,
+                    uint32_t* __restrict__ cols, uint32_t* __restrict__ col_sums, int H, int W) {
+  __shared__ uint32_t tile_rows[kTile];
+  const int lane = threadIdx.x;
+  const int x = blockIdx.x * kTile + lane;
+  const int b = blockIdx.z;
+  const int64_t HW = static_cast<int64_t>(H) * W;
+  const float* s = sums + 3 * b * HW;
+  for (int r = threadIdx.y; r < kTile; r += kTileWarps) {
+    const int y = blockIdx.y * kTile + r;  // the same for the whole warp
+    bool has = false;
+    if (y < H && x < W) {
+      float v[3];
+      for (int c = 0; c < 3; ++c) {
+        const float* plane = s + c * HW;
+        const float t = fold_x(plane, y, x, W);
+        const float tp = y > 0 ? fold_x(plane, y - 1, x, W) : 0.f;
+        v[c] = t + fold_term(tp, t, y, H);
+      }
+      const float cnt = v[2];
+      const float den = cnt > 0.f ? cnt : 1.f;
+      OutT* o = out + 2 * b * HW + static_cast<int64_t>(y) * W + x;
+      o[0] = from_f32<OutT>(v[0] / den);
+      o[HW] = from_f32<OutT>(v[1] / den);
+      has = cnt > 0.f;
+    }
+    if (kFill) {
+      const uint32_t word = __ballot_sync(kFullMask, has);
+      if (lane == 0) {
+        tile_rows[r] = word;
+        if (y < H) {
+          const int64_t line = static_cast<int64_t>(b) * H + y;
+          const int nw = words_for(W);
+          rows[line * nw + blockIdx.x] = word;
+          if (word) {
+            atomicOr(row_sums + line * words_for(nw) + blockIdx.x / 32,
+                     1u << (blockIdx.x % 32));
+          }
+        }
+      }
+    }
+  }
+  if (!kFill) return;
+  __syncthreads();
+  if (threadIdx.y != 0 || x >= W) return;
+  uint32_t word = 0;  // column x over the tile's 32 rows
+  for (int r = 0; r < kTile; ++r) word |= ((tile_rows[r] >> lane) & 1u) << r;
+  const int64_t line = static_cast<int64_t>(b) * W + x;
+  const int nh = words_for(H);
+  cols[line * nh + blockIdx.y] = word;
+  if (word) atomicOr(col_sums + line * words_for(nh) + blockIdx.y / 32, 1u << (blockIdx.y % 32));
+}
+
+// Nearest set bit below i in a line's mask words, or -1: the word of i
+// first, then the summary (bit k set = word k not empty) for the nearest
+// non-empty word.
+__device__ __forceinline__ int nearest_below(const uint32_t* __restrict__ words,
+                                             const uint32_t* __restrict__ wsum, int i) {
+  const int w = i / 32;
+  const uint32_t m = words[w] & ((1u << (i % 32)) - 1u);
+  if (m) return w * 32 + 31 - __clz(static_cast<int>(m));
+  int s = w / 32;
+  uint32_t sm = wsum[s] & ((1u << (w % 32)) - 1u);
+  while (!sm && s > 0) sm = wsum[--s];
+  if (!sm) return -1;
+  const int ww = s * 32 + 31 - __clz(static_cast<int>(sm));
+  return ww * 32 + 31 - __clz(static_cast<int>(words[ww]));
+}
+
+// Nearest set bit above i in a line of n bits, or n.
+__device__ __forceinline__ int nearest_above(const uint32_t* __restrict__ words,
+                                             const uint32_t* __restrict__ wsum, int i, int n) {
+  const int w = i / 32;
+  const uint32_t m = words[w] & ~((2u << (i % 32)) - 1u);  // 2u << 31 wraps to 0
+  if (m) return w * 32 + __ffs(static_cast<int>(m)) - 1;
+  const int nsum = words_for(words_for(n));
+  int s = w / 32;
+  uint32_t sm = wsum[s] & ~((2u << (w % 32)) - 1u);
+  while (!sm && s + 1 < nsum) sm = wsum[++s];
+  if (!sm) return n;
+  const int ww = s * 32 + __ffs(static_cast<int>(sm)) - 1;
+  return ww * 32 + __ffs(static_cast<int>(words[ww])) - 1;
+}
+
+// Block: 32 x 8 threads, one pixel each; grid (words_for(W), ceil(H / 8), B).
+template <typename T>
+__global__ void __launch_bounds__(256)
+project_fill_kernel(const float* __restrict__ avg, const uint32_t* __restrict__ rows,
+                    const uint32_t* __restrict__ row_sums, const uint32_t* __restrict__ cols,
+                    const uint32_t* __restrict__ col_sums, T* __restrict__ out, int H, int W) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int b = blockIdx.z;
+  if (x >= W || y >= H) return;
+  const int64_t HW = static_cast<int64_t>(H) * W;
+  const float* ax = avg + 2 * b * HW;
+  const float* ay = ax + HW;
+  const int64_t p = static_cast<int64_t>(y) * W + x;
+  T* ox = out + 2 * b * HW + p;
+  const int nw = words_for(W), nh = words_for(H);
+  const int64_t rline = static_cast<int64_t>(b) * H + y;
+  const uint32_t* rw = rows + rline * nw;
+  if ((rw[x / 32] >> (x % 32)) & 1u) {
+    ox[0] = from_f32<T>(ax[p]);
+    ox[HW] = from_f32<T>(ay[p]);
+    return;
+  }
+  // the plain version's order: ((0 + left) + right) + up, a missing
+  // direction adding 0
+  float nx = 0.f, ny = 0.f, den = 0.f;
+  const uint32_t* rs = row_sums + rline * words_for(nw);
+  const int l = nearest_below(rw, rs, x);
+  const int64_t row = static_cast<int64_t>(y) * W;
+  nx += l >= 0 ? ax[row + l] : 0.f;
+  ny += l >= 0 ? ay[row + l] : 0.f;
+  den += l >= 0 ? 1.f : 0.f;
+  const int r = nearest_above(rw, rs, x, W);
+  nx += r < W ? ax[row + r] : 0.f;
+  ny += r < W ? ay[row + r] : 0.f;
+  den += r < W ? 1.f : 0.f;
+  const int64_t cline = static_cast<int64_t>(b) * W + x;
+  const int u = nearest_below(cols + cline * nh, col_sums + cline * words_for(nh), y);
+  const int64_t up = static_cast<int64_t>(u) * W + x;
+  nx += u >= 0 ? ax[up] : 0.f;
+  ny += u >= 0 ? ay[up] : 0.f;
+  den += u >= 0 ? 1.f : 0.f;
+  ox[0] = from_f32<T>(den > 0.f ? nx / den : ax[p]);
+  ox[HW] = from_f32<T>(den > 0.f ? ny / den : ay[p]);
+}
+
+template <typename T>
+cudaError_t launch_sums(const T* flow, float* sums, void* out, uint32_t* rows, uint32_t* row_sums,
+                        uint32_t* cols, uint32_t* col_sums, int B, int H, int W, bool fill,
+                        cudaStream_t st) {
+  const int64_t HW = static_cast<int64_t>(H) * W;
+  const int64_t total = B * HW;
+  project_scatter_kernel<T><<<ceil_div(total, 256), 256, 0, st>>>(flow, sums, H, W, HW, total);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(words_for(W), words_for(H), B), block(kTile, kTileWarps);
+  if (fill) {
+    project_fold_kernel<float, true><<<grid, block, 0, st>>>(
+        sums, static_cast<float*>(out), rows, row_sums, cols, col_sums, H, W);
+  } else {
+    project_fold_kernel<T, false><<<grid, block, 0, st>>>(
+        sums, static_cast<T*>(out), nullptr, nullptr, nullptr, nullptr, H, W);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace memc
+
+// The four mask arrays of a (B, H, W) projection, in 32-bit words:
+//   rows (B, H, words(W)), row_sums (B, H, words(words(W))),
+//   cols (B, W, words(H)), col_sums (B, W, words(words(H))),
+// bit k of word j = pixel 32 j + k of the line; bit k of summary word j =
+// mask word 32 j + k is not empty.  Bits past the line's end are 0.
+//
+// flow: (B, 2, H, W) in dtype; sums: (B, 3, H, W) float32 scratch.
+// Without fill (rows ... col_sums null): out (B, 2, H, W) in dtype, the
+// projected flow.  With fill: out (B, 2, H, W) float32, the average, and the
+// masks written; row_sums and col_sums must follow sums in memory in that
+// order, so that one memset zeroes all three.
+MEMC_API int memc_project_sums(const void* flow, void* sums, void* out, void* rows,
+                               void* row_sums, void* cols, void* col_sums, int B, int H, int W,
+                               int dtype, int fill, void* stream) {
+  using memc::words_for;
+  if (B == 0 || H == 0 || W == 0) return cudaSuccess;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int64_t HW = static_cast<int64_t>(H) * W;
+  auto* s = static_cast<float*>(sums);
+  auto* rs = static_cast<uint32_t*>(row_sums);
+  auto* cs = static_cast<uint32_t*>(col_sums);
+  size_t zero_bytes = sizeof(float) * 3 * B * HW;
+  if (fill) {
+    const int64_t nrs = static_cast<int64_t>(B) * H * words_for(words_for(W));
+    const int64_t ncs = static_cast<int64_t>(B) * W * words_for(words_for(H));
+    if (reinterpret_cast<char*>(rs) != reinterpret_cast<char*>(s) + zero_bytes ||
+        cs != rs + nrs || rows == nullptr || cols == nullptr)
+      return cudaErrorInvalidValue;
+    zero_bytes += sizeof(uint32_t) * (nrs + ncs);
+  }
+  cudaError_t err = cudaMemsetAsync(sums, 0, zero_bytes, st);
+  if (err != cudaSuccess) return err;
+  auto* r = static_cast<uint32_t*>(rows);
+  auto* c = static_cast<uint32_t*>(cols);
+  if (dtype == memc::kFloat32) {
+    return memc::launch_sums(static_cast<const float*>(flow), s, out, r, rs, c, cs, B, H, W,
+                             fill != 0, st);
+  }
+  if (dtype == memc::kBFloat16) {
+    return memc::launch_sums(static_cast<const __nv_bfloat16*>(flow), s, out, r, rs, c, cs, B, H,
+                             W, fill != 0, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// avg: (B, 2, H, W) float32; the masks as above; out: (B, 2, H, W) in dtype.
+MEMC_API int memc_project_fill(const void* avg, const void* rows, const void* row_sums,
+                               const void* cols, const void* col_sums, void* out, int B, int H,
+                               int W, int dtype, void* stream) {
+  if (B == 0 || H == 0 || W == 0) return cudaSuccess;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(memc::words_for(W), memc::ceil_div(H, 8), B), block(32, 8);
+  const auto* a = static_cast<const float*>(avg);
+  const auto* r = static_cast<const uint32_t*>(rows);
+  const auto* rs = static_cast<const uint32_t*>(row_sums);
+  const auto* c = static_cast<const uint32_t*>(cols);
+  const auto* cs = static_cast<const uint32_t*>(col_sums);
+  if (dtype == memc::kFloat32) {
+    memc::project_fill_kernel<float><<<grid, block, 0, st>>>(a, r, rs, c, cs,
+                                                             static_cast<float*>(out), H, W);
+  } else if (dtype == memc::kBFloat16) {
+    memc::project_fill_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
+        a, r, rs, c, cs, static_cast<__nv_bfloat16*>(out), H, W);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}

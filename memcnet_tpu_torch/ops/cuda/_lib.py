@@ -122,12 +122,10 @@ def _declare(lib):
     lib.memc_error_string.restype = ctypes.c_char_p
     lib.memc_filter_interp_warp.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
     lib.memc_filter_interp_warp.restype = i
-    lib.memc_base_scatter.argtypes = [vp, vp, vp, i, i, i, i, vp]
-    lib.memc_base_scatter.restype = i
-    lib.memc_fill_holes.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
-    lib.memc_fill_holes.restype = i
-    lib.memc_fill_scratch_floats.argtypes = [i, i, i]
-    lib.memc_fill_scratch_floats.restype = ctypes.c_int64
+    lib.memc_project_sums.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+    lib.memc_project_sums.restype = i
+    lib.memc_project_fill.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
+    lib.memc_project_fill.restype = i
     lib.memc_conv2d_small.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
     lib.memc_conv2d_small.restype = i
     lib.memc_conv2d_igemm.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp]

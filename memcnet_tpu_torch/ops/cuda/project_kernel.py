@@ -1,0 +1,358 @@
+"""K2 and K3: the flow projection as one op on the card -- K2 the base
+scatter, border folds and divide, K3 the hole fill -- its plain versions and
+its launch counts.
+
+Replaces the TPU kernels ``memcnet_tpu/ops/pallas/scatter_kernel.py::
+scatter_bands`` (K2) and ``memcnet_tpu/ops/pallas/fill_kernel.py::fill_holes``
+(K3) and the XLA glue around them (``memcnet_tpu/ops/projection.py::
+_scatter4``, the divide, ``_directional_fill``).  CUDA source:
+``memcnet_tpu_torch/csrc/project.cu``.  A call is at most four device
+operations: K2 -- a memset, ``project_scatter_kernel`` and
+``project_fold_kernel`` -- counted as one launch of ``base_scatter``, and,
+with the fill, K3 -- ``project_fill_kernel`` -- counted as one launch of
+``fill_holes``.
+
+Function, per source pixel p with flow f: it lands at p + f, in float32
+whatever the flow's type, and if that is inside [0, W-1] x [0, H-1] it adds
+(-fx, -fy, 1) to its base cell (trunc(y + fy), trunc(x + fx)) -> the base
+sums S (B, 3, H, W).  The three other landing neighbours are the border
+folds of S (``fold``), and the average is sum / count where count > 0.  With
+the fill, every pixel with count 0 takes the mean of the nearest projected
+value to its left, to its right and above it, over the directions that have
+one (``memcnet_tpu/ops/projection.py::_directional_fill_xla`` with
+``fix_down_scan_bug=False``: the down-scan is dead in the reference,
+my_lib_kernel.cu:1799).  The result is cast to the flow's type once.
+
+What bounds it on the H100: memory (read the flow, write the result).  Its
+design: float ``atomicAdd`` into S, which stays in L2; one gather pass per
+target pixel for both folds and the divide, which with the fill also packs
+"count > 0" into bit masks by rows and by columns, each with one summary bit
+per non-empty word (``Masks``); the fill finds each nearest value with bit
+scans of its word and, past it, of the summary word, so a search reads
+O(1 + L / 1024) words of a line of L pixels however long the run of holes.
+The TPU scatter's band plans turned the scatter into shifted vector adds, and
+the TPU fill carried the up search from band to band in ``carry_ref``, which
+needs grid steps that run in order; CUDA blocks do not.  Float sums land in a
+run-dependent order; counts (sums of 1.0) are exact.
+"""
+
+import functools
+import math
+from collections import namedtuple
+
+import torch
+
+from memcnet_tpu_torch.ops.cuda import _lib
+
+scatter_counter = _lib.LaunchCounter("base_scatter")  # K2
+fill_counter = _lib.LaunchCounter("fill_holes")       # K3
+
+# int32 words; bit k of word j = pixel 32 j + k of the line, bit k of a
+# summary word j = mask word 32 j + k is not empty; bits past a line are 0.
+#   rows (B, H, ceil(W/32)), row_sums (B, H, ceil(W/1024)),
+#   cols (B, W, ceil(H/32)), col_sums (B, W, ceil(H/1024))
+Masks = namedtuple("Masks", "rows row_sums cols col_sums")
+
+
+def _words(n):
+    return (n + 31) // 32
+
+
+def mask_shapes(B, H, W):
+    return Masks((B, H, _words(W)), (B, H, _words(_words(W))),
+                 (B, W, _words(H)), (B, W, _words(_words(H))))
+
+
+def pack_bits(bits):
+    """(..., L) bool -> (..., ceil(L / 32)) int32 words, bit k of word j =
+    bits[..., 32 j + k]."""
+    L = bits.shape[-1]
+    pad = _words(L) * 32 - L
+    b = torch.nn.functional.pad(bits.long(), (0, pad)).reshape(*bits.shape[:-1], -1, 32)
+    w = (b << torch.arange(32, device=bits.device)).sum(-1)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def unpack_bits(words, L):
+    """Inverse of ``pack_bits``: (..., n) int32 -> (..., L) bool."""
+    b = (words.long()[..., None] >> torch.arange(32, device=words.device)) & 1
+    return b.reshape(*words.shape[:-1], -1)[..., :L].bool()
+
+
+def pack_masks(has):
+    """``Masks`` of ``has`` (B, H, W) bool, as K2 writes them."""
+    rows = pack_bits(has)
+    cols = pack_bits(has.transpose(1, 2))
+    return Masks(rows, pack_bits(rows != 0), cols, pack_bits(cols != 0))
+
+
+# -- plain versions ------------------------------------------------------------
+
+
+def landing_cells(flow):
+    """Validity and integer base cell (iyT, ixL) of every source pixel, from
+    float32 coordinates.  flow: (B, 2, H, W) float32."""
+    B, two, H, W = flow.shape
+    if two != 2:
+        raise ValueError(f"flow must have 2 channels, got {two}")
+    xs = torch.arange(W, dtype=torch.float32, device=flow.device).view(1, 1, W)
+    ys = torch.arange(H, dtype=torch.float32, device=flow.device).view(1, H, 1)
+    x2 = xs + flow[:, 0]
+    y2 = ys + flow[:, 1]
+    valid = (x2 >= 0.0) & (y2 >= 0.0) & (x2 <= W - 1.0) & (y2 <= H - 1.0)
+    ixL = x2.to(torch.int32).clamp(0, W - 1)
+    iyT = y2.to(torch.int32).clamp(0, H - 1)
+    return valid, ixL, iyT
+
+
+def scatter_reference(payload, lin):
+    """K2's TPU function, plain: ``out[b, k, c]`` = sum of ``payload[b, k, p]``
+    over the source pixels p with ``lin[b, p] == c`` (``index_add_`` over the
+    flattened batch); pixels with ``lin < 0`` add nothing."""
+    B, P, H, W = payload.shape
+    HW = H * W
+    valid = lin >= 0
+    cell = torch.where(valid, lin, torch.zeros_like(lin)).long()
+    cell = cell + (torch.arange(B, device=lin.device) * HW).view(B, 1, 1)
+    src = torch.where(valid[:, None], payload.float(), 0.0)
+    src = src.permute(0, 2, 3, 1).reshape(B * HW, P)
+    out = torch.zeros(B * HW, P, dtype=torch.float32, device=payload.device)
+    out = out.index_add(0, cell.reshape(-1), src)
+    return out.view(B, H, W, P).permute(0, 3, 1, 2).contiguous()
+
+
+def base_sums(flow):
+    """Plain S (B, 3, H, W) float32: (-fx, -fy, 1) scattered to the base
+    cells of the valid landings."""
+    f = flow.float()
+    valid, ixL, iyT = landing_cells(f)
+    W = f.shape[3]
+    payload = torch.cat([-f, torch.ones_like(f[:, :1])], dim=1)
+    payload = torch.where(valid[:, None], payload, 0.0)
+    lin = torch.where(valid, iyT * W + ixL, torch.full_like(iyT, -1))
+    return scatter_reference(payload, lin)
+
+
+def _fold_axis(a, axis):
+    """a + what "scatter to min(i + 1, L - 1)" along ``axis`` adds at each i:
+    0 at i = 0, a[i - 1] inside, a[L - 2] + a[L - 1] at the last index
+    (my_lib_kernel.cu:1668-1669 clamps); L = 1 doubles a.  Gathered per
+    target index, in the order project_fold_kernel adds."""
+    L = a.shape[axis]
+    if L == 1:
+        return a + a
+    i = torch.arange(L, device=a.device)
+    prev = a.index_select(axis, (i - 1).clamp(min=0))
+    shape = [1] * a.dim()
+    shape[axis] = L
+    i = i.view(shape)
+    term = torch.where(i == 0, 0.0, torch.where(i < L - 1, prev, prev + a))
+    return a + term
+
+
+def fold(S):
+    """The four landing neighbours from the base sums: the x fold (ixR),
+    then the y fold (iyB) of the result."""
+    return _fold_axis(_fold_axis(S, 3), 2)
+
+
+def sums_and_average(flow):
+    """Plain (S, average (B, 2, H, W), count (B, H, W)), all float32."""
+    S = base_sums(flow)
+    out = fold(S)
+    cnt = out[:, 2]
+    return S, out[:, :2] / torch.where(cnt > 0.0, cnt, 1.0)[:, None], cnt
+
+
+def _last_valid_index(has, axis, reverse=False):
+    """Index of the nearest True at-or-before each position along ``axis``
+    (at-or-after when ``reverse``); -1 where there is none."""
+    L = has.shape[axis]
+    shape = [1] * has.dim()
+    shape[axis] = L
+    pos = torch.arange(L, device=has.device).view(shape).expand_as(has)
+    if reverse:
+        pos = (L - 1 - pos)
+        idx = torch.where(has, pos, torch.full_like(pos, -1)).flip(axis)
+        idx = torch.cummax(idx, dim=axis).values.flip(axis)
+        return torch.where(idx >= 0, L - 1 - idx, idx)
+    idx = torch.where(has, pos, torch.full_like(pos, -1))
+    return torch.cummax(idx, dim=axis).values
+
+
+def fill_reference(avg, cnt, fix_down_scan_bug=False):
+    """K3's TPU function, plain: nearest-projected-value scans (cummax over
+    indices) and the mean over the directions found.  With
+    ``fix_down_scan_bug`` the down direction joins (the JAX opt-in)."""
+    has = cnt > 0.0  # (B, H, W)
+    a32 = avg.float()
+    dirs = [(3, False), (3, True), (2, False)]  # left, right, up
+    if fix_down_scan_bug:
+        dirs.append((2, True))
+    num = torch.zeros_like(a32)
+    den = torch.zeros_like(a32[:, 0])
+    for axis, rev in dirs:
+        idx = _last_valid_index(has, axis - 1, rev)
+        found = idx >= 0
+        got = torch.gather(a32, axis, idx.clamp(min=0)[:, None].expand_as(a32))
+        num = num + torch.where(found[:, None], got, 0.0)
+        den = den + found.float()
+    hole = (~has) & (den > 0.0)
+    filled = num / torch.where(den > 0.0, den, 1.0)[:, None]
+    return torch.where(hole[:, None], filled.to(avg.dtype), avg)
+
+
+def average_and_count(flow, fillhole=False, fix_down_scan_bug=False):
+    """The plain composition in float32: (projected flow (B, 2, H, W),
+    count (B, H, W))."""
+    _, avg, cnt = sums_and_average(flow)
+    if fillhole:
+        avg = fill_reference(avg, cnt, fix_down_scan_bug=fix_down_scan_bug)
+    return avg, cnt
+
+
+def reference(flow, fillhole=False, fix_down_scan_bug=False):
+    """The plain composition of ``flow_project``, on any device."""
+    avg, _ = average_and_count(flow, fillhole, fix_down_scan_bug)
+    return avg.to(flow.dtype)
+
+
+def sums_stage_reference(flow, fillhole):
+    """Plain version of ``launch_sums``, same outputs."""
+    S, avg, cnt = sums_and_average(flow)
+    if fillhole:
+        return S, avg, pack_masks(cnt > 0.0)
+    return S, avg.to(flow.dtype), None
+
+
+def fill_stage_reference(avg, masks, dtype):
+    """Plain version of ``launch_fill``: the fill of the float32 average
+    ``avg`` whose has-value pixels are set in ``masks.rows``, in ``dtype``."""
+    has = unpack_bits(masks.rows, avg.shape[3])
+    return fill_reference(avg, has.float()).to(dtype)
+
+
+# -- the card ------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=32)
+def _layout(B, H, W):
+    """Word offsets of K2's int32 scratch with the fill: S (3 float32 planes),
+    then the row and column summaries (zeroed with S by one memset, as
+    memc_project_sums requires), then the row and column masks.  Returns
+    ({name: (offset, shape)}, total words)."""
+    shapes = mask_shapes(B, H, W)._asdict()
+    layout, off = {"sums": (0, (B, 3, H, W))}, 3 * B * H * W
+    for k in ("row_sums", "col_sums", "rows", "cols"):
+        layout[k] = (off, shapes[k])
+        off += math.prod(shapes[k])
+    return layout, off
+
+
+def _sums(flow, fillhole):
+    """K2.  Returns (scratch, result, mask pointers): the result is the
+    float32 average with the fill and the projected flow in its type
+    without; the pointers (``Masks`` order, None without the fill) point into
+    the scratch, which must live until the fill is enqueued.  The hot path
+    hands raw pointers on: building tensor views of the scratch costs more
+    host time than the kernels take."""
+    what = "project_sums"
+    code = _lib.dtype_code(flow.dtype)
+    B, two, H, W = flow.shape
+    if two != 2:
+        raise ValueError(f"{what}: flow must be (B, 2, H, W), got {tuple(flow.shape)}")
+    _lib.check_cuda_args(what, flow)
+    if fillhole:
+        layout, words = _layout(B, H, W)
+        scratch = torch.empty(words, dtype=torch.int32, device=flow.device)
+        base = scratch.data_ptr()
+        ptrs = [base + 4 * layout[k][0] for k in Masks._fields]
+        out = torch.empty((B, 2, H, W), dtype=torch.float32, device=flow.device)
+    else:
+        scratch = torch.empty((B, 3, H, W), dtype=torch.float32, device=flow.device)
+        base = scratch.data_ptr()
+        ptrs = [None] * 4
+        out = torch.empty_like(flow)
+    err = _lib.lib().memc_project_sums(flow.data_ptr(), base, out.data_ptr(), *ptrs,
+                                       B, H, W, code, int(fillhole), _lib.stream_ptr(flow))
+    _lib.check(err, what)
+    scatter_counter.count += 1
+    return scratch, out, ptrs
+
+
+def _fill(avg, mask_ptrs, dtype):
+    """K3 on masks given as device pointers in ``Masks`` order."""
+    what = "project_fill"
+    code = _lib.dtype_code(dtype)
+    B, _, H, W = avg.shape
+    out = torch.empty((B, 2, H, W), dtype=dtype, device=avg.device)
+    err = _lib.lib().memc_project_fill(avg.data_ptr(), *mask_ptrs, out.data_ptr(), B, H, W,
+                                       code, _lib.stream_ptr(avg))
+    _lib.check(err, what)
+    fill_counter.count += 1
+    return out
+
+
+def launch_sums(flow, fillhole):
+    """K2 alone, for checks: the memset, the scatter and the fold-and-divide.
+    flow: (B, 2, H, W) float32 or bf16, contiguous.  Returns (S, result,
+    masks): S the base sums (scratch); the result in the flow's type without
+    the fill and the float32 average with it; ``Masks`` with the fill, else
+    None."""
+    scratch, out, _ = _sums(flow, fillhole)
+    if not fillhole:
+        return scratch, out, None
+    B, _, H, W = flow.shape
+    layout, _ = _layout(B, H, W)
+    views = {k: scratch[o:o + math.prod(shape)].view(shape) for k, (o, shape) in layout.items()}
+    S = views.pop("sums").view(torch.float32)
+    return S, out, Masks(**views)
+
+
+def launch_fill(avg, masks, dtype):
+    """K3 alone, for checks.  avg: (B, 2, H, W) float32, contiguous; masks:
+    ``Masks`` as K2 writes them; returns (B, 2, H, W) in ``dtype``."""
+    what = "project_fill"
+    B, K, H, W = avg.shape
+    if K != 2 or avg.dtype != torch.float32:
+        raise ValueError(f"{what}: takes a float32 average (B, 2, H, W), "
+                         f"got {avg.dtype} {tuple(avg.shape)}")
+    for got, want in zip(masks, mask_shapes(B, H, W)):
+        if tuple(got.shape) != want or got.dtype != torch.int32:
+            raise ValueError(f"{what}: mask {got.dtype} {tuple(got.shape)}, want int32 {want}")
+    _lib.check_cuda_args(what, avg, *masks)
+    return _fill(avg, [m.data_ptr() for m in masks], dtype)
+
+
+class _ProjectFunction(torch.autograd.Function):
+    """K2 then, with the fill, K3; backward is autograd of the plain
+    composition."""
+
+    @staticmethod
+    def forward(ctx, flow, fillhole):
+        ctx.save_for_backward(flow)
+        ctx.fillhole = fillhole
+        # the fill reads the masks in K2's scratch: keep it until then
+        scratch, out, mask_ptrs = _sums(flow, fillhole)
+        if fillhole:
+            out = _fill(out, mask_ptrs, flow.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (flow,) = ctx.saved_tensors
+        (gf,) = _lib.reference_grads(lambda f: reference(f, ctx.fillhole), [flow], [True], [g])
+        return gf, None
+
+
+def flow_project(flow, fillhole=False, fix_down_scan_bug=False):
+    """The projection: the kernels on CUDA tensors, the plain composition on
+    CPU tensors.  The kernels' fill scans left, right and up, as the
+    reference does; ``fix_down_scan_bug`` (the JAX opt-in down-scan) has no
+    kernel and is refused on the card."""
+    if not _lib.on_cuda(flow):
+        return reference(flow, fillhole, fix_down_scan_bug)
+    if fix_down_scan_bug:
+        raise ValueError("flow_project: fix_down_scan_bug has no kernel; the card's fill "
+                         "scans left, right and up, as the reference does")
+    return _ProjectFunction.apply(flow.contiguous(), fillhole)

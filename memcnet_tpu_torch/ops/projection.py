@@ -8,85 +8,32 @@ integer neighbours, the right/bottom ones clamped to the border (a clamped
 cell receives the contribution twice).  The sums are divided by the count
 where it is > 0.  With ``fillhole`` (eval only), count-0 pixels take the mean
 of the nearest projected value to the left, right and above; the down-scan is
-dead in the reference and only ``fix_down_scan_bug=True`` enables it.
+dead in the reference and only ``fix_down_scan_bug=True`` enables it, on CPU
+tensors only.
 
 The four neighbours are the base cell plus constant offsets, so only the
-base scatter is a scatter: the other three are border-folding shifts of its
-result (``_shift_fold_last``).  On CUDA tensors the base scatter is kernel K2
-(ops/cuda/scatter_kernel.py) and the fill kernel K3 (ops/cuda/fill_kernel.py);
-on CPU tensors both are their plain versions.  Coordinates, sums and the
-fill are float32 whatever the flow's type; the result is cast back to it.
+base scatter is a scatter: the other three are border folds of its result.
+On CUDA tensors the whole op is one autograd.Function over kernels K2
+(scatter, folds, divide) and K3 (fill), at most four device operations
+(ops/cuda/project_kernel.py, csrc/project.cu); on CPU tensors it is the plain
+composition ``reference``.  Coordinates, sums and the fill are float32
+whatever the flow's type; the result is cast back to it once.
 """
 
-import torch
-
-from memcnet_tpu_torch.ops.cuda import fill_kernel, scatter_kernel
-
-
-def _landing_cells(flow):
-    """Validity and integer base cell (iyT, ixL) of every source pixel, from
-    float32 coordinates.  flow: (B, 2, H, W) float32."""
-    B, two, H, W = flow.shape
-    if two != 2:
-        raise ValueError(f"flow must have 2 channels, got {two}")
-    xs = torch.arange(W, dtype=torch.float32, device=flow.device).view(1, 1, W)
-    ys = torch.arange(H, dtype=torch.float32, device=flow.device).view(1, H, 1)
-    x2 = xs + flow[:, 0]
-    y2 = ys + flow[:, 1]
-    valid = (x2 >= 0.0) & (y2 >= 0.0) & (x2 <= W - 1.0) & (y2 <= H - 1.0)
-    ixL = x2.to(torch.int32).clamp(0, W - 1)
-    iyT = y2.to(torch.int32).clamp(0, H - 1)
-    return valid, ixL, iyT
-
-
-def _shift_fold_last(a, axis):
-    """Shift +1 along ``axis``, folding the last slice onto itself: the linear
-    image of "scatter to min(i+1, L-1)" (my_lib_kernel.cu:1668-1669 clamps)."""
-    L = a.shape[axis]
-    if L == 1:
-        return a
-    return torch.cat([
-        torch.zeros_like(a.narrow(axis, 0, 1)),
-        a.narrow(axis, 0, L - 2),
-        a.narrow(axis, L - 2, 1) + a.narrow(axis, L - 1, 1),
-    ], dim=axis)
-
-
-def _scatter4(values, weights, valid, ixL, iyT):
-    """Scatter-add ``values`` (B, K, H, W) and ``weights`` (B, H, W) into the
-    four landing neighbours.  Returns (out (B, K, H, W), count (B, H, W)),
-    float32."""
-    B, K, H, W = values.shape
-    payload = torch.cat([values.float(), weights.float()[:, None]], dim=1)
-    payload = torch.where(valid[:, None], payload, 0.0)
-    lin = torch.where(valid, iyT * W + ixL, torch.full_like(iyT, -1))
-    S = scatter_kernel.base_scatter(payload, lin)
-    T = S + _shift_fold_last(S, 3)     # + (iyT, ixR)
-    out = T + _shift_fold_last(T, 2)   # + (iyB, ixL / ixR)
-    return out[:, :K], out[:, K]
-
-
-def _directional_fill(avg, count, fix_down_scan_bug):
-    if fix_down_scan_bug:
-        # the opt-in 4-direction fill stays on the plain path, as it stays on
-        # XLA in the JAX package
-        return fill_kernel.reference(avg, count, fix_down_scan_bug=True)
-    return fill_kernel.fill_holes(avg, count)
+from memcnet_tpu_torch.ops.cuda import project_kernel
 
 
 def project(flow, *, fillhole=False, fix_down_scan_bug=False):
-    """float32 (projected flow (B, 2, H, W), count (B, H, W))."""
-    f = flow.float()
-    valid, ixL, iyT = _landing_cells(f)
-    out, cnt = _scatter4(-f, torch.ones_like(f[:, 0]), valid, ixL, iyT)
-    avg = out / torch.where(cnt > 0.0, cnt, 1.0)[:, None]
-    if fillhole:
-        avg = _directional_fill(avg, cnt, fix_down_scan_bug)
-    return avg, cnt
+    """Plain float32 (projected flow (B, 2, H, W), count (B, H, W))."""
+    return project_kernel.average_and_count(flow, fillhole, fix_down_scan_bug)
+
+
+def reference(flow, *, fillhole=False, fix_down_scan_bug=False):
+    """The plain composition of ``flow_project``, on any device."""
+    return project_kernel.reference(flow, fillhole, fix_down_scan_bug)
 
 
 def flow_project(flow, *, fillhole=False, fix_down_scan_bug=False):
     """Project forward flow F_{t->t+1} (B, 2, H, W) to time t (negated
     average scatter).  Returns (B, 2, H, W) in the flow's type."""
-    avg, _ = project(flow, fillhole=fillhole, fix_down_scan_bug=fix_down_scan_bug)
-    return avg.to(flow.dtype)
+    return project_kernel.flow_project(flow, fillhole, fix_down_scan_bug)

@@ -7,13 +7,16 @@ import numpy as np
 import torch
 
 import chip_smoke
+from memcnet_tpu_torch import probe
 from memcnet_tpu_torch.bench import kernel_ab
 from memcnet_tpu_torch.models import spynet
 
 
 def test_kernel_ab_flow_is_chip_smokes():
-    got = kernel_ab.smooth_flow(torch, "cpu")
-    want = chip_smoke.synthetic_flow(torch, 1, "cpu")
+    """kernel_ab.py loads, by its path, the probe module that chip_smoke.py
+    imports, so both time and check the same flow."""
+    got = kernel_ab.PROBE.synthetic_flow(1, "cpu")
+    want = probe.synthetic_flow(1, "cpu")
     assert got.shape == (1, 2, kernel_ab.H, kernel_ab.W)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
@@ -21,7 +24,7 @@ def test_kernel_ab_flow_is_chip_smokes():
 def test_kernel_ab_times_spynets_convs_at_every_level():
     assert kernel_ab.BASIC == spynet.BASIC
     assert kernel_ab.LEVELS == spynet.LEVELS
-    assert (kernel_ab.H, kernel_ab.W) == (chip_smoke.H, chip_smoke.W)
+    assert (kernel_ab.H, kernel_ab.W) == (chip_smoke.H, chip_smoke.W) == (probe.H, probe.W)
 
 
 def test_kernel_ab_needs_a_card(monkeypatch, capsys):

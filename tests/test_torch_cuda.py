@@ -14,7 +14,9 @@ order, or by atomics in a run-dependent order); bf16 outputs within 2 bf16
 units in the last place of the plain value (one rounding of a float32 sum
 that may flip) -- for K4 beyond 8 input channels, where hundreds of terms are
 summed in another order and may cancel to near zero, beyond the float32
-tolerance as well; projection counts exact.
+tolerance as well; projection counts and masks exact, the projection's
+float32 average and result within 1e-3 (float atomics in a run-dependent
+order over sums of up to ~10 flows of up to 200 px).
 """
 
 import numpy as np
@@ -24,13 +26,9 @@ import torch
 from memcnet_tpu_torch.cli.runner import PaddedInterp, build_model
 from memcnet_tpu_torch.ops import cuda as K
 from memcnet_tpu_torch.ops import projection as TP
-from memcnet_tpu_torch.ops.cuda import (
-    conv_kernel,
-    fill_kernel,
-    gather_kernel,
-    scatter_kernel,
-    warp_kernel,
-)
+from memcnet_tpu_torch.ops.cuda import conv_kernel, gather_kernel, warp_kernel
+from memcnet_tpu_torch.ops.cuda import project_kernel as P
+from memcnet_tpu_torch.probe import device_ops
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -123,26 +121,83 @@ def test_warp_kernel_sources_borders_and_widths(rng, dev, dtype, channels, W, fs
         close(g, r)
 
 
-@pytest.mark.parametrize("amp", [1.5, 12.0])
-def test_scatter_kernel_matches_plain(rng, dev, amp):
-    flow = flow_field(rng, 2, 40, 96, amp).to(dev)
-    valid, ixL, iyT = TP._landing_cells(flow)
-    payload = torch.where(valid[:, None], torch.cat([-flow, torch.ones_like(flow[:, :1])], 1), 0.0)
-    lin = torch.where(valid, iyT * 96 + ixL, torch.full_like(iyT, -1))
-    got = scatter_kernel.launch(payload.contiguous(), lin.contiguous())
-    ref = scatter_kernel.reference(payload, lin)
-    assert torch.equal(got[:, 2], ref[:, 2])  # counts exact
-    close(got, ref)
+def projection_flow(rng, B, H, W, kind):
+    """Flows for the fused projection: the smooth field at 1.5 or 12 px, +-200
+    px of noise (most landings outside the frame, long runs of holes), or
+    every landing invalid (every pixel a hole)."""
+    if kind == "all_invalid":
+        f = np.full((B, 2, H, W), 3.0 * W, np.float32)
+        f[:, 1, ::3] = -1.0 - H
+        return torch.from_numpy(f)
+    if kind == "pm200":
+        return torch.from_numpy((rng.uniform(-200, 200, (B, 2, H, W))).astype(np.float32))
+    return flow_field(rng, B, H, W, {"amp1.5": 1.5, "amp12": 12.0}[kind])
+
+
+PROJ_SHAPES = [(45, 97), (45, 1100), (1100, 40)]  # W or H past 1024: 2 summary words
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["amp1.5", "amp12", "pm200", "all_invalid"])
+@pytest.mark.parametrize("H,W", PROJ_SHAPES)
+@pytest.mark.parametrize("B", [1, 2, 3])
+def test_projection_sums_stage_matches_plain(rng, dev, dtype, kind, H, W, B):
+    """K2 (memset, scatter, fold-and-divide): counts and masks exact, the
+    float32 average within 1e-3 (the atomics' order)."""
+    flow = projection_flow(rng, B, H, W, kind).to(dev, dtype)
+    S, avg, masks = P.launch_sums(flow, True)
+    S_ref, avg_ref, masks_ref = P.sums_stage_reference(flow, True)
+    assert torch.equal(S[:, 2], S_ref[:, 2])
+    assert torch.equal(P.fold(S)[:, 2], P.fold(S_ref)[:, 2])
+    for m, r in zip(masks, masks_ref):
+        assert torch.equal(m, r)
+    assert float((avg - avg_ref).abs().max()) <= 1e-3
+    if kind == "all_invalid":
+        assert not bool(avg.any())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("density", [0.1, 0.6, 0.0])
-def test_fill_kernel_matches_plain(rng, dev, dtype, density):
-    B, H, W = 2, 45, 1100
+@pytest.mark.parametrize("W", [97, 1100])
+def test_fill_stage_matches_plain(rng, dev, dtype, density, W):
+    B, H = 2, 45
     cnt = torch.from_numpy((rng.rand(B, H, W) < density).astype(np.float32)).to(dev)
-    avg = (torch.from_numpy(rng.randn(B, 2, H, W).astype(np.float32)).to(dev)
-           * (cnt > 0)[:, None]).to(dtype)
-    close(fill_kernel.launch(avg, cnt), fill_kernel.reference(avg, cnt))
+    avg = torch.from_numpy(rng.randn(B, 2, H, W).astype(np.float32)).to(dev) * (cnt > 0)[:, None]
+    masks = P.pack_masks(cnt > 0)
+    close_projection(P.launch_fill(avg, masks, dtype), P.fill_stage_reference(avg, masks, dtype))
+
+
+def close_projection(got, ref):
+    """float32 within 1e-3 (the atomics' order); bf16 within 2 ulps of each
+    plain value."""
+    assert got.dtype == ref.dtype
+    if ref.dtype == torch.float32:
+        assert float((got - ref).abs().max()) <= 1e-3
+    else:
+        close(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fillhole", [True, False])
+@pytest.mark.parametrize("kind", ["amp1.5", "amp12", "pm200", "all_invalid"])
+@pytest.mark.parametrize("H,W", PROJ_SHAPES)
+@pytest.mark.parametrize("B", [1, 2, 3])
+def test_flow_project_matches_plain(rng, dev, dtype, fillhole, kind, H, W, B):
+    flow = projection_flow(rng, B, H, W, kind).to(dev, dtype)
+    K.reset_counters()
+    got = TP.flow_project(flow, fillhole=fillhole)
+    counts = K.launch_counts()
+    assert counts["base_scatter"] == 1 and counts["fill_holes"] == int(fillhole)
+    close_projection(got, TP.reference(flow, fillhole=fillhole))
+    if kind == "all_invalid":
+        assert not bool(got.any())
+
+
+@pytest.mark.parametrize("fillhole,most", [(True, 4), (False, 3)])
+def test_flow_project_device_launches(rng, dev, fillhole, most):
+    flow = projection_flow(rng, 2, 96, 160, "amp12").to(dev, torch.bfloat16)
+    n, _, _ = device_ops(lambda: TP.flow_project(flow, fillhole=fillhole))
+    assert 0 < n <= most
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -237,6 +292,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         warp_kernel.launch((x.float(),), torch.zeros(1, 2, 8, 8, device=dev),
                            torch.zeros(1, 9, 8, 8, device=dev), 3)
+    with pytest.raises(TypeError):
+        TP.flow_project(torch.zeros(1, 2, 8, 8, device=dev, dtype=torch.float16))
+    with pytest.raises(ValueError, match="fix_down_scan_bug"):
+        TP.flow_project(torch.zeros(1, 2, 8, 8, device=dev), fillhole=True,
+                        fix_down_scan_bug=True)
 
 
 def test_served_path_launches_every_kernel_and_matches_cpu(rng, dev):

@@ -37,7 +37,7 @@ from memcnet_tpu_torch.io import load_jax_params
 from memcnet_tpu_torch.models import ctx as tctx
 from memcnet_tpu_torch.ops import projection as TP
 from memcnet_tpu_torch.ops import warp as TW
-from memcnet_tpu_torch.ops.cuda import _lib, conv_kernel, fill_kernel, scatter_kernel
+from memcnet_tpu_torch.ops.cuda import _lib, conv_kernel, project_kernel
 
 ATOL = 1e-5
 GATOL = 1e-4
@@ -105,7 +105,7 @@ def test_scatter_matches_pallas_interpret(rng):
     """Base scatter vs scatter_bands in interpret mode (test_pallas_scatter)."""
     B, H, W = 2, 32, 200
     flow = smooth_flow(rng, B, H, W, 1.5, invalid=False)
-    valid, ixL, iyT = TP._landing_cells(t(flow))
+    valid, ixL, iyT = project_kernel.landing_cells(t(flow))
     ys = torch.arange(H, dtype=torch.int32).view(1, H, 1)
     xs = torch.arange(W, dtype=torch.int32).view(1, 1, W)
     payload = rng.randn(B, 3, H, W).astype(np.float32) * valid[:, None].numpy()
@@ -114,7 +114,7 @@ def test_scatter_matches_pallas_interpret(rng):
     assert bool(plan["ok"])
     want = np.asarray(jsk.scatter_bands(jnp.asarray(payload), plan, interpret=True))
     lin = torch.where(valid, iyT * W + ixL, torch.full_like(iyT, -1))
-    got = scatter_kernel.base_scatter(t(payload), lin).numpy()
+    got = project_kernel.scatter_reference(t(payload), lin).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
@@ -128,7 +128,7 @@ def test_fill_matches_pallas_interpret(rng, density):
     cnt = cnt.astype(np.float32)
     want = np.asarray(jfk.fill_holes(jnp.asarray(avg), jnp.asarray(cnt), interpret=True))
     want_xla = np.asarray(JP._directional_fill_xla(jnp.asarray(avg), jnp.asarray(cnt), False))
-    got = fill_kernel.fill_holes(t(avg), t(cnt)).numpy()
+    got = project_kernel.fill_reference(t(avg), t(cnt)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
     np.testing.assert_allclose(got, want_xla, rtol=0, atol=ATOL)
 
@@ -229,7 +229,7 @@ def test_bf16_landing_cells_are_float32(rng):
     out = TW.filter_interp_warp(src, flow, filt)
     assert out.dtype == torch.bfloat16
     assert torch.equal(out, src)
-    valid, ixL, iyT = TP._landing_cells(flow.float())
+    valid, ixL, iyT = project_kernel.landing_cells(flow.float())
     assert int(ixL[0, 0, 1001]) == 1001 and bool(valid.all())
 
 
@@ -299,7 +299,8 @@ SLICE_MODULES = [
     "memcnet_tpu_torch.models.spynet",
     "memcnet_tpu_torch.nn.init", "memcnet_tpu_torch.nn.layers", "memcnet_tpu_torch.ops",
     "memcnet_tpu_torch.ops.cuda", "memcnet_tpu_torch.ops.cuda._lib",
-    "memcnet_tpu_torch.ops.cuda.gather_kernel",
+    "memcnet_tpu_torch.ops.cuda.gather_kernel", "memcnet_tpu_torch.ops.cuda.project_kernel",
+    "memcnet_tpu_torch.probe",
     "memcnet_tpu_torch.ops.projection", "memcnet_tpu_torch.ops.warp",
 ]
 
