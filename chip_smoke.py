@@ -8,7 +8,10 @@ Phases (any failed check exits non-zero and prints no result line):
   2. hold each kernel against its plain PyTorch version on the card, in bf16
      and in float32, at the shapes of the 720p serving paths (1280x720 padded
      to 1344x768): K1-K4 at MEMC_Net_star's, K5 (grid sample) at SPyNet's
-     top level and K4 at each of the five convs of every SPyNet level,
+     top level, K5's fused SPyNet level input (upsample, pad, grid, sample,
+     concat) at each of the six levels, exact in its fst and upsampled-flow
+     channels, with its device operations (1) beside those of the separate
+     ops it replaces, and K4 at each of the five convs of every SPyNet level,
      768x1344 down to 24x42 (MEMC_Net_s); the projection's K2 and K3 stages
      each, and the whole op (flow_project) against its plain composition on
      smooth, +-200 px and all-invalid flows, with its device operations per
@@ -22,7 +25,9 @@ Phases (any failed check exits non-zero and prints no result line):
      held against the CPU plain path on a small float32 pair;
   4. where one frame's time goes, for each model: the forward alone (CUDA
      events), its kernels by device time (torch.profiler) and one served
-     frame split into host stages (pad, copy in, forward, copy out).
+     frame split into host stages (pad, copy in, forward, copy out); for
+     MEMC_Net_s also SPyNet's forward alone (B = 2) with its device
+     operations, and the same with the separate-op level input it replaced.
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.  Long output (the kernels' build
 log, the full results) goes to chiprun_out/chip_smoke/.
@@ -168,7 +173,7 @@ def phase_kernels(torch, results):
     from memcnet_tpu_torch.ops import projection
     from memcnet_tpu_torch.ops.cuda import conv_kernel, gather_kernel, warp_kernel
     from memcnet_tpu_torch.ops.cuda import project_kernel as P
-    from memcnet_tpu_torch.probe import device_ops, synthetic_flow
+    from memcnet_tpu_torch.probe import device_ops, level_flow, level_prologue, synthetic_flow
 
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
@@ -351,6 +356,60 @@ def phase_kernels(torch, results):
                extra=dict(zero_pixels=zero_px))
         del x, grid, got, ref
 
+        # --- K5 fused: SPyNet's level input at each level of the 720p
+        # pyramid, B = 2, the coarse flow of probe.level_flow (+-20 px, blocks
+        # landing outside the frame).  fst and up must equal the plain
+        # composition's bit for bit; the warp is held against the plain grid
+        # sample of the kernel's own up.  The top level, checked last, is the
+        # row, timed beside the separate ops it replaced (stock-op grid, K5,
+        # cat: the "parent prologue")
+        levels = []
+        for lvl in reversed(range(spynet.LEVELS)):
+            h, w_ = H >> lvl, W >> lvl
+            fst, snd = (torch.rand((2, 3, h, w_), generator=gen, device=dev).to(dt)
+                        for _ in range(2))
+            cflow = level_flow(2, lvl, dev).to(dt)
+            got = gather_kernel.launch_level_input(fst, snd, cflow)
+            ref = gather_kernel.level_input_reference(fst, snd, cflow)
+            for part, sl in (("fst", slice(0, 3)), ("up", slice(6, 8))):
+                n_bad = int((got[:, sl] != ref[:, sl]).sum())
+                if n_bad:
+                    raise CheckFailed(f"spynet_level_input {dtype_name} {h}x{w_}: {n_bad} {part} "
+                                      "values differ from the plain version")
+            want = gather_kernel.reference(snd, gather_kernel.warp_grid(got[:, 6:8]))
+            # float32: 4-term sums of values in [0, 1)
+            check = compare([(got[:, 3:6], want)], 1e-5)
+            levels.append(dict(shape=f"{h}x{w_}", max_abs_err=check[0], check_value=check[1],
+                               off_frame_px=int((want == 0).all(dim=1).sum())))
+            log(f"  spynet_level_input  {dtype_name:<8} {h}x{w_}: fst, up exact; warp "
+                f"max_abs_err {check[0]:.3e} [{check[3]}: {check[1]:.3g}]")
+            if not check[1] <= check[2]:
+                raise CheckFailed(f"spynet_level_input {dtype_name} {h}x{w_}: the warp disagrees "
+                                  f"with the plain grid sample ({check[3]}: {check[1]})")
+            del got, ref, want
+        n_ops = device_ops(lambda: gather_kernel.launch_level_input(fst, snd, cflow))
+        n_old = device_ops(lambda: level_prologue(fst, snd, cflow))
+        if n_ops[0] != 1:
+            raise CheckFailed(f"spynet_level_input {dtype_name}: {n_ops[0]} device operations "
+                              "per call, 1 expected")
+        record("spynet_level_input", dtype_name, check,
+               timed_ms(torch, lambda: gather_kernel.launch_level_input(fst, snd, cflow),
+                        flush=flush),
+               timed_ms(torch, lambda: gather_kernel.level_input_reference(fst, snd, cflow),
+                        flush=flush),
+               None, nbytes=2 * (2 * (H // 2) * (W // 2) + (3 + 3 + 8) * H * W) * esize,
+               # per pixel: 2 x 6 for the upsample, 8 for the grid, 3 x 8 for the taps
+               flops=2 * H * W * 44, op_dtype="float32",
+               extra=dict(device_ops=n_ops[0], device_ms=n_ops[1], levels=levels,
+                          parent_prologue=dict(
+                              ms=timed_ms(torch, lambda: level_prologue(fst, snd, cflow),
+                                          flush=flush),
+                              device_ops=n_old[0], device_ms=n_old[1], by_kernel=n_old[2])))
+        log(f"  spynet_level_input  {dtype_name:<8} device ops {n_ops[0]}, device ms "
+            f"{n_ops[1]:.4f}; parent prologue: {n_old[0]} device ops, device ms {n_old[1]:.4f}, "
+            f"{rows['spynet_level_input'][dtype_name]['parent_prologue']['ms']:.4f} ms")
+        del fst, snd, cflow
+
         # --- K4 at each conv of every SPyNet level: B = 2, 7x7, bias, ReLU on
         # the first four; torch-0.2 default weights.  The top level keeps its
         # row names; level l (l = 1..5, 2**l times smaller) is tagged "L<l>".
@@ -481,6 +540,31 @@ def phase_serve(torch, name, n_pairs, results):
     return model, pairs[0]
 
 
+def spynet_ops(torch, net, x0, x2):
+    """SPyNet's forward alone at 720p, B = 2 (both directions, as MEMC_Net_s
+    batches them): device operations and device ms (torch.profiler) and
+    time (CUDA events); then the same forward with the separate ops around
+    K5 that the fused level input replaced."""
+    from memcnet_tpu_torch.ops.cuda import gather_kernel
+    from memcnet_tpu_torch.probe import device_ops, level_prologue
+
+    first, second = torch.cat([x0, x2]), torch.cat([x2, x0])
+    out = {}
+    fused = gather_kernel.level_input
+    for tag, fn in (("fused", fused), ("parent_prologue", level_prologue)):
+        gather_kernel.level_input = fn  # SPyNet.forward looks it up at each level
+        try:
+            with torch.inference_mode():
+                n_ops, dev_ms, _ = device_ops(lambda: net(first, second))
+                ms = timed_ms(torch, lambda: net(first, second), reps=5)
+        finally:
+            gather_kernel.level_input = fused
+        out[tag] = dict(device_ops=n_ops, device_ms=dev_ms, ms=ms)
+        log(f"  SPyNet forward alone, B=2 bf16, {tag} level input: {n_ops} device ops, "
+            f"device ms {dev_ms:.3f}, {ms:.3f} ms")
+    return out
+
+
 def phase_profile(torch, name, model, pair, results):
     """Where one served frame's time goes: the model forward alone (CUDA
     events, no host copies) and its kernels by device time (torch.profiler),
@@ -518,6 +602,8 @@ def phase_profile(torch, name, model, pair, results):
         log(f"    {ms_:9.4f} ms {100 * ms_ / max(busy, 1e-9):5.1f}% {n:4d}x  {key[:90]}")
     prof_res = results.setdefault("profile", {})[name] = dict(
         forward_ms=fwd_ms, wall_ms=wall_ms, kernel_ms=busy, port_kernel_ms=ours, top=rows[:25])
+    if name == "MEMC_Net_s":
+        prof_res["spynet"] = spynet_ops(torch, model.flownets, x0, x2)
 
     # one served frame stage by stage, as PaddedInterp runs it (host clock,
     # each stage ends in a synchronise)
@@ -595,7 +681,9 @@ def main():
 
     # the row that matches bf16 serving: K2 reads the bf16 flows, K3 writes
     # the bf16 projected flow; K4's main row is the ctx conv, its SPyNet
-    # shapes are listed beside it; K2 and K3 carry the whole op beside them
+    # shapes are listed beside it; K2 and K3 carry the whole op beside them;
+    # K5's row is the fused SPyNet level input its served launches run, its
+    # general grid-sample entry beside it
     main_dtype = {"filter_interp_warp": "bfloat16", "base_scatter": "bfloat16",
                   "fill_holes": "bfloat16", "conv2d_small": "bfloat16", "grid_sample": "bfloat16"}
     krows = results["kernels"]
@@ -613,8 +701,15 @@ def main():
                     "other_dtype_max_abs_err": o["max_abs_err"], "other_dtype_ms": o["ms"],
                     "other_dtype_library_ms": o["library_ms"]}
 
+        key = "spynet_level_input" if name == "grid_sample" else name
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": sum(by_path.values()), "launches_by_path": by_path, **row(name)}
+                 "launches": sum(by_path.values()), "launches_by_path": by_path, **row(key)}
+        if name == "grid_sample":
+            top = krows[key][dt]
+            entry.update(entry="memc_spynet_level_input", device_ops_per_call=top["device_ops"],
+                         parent_prologue={k: v for k, v in top["parent_prologue"].items()
+                                          if k != "by_kernel"},
+                         general_entry={"entry": "memc_grid_sample", **row(name)})
         if name in ("base_scatter", "fill_holes"):
             entry["whole_op"] = {"name": "flow_project", **row("flow_project"),
                                  "device_ops_per_call": krows["flow_project"][dt]["device_ops"]}

@@ -1,6 +1,6 @@
-"""Kernels K1 (warp) and K4 (small conv) and the flow projection (K2 and K3)
-timed on one card at the 720p paths' shapes, against another checkout of the
-repo and against K1's design steps.
+"""Kernels K1 (warp), K4 (small conv) and K5 (SPyNet's level input) and the
+flow projection (K2 and K3) timed on one card at the 720p paths' shapes,
+against another checkout of the repo and against K1's design steps.
 
     python memcnet_tpu_torch/bench/kernel_ab.py [--other DIR] [--out FILE]
 
@@ -10,7 +10,10 @@ chip_smoke.py checks (``memcnet_tpu_torch/probe.py``), bf16 and float32 --
 and K4 -- the ctx conv (3 -> 64) and SPyNet's five 7x7 convs at each of its
 six pyramid levels, B = 2, bf16 and float32 -- and ``flow_project`` with the fill at B = 2 (both directions of
 the smooth flow), bf16 and float32, with its device operations and device ms
-per call from torch.profiler and, in this tree, its K2 and K3 stages; each the
+per call from torch.profiler and, in this tree, its K2 and K3 stages -- and
+K5 at SPyNet's top level (B = 2): the level input as separate ops around the
+standalone K5, and fused where the tree has it, with device operations; the
+standalone K5; SPyNet's forward with its device operations; each the
 median device time of repeated launches after a 256 MB L2 flush, and each
 checked against the tree's own plain version (the projection against the
 tree's CPU path).
@@ -22,8 +25,10 @@ meet the same card; the table keeps the mean of each tree's two runs.  The
 other tree builds its own kernels into its own ``_build`` directory.
 
 The design steps of K1 (``warp_steps.cu``: tiled and vector-load gathers,
-and the floor of 16 loads per channel that all hit the pixel itself) are
-timed in this tree's process, and ``mma_probe.cu`` shows how the tensor
+and the floor of 16 loads per channel that all hit the pixel itself) and of
+K5's level input (``level_steps.cu``: taps at the pixel, no sample, the copy
+floor, four coarse-flow loads a pixel, 8 pixels a thread) are timed in this tree's
+process, and ``mma_probe.cu`` shows how the tensor
 cores add: 1 + 2^-k and 1 - 1 + 2^-k in one MMA, for which k the small term
 survives.  Results go to ``--out`` as JSON (default
 ``chiprun_out/kernel_ab/results.json``) and a table to standard output.
@@ -59,6 +64,11 @@ LEVELS = 6
 BASIC = [(8, 32), (32, 64), (64, 32), (32, 16), (16, 2)]  # models/spynet.py
 WARP_STEPS = ["128x1 gather (earlier tile)", "32x4 gather", "128x1 vector rows",
               "32x4 vector rows", "floor: every tap at the pixel", "one gather per filter row"]
+# K5 level input's design steps (level_steps.cu): (step, pixels a thread, label)
+LEVEL_STEPS = [(0, 4, "as built, 4 px a thread"), (1, 4, "taps at the pixel"),
+               (2, 4, "no sample (snd not read)"), (3, 4, "copy floor (fst only)"),
+               (4, 4, "four coarse-flow loads a pixel"), (0, 8, "as built, 8 px a thread"),
+               (4, 8, "four coarse-flow loads a pixel, 8 px a thread")]
 
 
 def noisy_flow(torch, dev):
@@ -112,6 +122,7 @@ def measure(root, steps):
     gen = torch.Generator(device=dev).manual_seed(0)
     res = {}
     step_lib = build(_lib, "warp_steps") if steps else None
+    level_lib = build(_lib, "level_steps") if steps else None
     if steps:
         res["mma probe"] = mma_probe(torch, build(_lib, "mma_probe"))
     for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
@@ -146,6 +157,7 @@ def measure(root, steps):
                 res[key]["steps"] = time_steps(torch, step_lib, warp_kernel, _lib, srcs, flow,
                                                filt, flush)
         del frame, ctx, filt, noisy
+        level_input_rows(torch, res, name, dt, gen, flush, level_lib)
         convs = [("ctx 3->64", 3, 64, H, W, False, False)]
         convs += [(f"L{lvl} {H >> lvl}x{W >> lvl} {cin}->{cout}", cin, cout, H >> lvl, W >> lvl,
                    True, j < len(BASIC) - 1)
@@ -167,6 +179,76 @@ def measure(root, steps):
             del x, w, b, got, ref
         torch.cuda.empty_cache()
     return res
+
+
+def level_input_rows(torch, res, name, dt, gen, flush, level_lib=None):
+    """K5 at SPyNet's top level, B = 2, in the measured tree: the level input
+    as separate ops around the standalone K5 (``probe.level_prologue``) and,
+    in a tree that has it, fused in one launch; the standalone K5 on the
+    float32 grid; and SPyNet's whole forward.  Each with its device
+    operations and device ms, the level inputs' warp held against the plain
+    grid sample of their own upsampled flow; with ``level_lib``, the fused
+    kernel's design steps (``level_steps.cu``), each as-built variant checked
+    bit for bit against the kernel."""
+    from memcnet_tpu_torch.models import spynet
+    from memcnet_tpu_torch.ops.cuda import gather_kernel
+
+    dev = torch.device("cuda")
+    fst, snd = (torch.rand((2, 3, H, W), generator=gen, device=dev).to(dt) for _ in range(2))
+    cflow = PROBE.level_flow(2, 0, dev).to(dt)
+    ways = {"K5 level input, separate ops": lambda: PROBE.level_prologue(fst, snd, cflow)}
+    if hasattr(gather_kernel, "launch_level_input"):
+        def fused():
+            return gather_kernel.launch_level_input(fst, snd, cflow)
+
+        ways["K5 level input, fused"] = fused
+    for label, fn in ways.items():
+        out = fn()
+        want = gather_kernel.reference(snd, spynet.warp_grid(out[:, 6:8]))
+        n_ops, dev_ms, by_kernel = PROBE.device_ops(fn)
+        res[f"{label} {name}"] = dict(ms=timed_ms(torch, fn, flush),
+                                      err=max_ulps(torch, out[:, 3:6], want, 0.0),
+                                      launches=n_ops, device_ms=dev_ms, kernels=by_kernel)
+    if level_lib is not None:
+        res[f"K5 level input, fused {name}"]["steps"] = level_steps(
+            torch, level_lib, fst, snd, cflow, gather_kernel.launch_level_input(fst, snd, cflow),
+            flush)
+    grid = spynet.warp_grid(PROBE.synthetic_flow(2, dev).to(dt)).contiguous()
+    res[f"K5 grid sample {name}"] = dict(
+        ms=timed_ms(torch, lambda: gather_kernel.launch(snd, grid), flush),
+        err=max_ulps(torch, gather_kernel.launch(snd, grid), gather_kernel.reference(snd, grid),
+                     0.0))
+    net = spynet.SPyNet()
+    net.init_params(torch.Generator().manual_seed(0))
+    net = net.to(device=dev, dtype=dt).eval()
+    with torch.inference_mode():
+        n_ops, dev_ms, by_kernel = PROBE.device_ops(lambda: net(fst, snd))
+        res[f"SPyNet forward B=2 {name}"] = dict(
+            ms=timed_ms(torch, lambda: net(fst, snd), flush, reps=5), launches=n_ops,
+            device_ms=dev_ms, kernels={}, by_kernel=by_kernel)
+
+
+def level_steps(torch, lib, fst, snd, cflow, want, flush):
+    """ms of each of K5 level input's design steps; the as-built variants
+    (steps 0 and 4) must equal the kernel's output bit for bit."""
+    from memcnet_tpu_torch.ops.cuda import _lib
+
+    out = torch.empty_like(want)
+    B, _, H_l, W_l = fst.shape
+    code = _lib.dtype_code(fst.dtype)
+    ms = {}
+    for step, pix, label in LEVEL_STEPS:
+        def run():
+            err = lib.memc_level_step(step, pix, fst.data_ptr(), snd.data_ptr(), cflow.data_ptr(),
+                                      out.data_ptr(), B, H_l, W_l, code,
+                                      torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"level step {label}: CUDA error {err}")
+        run()
+        if step in (0, 4) and not torch.equal(out, want):
+            raise RuntimeError(f"level step {label}: differs from the kernel")
+        ms[label] = timed_ms(torch, run, flush)
+    return ms
 
 
 def projection_steps(torch, projection, flow, flush):
@@ -200,6 +282,9 @@ def build(_lib, name):
     if name == "warp_steps":
         lib.memc_warp_step.argtypes = [i, vp, vp, vp, i, i, i, i, vp]
         lib.memc_warp_step.restype = i
+    elif name == "level_steps":
+        lib.memc_level_step.argtypes = [i, i, vp, vp, vp, vp, i, i, i, i, vp]
+        lib.memc_level_step.restype = i
     else:
         lib.memc_mma_probe.argtypes = [vp, vp, vp, vp]
         lib.memc_mma_probe.restype = i
@@ -286,12 +371,16 @@ def main():
     for key in runs["this"][0]:
         row = {}
         for name, rs in runs.items():
-            row[f"{name}_ms"] = sum(r[key]["ms"] for r in rs) / len(rs)
-            row[f"{name}_err"] = max(r[key]["err"] for r in rs)
-            if "launches" in rs[0][key]:
-                row[f"{name}_launches"] = rs[0][key]["launches"]
-                row[f"{name}_device_ms"] = sum(r[key]["device_ms"] for r in rs) / len(rs)
-                row[f"{name}_kernels"] = rs[0][key]["kernels"]
+            rs = [r[key] for r in rs if key in r]  # rows only one of the trees has
+            if not rs:
+                continue
+            row[f"{name}_ms"] = sum(r["ms"] for r in rs) / len(rs)
+            if "err" in rs[0]:
+                row[f"{name}_err"] = max(r["err"] for r in rs)
+            if "launches" in rs[0]:
+                row[f"{name}_launches"] = rs[0]["launches"]
+                row[f"{name}_device_ms"] = sum(r["device_ms"] for r in rs) / len(rs)
+                row[f"{name}_kernels"] = rs[0]["kernels"]
         if "steps" in runs["this"][0][key]:
             row["steps_ms"] = runs["this"][0][key]["steps"]
         table[key] = row
@@ -303,14 +392,15 @@ def main():
     for k, row in probe.items():
         print(f"mma probe k={k}: " + ", ".join(f"{n} -> {v:g}" for n, v in row.items()))
     for key, row in table.items():
-        line = f"{key:<34} this {row['this_ms']:.4f} ms (err {row['this_err']:.3g})"
-        if "other_ms" in row:
-            line += f"  other {row['other_ms']:.4f} ms (err {row['other_err']:.3g})"
+        trees = [n for n in runs if f"{n}_ms" in row]
+        line = f"{key:<34} " + "  ".join(
+            f"{n} {row[f'{n}_ms']:.4f} ms"
+            + (f" (err {row[f'{n}_err']:.3g})" if f"{n}_err" in row else "") for n in trees)
         if "this_launches" in row:
             line += "  device ops, device ms a call: " + ", ".join(
-                f"{n} {row[f'{n}_launches']}, {row[f'{n}_device_ms']:.4f}" for n in runs)
+                f"{n} {row[f'{n}_launches']}, {row[f'{n}_device_ms']:.4f}" for n in trees)
         print(line)
-        for n in runs:
+        for n in trees:
             for k, ms in row.get(f"{n}_kernels", {}).items():
                 print(f"    {n} kernel {k[:70]:<70} {ms:.4f} ms")
         for label, ms in row.get("steps_ms", {}).items():

@@ -9,8 +9,10 @@ x2 while a level is larger than 32 px (up to 6 levels, static per input
 size); the flow starts as zeros at half the coarsest size; each level
 upsamples the flow x2 (bilinear, align_corners=True, times 2.0),
 replicate-pads it by one on an odd size, and adds a residual predicted from
-cat(first, warp(second, flow_up), flow_up).  The warp is grid_sample, kernel
-K5 on CUDA tensors.
+cat(first, warp(second, flow_up), flow_up).  That input -- the upsample, the
+pad, the float32 grid, the grid-sample warp and the concat -- is one launch
+of kernel K5 per level on CUDA tensors (ops/cuda/gather_kernel.py::
+level_input), and the residual adds its flow_up channels.
 
 Its base grid and flow terms are float32 whatever the activation type: the
 JAX package builds them in x's type (spynet.py:77-81), which in bf16 puts the
@@ -28,7 +30,8 @@ from torch import nn
 
 from memcnet_tpu_torch.nn import init as I
 from memcnet_tpu_torch.nn import layers as L
-from memcnet_tpu_torch.ops.cuda import conv_kernel
+from memcnet_tpu_torch.ops.cuda import conv_kernel, gather_kernel
+from memcnet_tpu_torch.ops.cuda.gather_kernel import warp_grid
 
 BASIC = [(8, 32), (32, 64), (64, 32), (32, 16), (16, 2)]
 LEVELS = 6
@@ -59,16 +62,6 @@ def _preprocess(x):
     g = (x[:, 1:2] - 0.456) / 0.224
     r = (x[:, 2:3] - 0.485) / 0.229
     return torch.cat([r, g, b], dim=1)
-
-
-def warp_grid(flow):
-    """The normalised (B, H, W, 2) float32 sampling grid of a (B, 2, H, W)
-    flow in pixels: the identity grid plus the flow (Network.py:120-134)."""
-    _, _, H, W = flow.shape
-    f = flow.float()
-    gx = torch.linspace(-1.0, 1.0, W, dtype=torch.float32, device=f.device).view(1, 1, W)
-    gy = torch.linspace(-1.0, 1.0, H, dtype=torch.float32, device=f.device).view(1, H, 1)
-    return torch.stack([gx + f[:, 0] / ((W - 1) / 2.0), gy + f[:, 1] / ((H - 1) / 2.0)], dim=-1)
 
 
 def _backward_warp(x, flow):
@@ -104,11 +97,6 @@ class SPyNet(nn.Module):
         w0 = int(math.floor(firsts[0].shape[3] / 2.0))
         flow = torch.zeros((first.shape[0], 2, h0, w0), dtype=first.dtype, device=first.device)
         for lvl, (fst, snd) in enumerate(zip(firsts, seconds)):
-            up = L.upsample_bilinear(flow, 2) * 2.0
-            pad_b = fst.shape[2] - up.shape[2]
-            pad_r = fst.shape[3] - up.shape[3]
-            if pad_b or pad_r:
-                up = L.replication_pad2d(up, (0, pad_r, 0, pad_b))
-            inp = torch.cat([fst, _backward_warp(snd, up), up], dim=1)
-            flow = self.moduleBasic[lvl](inp) + up
+            inp = gather_kernel.level_input(fst, snd, flow)  # cat(fst, warp(snd, up), up)
+            flow = self.moduleBasic[lvl](inp) + inp[:, 6:8]
         return flow

@@ -10,7 +10,8 @@ tensors.
   project_kernel  K2  projection scatter, folds and divide  (csrc/project.cu)
                   K3  projection hole fill                  (csrc/project.cu)
   conv_kernel     K4  small-C conv: bf16 on tensor cores, float32 direct  (csrc/conv.cu)
-  gather_kernel   K5  bilinear grid sample        (csrc/gather.cu)
+  gather_kernel   K5  bilinear grid sample, and SPyNet's level input around it
+                      in one launch               (csrc/gather.cu)
 """
 
 from memcnet_tpu_torch.ops.cuda import (

@@ -132,6 +132,8 @@ def _declare(lib):
     lib.memc_conv2d_igemm.restype = i
     lib.memc_grid_sample.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, vp]
     lib.memc_grid_sample.restype = i
+    lib.memc_spynet_level_input.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
+    lib.memc_spynet_level_input.restype = i
 
 
 def lib():

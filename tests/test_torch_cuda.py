@@ -255,6 +255,78 @@ def test_grid_sample_kernel_matches_plain(rng, dev, dtype, Ho, Wo, scale):
         assert float((got - lib).abs().max()) <= 1e-5
 
 
+def level_case(rng, dev, dtype, H, W, amp=60.0, B=2):
+    """fst, snd (B, 3, H, W) and a coarse flow of up to ``amp`` px with an
+    out-of-frame block, on the card in ``dtype``."""
+    fst, snd = (torch.from_numpy(rng.rand(B, 3, H, W).astype(np.float32)).to(dev, dtype)
+                for _ in range(2))
+    return fst, snd, flow_field(rng, B, H // 2, W // 2, amp).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W", [(768, 1344), (74, 100), (25, 45)])
+@pytest.mark.parametrize("amp", [3.0, 60.0])
+def test_level_input_kernel_matches_plain(rng, dev, dtype, H, W, amp):
+    """SPyNet's fused level input: fst and the upsampled flow equal the plain
+    composition's bit for bit; the warp equals the plain grid sample of the
+    kernel's own up within 2 bf16 ulps, or 1e-5 in float32."""
+    fst, snd, flow = level_case(rng, dev, dtype, H, W, amp)
+    got = gather_kernel.launch_level_input(fst, snd, flow)
+    ref = gather_kernel.level_input_reference(fst, snd, flow)
+    assert got.shape == (2, 8, H, W) and got.dtype == dtype
+    assert torch.equal(got[:, :3], ref[:, :3])
+    assert torch.equal(got[:, 6:], ref[:, 6:])
+    want = gather_kernel.reference(snd, gather_kernel.warp_grid(got[:, 6:8]))
+    if dtype == torch.float32:
+        assert float((got[:, 3:6] - want).abs().max()) <= 1e-5
+    else:
+        close(got[:, 3:6], want)
+    assert device_ops(lambda: gather_kernel.launch_level_input(fst, snd, flow))[0] == 1
+
+
+def test_level_input_gradients_match_plain(rng, dev):
+    fst, snd, flow = (a.requires_grad_() for a in level_case(rng, dev, torch.float32, 25, 45, 3.0))
+    ct = torch.randn(2, 8, 25, 45, device=dev)
+    (gather_kernel.level_input(fst, snd, flow) * ct).sum().backward()
+    xs = [a.detach().requires_grad_() for a in (fst, snd, flow)]
+    (gather_kernel.level_input_reference(*xs) * ct).sum().backward()
+    for a, c in zip((fst, snd, flow), xs):  # the grid sample's backward adds by atomics
+        assert float((a.grad - c.grad).abs().max()) <= ATOL
+
+
+def test_level_input_refuses_what_the_kernel_does_not_take(rng, dev):
+    fst, snd, flow = level_case(rng, dev, torch.float32, 24, 40)
+    with pytest.raises(ValueError, match="flow"):
+        gather_kernel.level_input(fst, snd, flow[:, :, :11])
+    with pytest.raises(TypeError, match="one type"):
+        gather_kernel.level_input(fst, snd, flow.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
+        gather_kernel.level_input(fst, snd.cpu(), flow)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_kernel.level_input(fst, snd, flow.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(TypeError):
+        gather_kernel.level_input(*(a.half() for a in (fst, snd, flow)))
+
+
+def test_spynet_forward_launches_k5_once_per_level(rng, dev):
+    """At 74x100 SPyNet runs three levels (18x25, 37x50, 74x100): one K5
+    launch and five K4 launches each, and matches the CPU path."""
+    from memcnet_tpu_torch.models import spynet
+
+    net = spynet.SPyNet()
+    net.init_params(torch.Generator().manual_seed(3))
+    first = torch.from_numpy(rng.rand(2, 3, 74, 100).astype(np.float32))
+    second = torch.roll(first, (1, 2), dims=(2, 3))
+    with torch.no_grad():
+        ref = net(first, second)
+        net.to(dev)
+        K.reset_counters()
+        got = net(first.to(dev), second.to(dev))
+    counts = K.launch_counts()
+    assert counts["grid_sample"] == 3 and counts["conv2d_small"] == 15
+    assert float((got.cpu() - ref).abs().max()) <= 1e-3 * max(1.0, float(ref.abs().max()))
+
+
 def test_kernel_gradients_match_plain(rng, dev):
     B, H, W = 1, 24, 40
     img = torch.from_numpy(rng.rand(B, 3, H, W).astype(np.float32)).to(dev).requires_grad_()
