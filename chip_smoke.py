@@ -12,8 +12,11 @@ Phases (any failed check exits non-zero and prints no result line):
      concat) at each of the six levels, exact in its fst and upsampled-flow
      channels, with its device operations (1) beside those of the separate
      ops it replaces, and K4 at each of the five convs of every SPyNet level,
-     768x1344 down to 24x42 (MEMC_Net_s); the projection's K2 and K3 stages
-     each, and the whole op (flow_project) against its plain composition on
+     768x1344 down to 24x42 (MEMC_Net_s), and K1 and K4 at MEMC_Net_VE's
+     320x512 window (K1 over six neighbours and their contexts on the smooth
+     flow and on +-20 px noise, K4 over seven frames); the projection's K2
+     and K3 stages each, and the whole op (flow_project) against its plain
+     composition on
      smooth, +-200 px and all-invalid flows, with its device operations per
      call from torch.profiler (at most 4 with the fill); time the kernel,
      its plain version and, where one PyTorch call computes the same
@@ -21,11 +24,14 @@ Phases (any failed check exits non-zero and prints no result line):
   3. serve, each model with seeded random weights in bf16 through
      build_model and PaddedInterp on synthetic 1280x720 frame pairs, the
      launch counts set to 0 just before and read just after: MEMC_Net_star
-     (3 pairs), MEMC_Net_s (3 pairs), MEMC_Net (1 pair); each model is also
-     held against the CPU plain path on a small float32 pair;
-  4. where one frame's time goes, for each model: the forward alone (CUDA
-     events), its kernels by device time (torch.profiler) and one served
-     frame split into host stages (pad, copy in, forward, copy out); for
+     (3 pairs), MEMC_Net_s (3 pairs), MEMC_Net (1 pair); then MEMC_Net_VE
+     through build_model and PaddedVE on 3 synthetic seven-frame 256x448
+     windows (padded to 320x512), 1 K1 and 1 K4 launch per window; each
+     model is also held against the CPU plain path on a small float32 pair
+     or window;
+  4. where one frame's (or window's) time goes, for each model: the forward
+     alone (CUDA events), its kernels by device time (torch.profiler) and one
+     served frame split into host stages (pad, copy in, forward, copy out); for
      MEMC_Net_s also SPyNet's forward alone (B = 2) with its device
      operations, and the same with the separate-op level input it replaced.
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
@@ -47,6 +53,11 @@ OUT_DIR = os.path.join(HERE, "chiprun_out", "chip_smoke")
 H, W = 768, 1344            # 1280x720 padded (data/padding.py)
 FRAME_H, FRAME_W = 720, 1280
 SERVED = (("MEMC_Net_star", 3), ("MEMC_Net_s", 3), ("MEMC_Net", 1))  # (model, pairs)
+# MEMC_Net_VE: the Vimeo-90K window of the reference's VE demo (cli/demo_vimeo_ve.py),
+# seven 256x448 frames padded to 320x512
+VE_FRAME_H, VE_FRAME_W = 256, 448
+VE_H, VE_W = 320, 512
+VE_WINDOWS = 3
 # published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # float32: CUDA cores
@@ -58,6 +69,9 @@ EXPECTED_PER_FRAME = {
                    "conv2d_small": 30, "grid_sample": 6},
     "MEMC_Net": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 1,
                  "conv2d_small": 0, "grid_sample": 0},
+    # per seven-frame window: one 6B split warp, one 7B ctx conv, no projection
+    "MEMC_Net_VE": {"filter_interp_warp": 1, "base_scatter": 0, "fill_holes": 0,
+                    "conv2d_small": 1, "grid_sample": 0},
 }
 TPU_KERNELS = {
     "filter_interp_warp": ("memcnet_tpu_torch/csrc/warp.cu",
@@ -328,6 +342,43 @@ def phase_kernels(torch, results):
                flops=2 * 2 * H * W * 64 * 3 * 49, op_dtype=dtype_name)
         del frame, ctx, filt, got, ref
 
+        # --- MEMC_Net_VE's shapes (320x512): K1 over one window's six
+        # neighbours with their contexts, on the smooth flow and on +-20 px
+        # noise (source boxes too wide for shared memory: the global-gather
+        # path); K4 ctx over the window's seven frames.  Rows "...[ve <tag>]"
+        vframe = torch.rand((6, 3, VE_H, VE_W), generator=gen, device=dev).to(dt)
+        vctx = torch.randn((6, 64, VE_H, VE_W), generator=gen, device=dev).to(dt)
+        vfilt = (torch.rand((6, 16, VE_H, VE_W), generator=gen, device=dev) / 8.0).to(dt)
+        noise = torch.rand((6, 2, VE_H, VE_W), generator=gen, device=dev) * 40.0 - 20.0
+        for tag, vflow in (("smooth", synthetic_flow(6, dev, size=(VE_H, VE_W))),
+                           ("pm20", noise)):
+            vflow = vflow.to(dt).float()  # a bf16 activation in bf16 serving
+            got = warp_kernel.launch((vframe, vctx), vflow, vfilt, 4)
+            ref = warp_kernel.reference((vframe, vctx), vflow, vfilt, 4)
+            nvalid = int(warp_kernel.valid_and_taps(vflow, VE_H, VE_W)[0].sum())
+            record(f"filter_interp_warp[ve {tag}]", dtype_name, compare(list(zip(got, ref)), 1e-4),
+                   timed_ms(torch, lambda: warp_kernel.launch((vframe, vctx), vflow, vfilt, 4),
+                            flush=flush),
+                   timed_ms(torch, lambda: warp_kernel.reference((vframe, vctx), vflow, vfilt, 4),
+                            reps=3, flush=flush),
+                   None,
+                   nbytes=6 * VE_H * VE_W * ((3 + 64 + 16) * esize + 2 * 4 + (3 + 64) * esize),
+                   flops=nvalid * 2 * 16 * 67, op_dtype="float32",
+                   extra=dict(valid_pixels=nvalid, shape=f"6x(3+64)x{VE_H}x{VE_W}"))
+            del got, ref
+        x = (torch.rand((7, 3, VE_H, VE_W), generator=gen, device=dev) * 4.0 - 2.0).to(dt)
+        w = I.resnet_msra((64, 3, 7, 7), torch.Generator().manual_seed(1)).to(dev).to(dt)
+        got = conv_kernel.launch(x, w, None)
+        ref = conv_kernel.reference(x, w, None)
+        record("conv2d_small[ve ctx]", dtype_name, compare([(got, ref)], 1e-4),
+               timed_ms(torch, lambda: conv_kernel.launch(x, w, None), flush=flush),
+               timed_ms(torch, lambda: conv_kernel.reference(x, w, None), flush=flush),
+               timed_ms(torch, lambda: F.conv2d(x, w, None, padding=3), flush=flush),
+               nbytes=7 * VE_H * VE_W * (3 + 64) * esize + w.numel() * esize,
+               flops=2 * 7 * VE_H * VE_W * 64 * 3 * 49, op_dtype=dtype_name,
+               extra=dict(shape=f"7x3x{VE_H}x{VE_W}"))
+        del vframe, vctx, vfilt, noise, x, w, got, ref
+
         # --- K5 grid sample of SPyNet's top level: x (2, 3, H, W) and the
         # float32 grid _backward_warp builds from both directions' flows
         x = torch.rand((2, 3, H, W), generator=gen, device=dev).to(dt)
@@ -444,21 +495,41 @@ def phase_kernels(torch, results):
     results["kernels"] = rows
 
 
-def synthetic_frames(seed):
-    """A textured 1280x720 frame and the same scene moved a few pixels."""
-    rng = np.random.RandomState(seed)
-    ys, xs = np.meshgrid(np.arange(FRAME_H + 40, dtype=np.float32),
-                         np.arange(FRAME_W + 40, dtype=np.float32), indexing="ij")
-    img = np.zeros((3, FRAME_H + 40, FRAME_W + 40), np.float32)
+def texture(rng, h, w):
+    """A (3, h, w) float32 scene in [0, 1]: four plane waves per channel."""
+    ys, xs = np.meshgrid(np.arange(h, dtype=np.float32), np.arange(w, dtype=np.float32),
+                         indexing="ij")
+    img = np.zeros((3, h, w), np.float32)
     for c in range(3):
         for _ in range(4):
             kx, ky, ph = rng.uniform(0.005, 0.05), rng.uniform(0.005, 0.05), rng.uniform(0, 6.3)
             img[c] += np.sin(kx * xs + ky * ys + ph)
-    img = (img - img.min()) / (img.max() - img.min())
+    return (img - img.min()) / (img.max() - img.min())
+
+
+def synthetic_frames(seed):
+    """A textured 1280x720 frame and the same scene moved a few pixels."""
+    rng = np.random.RandomState(seed)
+    img = texture(rng, FRAME_H + 40, FRAME_W + 40)
     dx, dy = rng.randint(2, 12), rng.randint(2, 8)
     x0 = img[:, 20:20 + FRAME_H, 20:20 + FRAME_W]
     x2 = img[:, 20 + dy:20 + dy + FRAME_H, 20 + dx:20 + dx + FRAME_W]
     return np.ascontiguousarray(x0), np.ascontiguousarray(x2)
+
+
+def synthetic_window(seed, h=VE_FRAME_H, w=VE_FRAME_W):
+    """Seven textured h x w frames of one scene: the center (frame 3) and six
+    neighbours, each moved 2-12 px across and 0-8 px down or up from it."""
+    rng = np.random.RandomState(100 + seed)
+    img = texture(rng, h + 40, w + 40)
+    frames = []
+    for t in range(7):
+        dx, dy = 0, 0
+        if t != 3:
+            dx = rng.randint(2, 13) * rng.choice((-1, 1))
+            dy = rng.randint(0, 9) * rng.choice((-1, 1))
+        frames.append(np.ascontiguousarray(img[:, 20 + dy:20 + dy + h, 20 + dx:20 + dx + w]))
+    return frames
 
 
 def offset_spynet(torch, model):
@@ -540,6 +611,71 @@ def phase_serve(torch, name, n_pairs, results):
     return model, pairs[0]
 
 
+def small_window_check(torch):
+    """A small float32 window (100x120, padded to 128x128): the card's path
+    against the CPU plain path, same weights, within 1e-3 of the output's
+    scale (random kaiming weights put the output in the thousands)."""
+    from memcnet_tpu_torch.cli.runner import PaddedVE, build_model
+
+    frames = synthetic_window(7, 100, 120)
+    outs = [PaddedVE(build_model("MEMC_Net_VE", seed=0, device=dev), device=dev)(frames)
+            for dev in ("cpu", "cuda")]
+    scale = max(1.0, float(np.abs(outs[0]).max()))
+    err = float(np.abs(outs[1] - outs[0]).max())
+    log(f"  MEMC_Net_VE small window f32, card vs CPU plain path: max_abs_err {err:.3e} "
+        f"(tol 1e-3 x {scale:.4g})")
+    if not (err <= 1e-3 * scale):
+        raise CheckFailed(f"MEMC_Net_VE: served output on the card disagrees with the CPU path "
+                          f"({err} at scale {scale})")
+    return err
+
+
+def phase_serve_ve(torch, results):
+    """Serve VE_WINDOWS synthetic seven-frame 256x448 windows in bf16 through
+    PaddedVE, the launch counts set to 0 just before and read just after."""
+    from memcnet_tpu_torch.cli.runner import PaddedVE, build_model
+    from memcnet_tpu_torch.data import pad_plan
+    from memcnet_tpu_torch.ops import cuda as K
+
+    name = "MEMC_Net_VE"
+    left, right, top, bottom = pad_plan(VE_FRAME_H, VE_FRAME_W)
+    if (VE_FRAME_H + top + bottom, VE_FRAME_W + left + right) != (VE_H, VE_W):
+        raise CheckFailed(f"{name}: {VE_FRAME_W}x{VE_FRAME_H} pads to "
+                          f"{VE_FRAME_W + left + right}x{VE_FRAME_H + top + bottom}")
+    small_err = small_window_check(torch)
+
+    t0 = time.perf_counter()
+    model = build_model(name, seed=0, dtype=torch.bfloat16, device="cuda")
+    serve = PaddedVE(model, dtype=torch.bfloat16, device="cuda")
+    log(f"  build_model {name} bf16: {time.perf_counter() - t0:.2f} s")
+    windows = [synthetic_window(s) for s in range(VE_WINDOWS)]
+    serve(windows[0])  # warm-up (cuDNN algorithm choice), not counted
+    torch.cuda.synchronize()
+
+    K.reset_counters()
+    ms = []
+    outs = []
+    for frames in windows:
+        t0 = time.perf_counter()
+        outs.append(serve(frames))  # a host array: the work has finished
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = K.launch_counts()
+    log(f"  {name}: served {VE_WINDOWS} windows: ms/window {', '.join(f'{m:.3f}' for m in ms)}; "
+        f"launches {counts}")
+    for kname, per in EXPECTED_PER_FRAME[name].items():
+        if counts[kname] != per * VE_WINDOWS:
+            raise CheckFailed(f"{name}: {kname} launched {counts[kname]} times in {VE_WINDOWS} "
+                              f"windows, expected {per * VE_WINDOWS}")
+    for out in outs:
+        if out.shape != (3, VE_FRAME_H, VE_FRAME_W) or not np.isfinite(out).all():
+            raise CheckFailed(f"{name} served output: shape {out.shape}, "
+                              f"finite {np.isfinite(out).all()}")
+    results.setdefault("serve", {})[name] = dict(
+        ms_per_frame=ms, launches=counts, small_window_err=small_err,
+        out_dtype=str(serve.last_out_dtype))
+    return model, windows[0]
+
+
 def spynet_ops(torch, net, x0, x2):
     """SPyNet's forward alone at 720p, B = 2 (both directions, as MEMC_Net_s
     batches them): device operations and device ms (torch.profiler) and
@@ -565,24 +701,28 @@ def spynet_ops(torch, net, x0, x2):
     return out
 
 
-def phase_profile(torch, name, model, pair, results):
-    """Where one served frame's time goes: the model forward alone (CUDA
-    events, no host copies) and its kernels by device time (torch.profiler),
-    with the device's idle share over the profiled forward; then one served
-    frame split into its host stages."""
+def stage(torch, stages, name, fn):
+    """Run one host stage of a served frame and record its host ms (each
+    stage ends in a synchronise)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    stages[name] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def profile_forward(torch, name, fwd, results):
+    """The model forward alone (CUDA events, no host copies) and its kernels
+    by device time (torch.profiler), with the device's idle share over the
+    profiled forward."""
     from torch.profiler import ProfilerActivity, profile
 
-    from memcnet_tpu_torch.data import pad_frame, pad_plan, unpad_frame
-
-    plan = pad_plan(FRAME_H, FRAME_W)
-    x0, x2 = (torch.from_numpy(np.ascontiguousarray(pad_frame(f, plan)[None]))
-              .to("cuda", torch.bfloat16) for f in pair)
     with torch.inference_mode():
-        fwd_ms = timed_ms(torch, lambda: model(x0, x2), reps=5)
+        fwd_ms = timed_ms(torch, fwd, reps=5)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            model(x0, x2)
+            fwd()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     cuda_kind = torch.autograd.DeviceType.CUDA
@@ -600,30 +740,63 @@ def phase_profile(torch, name, model, pair, results):
             f.write(f"{ms_:10.4f} ms {n:5d}x  {key}\n")
     for key, ms_, n in rows[:12]:
         log(f"    {ms_:9.4f} ms {100 * ms_ / max(busy, 1e-9):5.1f}% {n:4d}x  {key[:90]}")
-    prof_res = results.setdefault("profile", {})[name] = dict(
+    res = results.setdefault("profile", {})[name] = dict(
         forward_ms=fwd_ms, wall_ms=wall_ms, kernel_ms=busy, port_kernel_ms=ours, top=rows[:25])
+    return res
+
+
+def phase_profile(torch, name, model, pair, results):
+    """Where one served frame's time goes: the forward alone and its kernels
+    (profile_forward); then one served frame split into its host stages."""
+    from memcnet_tpu_torch.data import pad_frame, pad_plan, unpad_frame
+
+    plan = pad_plan(FRAME_H, FRAME_W)
+    x0, x2 = (torch.from_numpy(np.ascontiguousarray(pad_frame(f, plan)[None]))
+              .to("cuda", torch.bfloat16) for f in pair)
+    prof_res = profile_forward(torch, name, lambda: model(x0, x2), results)
     if name == "MEMC_Net_s":
         prof_res["spynet"] = spynet_ops(torch, model.flownets, x0, x2)
 
-    # one served frame stage by stage, as PaddedInterp runs it (host clock,
-    # each stage ends in a synchronise)
+    # one served frame stage by stage, as PaddedInterp runs it (host clock)
     stages = {}
-
-    def stage(name, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        stages[name] = (time.perf_counter() - t0) * 1e3
-        return out
-
-    padded = stage("pad", lambda: [np.ascontiguousarray(pad_frame(f, plan)[None]) for f in pair])
-    xs = stage("to_device", lambda: [torch.from_numpy(a).to(device="cuda", dtype=torch.bfloat16)
-                                     for a in padded])
+    padded = stage(torch, stages, "pad",
+                   lambda: [np.ascontiguousarray(pad_frame(f, plan)[None]) for f in pair])
+    xs = stage(torch, stages, "to_device",
+               lambda: [torch.from_numpy(a).to(device="cuda", dtype=torch.bfloat16)
+                        for a in padded])
     with torch.inference_mode():
-        (interp, rect), offs, filts, occs = stage("forward", lambda: model(*xs))
-        stage("to_host", lambda: [unpad_frame(t[0].float().cpu().numpy(), plan, FRAME_H, FRAME_W)
-                                  for t in (rect, interp, *offs, *filts, *occs)])
+        (interp, rect), offs, filts, occs = stage(torch, stages, "forward", lambda: model(*xs))
+        stage(torch, stages, "to_host",
+              lambda: [unpad_frame(t[0].float().cpu().numpy(), plan, FRAME_H, FRAME_W)
+                       for t in (rect, interp, *offs, *filts, *occs)])
     log(f"  {name}: one served frame by stage (host ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    prof_res["host_stages_ms"] = stages
+
+
+def phase_profile_ve(torch, model, frames, results):
+    """Where one served VE window's time goes: the forward alone and its
+    kernels (profile_forward); then one window split into its host stages,
+    as PaddedVE runs it (seven frames in, the 3-plane center out)."""
+    from memcnet_tpu_torch.data import pad_frame, pad_plan, unpad_frame
+
+    name = "MEMC_Net_VE"
+    plan = pad_plan(VE_FRAME_H, VE_FRAME_W)
+    xs = [torch.from_numpy(np.ascontiguousarray(pad_frame(f, plan)[None]))
+          .to("cuda", torch.bfloat16) for f in frames]
+    prof_res = profile_forward(torch, name, lambda: model(xs), results)
+    del xs
+    stages = {}
+    padded = stage(torch, stages, "pad",
+                   lambda: [np.ascontiguousarray(pad_frame(f, plan)[None]) for f in frames])
+    xs = stage(torch, stages, "to_device",
+               lambda: [torch.from_numpy(a).to(device="cuda", dtype=torch.bfloat16)
+                        for a in padded])
+    with torch.inference_mode():
+        out = stage(torch, stages, "forward", lambda: model(xs))
+        stage(torch, stages, "to_host",
+              lambda: unpad_frame(out[0].float().cpu().numpy(), plan, VE_FRAME_H, VE_FRAME_W))
+    log(f"  {name}: one served window by stage (host ms): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     prof_res["host_stages_ms"] = stages
 
@@ -664,15 +837,17 @@ def main():
 
         log("phase 2: kernels vs plain versions at the 720p paths' shapes")
         phase_kernels(torch, results)
-        log("phase 3: serve 1280x720 through PaddedInterp")
+        log("phase 3: serve 1280x720 through PaddedInterp, 256x448 windows through PaddedVE")
         served = {}
         for name, n_pairs in SERVED:
             served[name] = phase_serve(torch, name, n_pairs, results)
+        served["MEMC_Net_VE"] = phase_serve_ve(torch, results)
         log("phase 4: where the time of one frame goes")
         for name, _ in SERVED:
             phase_profile(torch, name, *served[name], results)
             del served[name]
             torch.cuda.empty_cache()
+        phase_profile_ve(torch, *served.pop("MEMC_Net_VE"), results)
     except Exception:  # every failure ends the run with no result line
         traceback.print_exc()
         with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
@@ -691,7 +866,7 @@ def main():
     for name, (source, replaces) in TPU_KERNELS.items():
         dt = main_dtype[name]
         other = "float32" if dt == "bfloat16" else "bfloat16"
-        by_path = {m: results["serve"][m]["launches"][name] for m, _ in SERVED}
+        by_path = {m: results["serve"][m]["launches"][name] for m in EXPECTED_PER_FRAME}
 
         def row(key):
             r, o = krows[key][dt], krows[key][other]
@@ -717,6 +892,11 @@ def main():
             entry["spynet_shapes"] = [
                 {"shape": key.split("spynet ")[1].rstrip("]"), **row(key)}
                 for key in krows if key.startswith("conv2d_small[spynet")]
+        ve_rows = [key for key in krows if key.startswith(f"{name}[ve ")]
+        if ve_rows:  # K1 and K4 at MEMC_Net_VE's shapes
+            entry["ve_shapes"] = [{"case": key.split("[ve ")[1].rstrip("]"),
+                                   "shape": krows[key][dt]["shape"], **row(key)}
+                                  for key in ve_rows]
         kernels.append(entry)
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump(results, f, indent=1)

@@ -1,7 +1,7 @@
 """Serving entry points: model construction and padded evaluation (port of
-memcnet_tpu/cli/runner.py::build_model and PaddedInterp).
+memcnet_tpu/cli/runner.py::build_model, PaddedInterp and PaddedVE).
 
-Both run on the card unless the caller asks for the CPU: ``device`` defaults
+All run on the card unless the caller asks for the CPU: ``device`` defaults
 to ``"cuda"`` and raises when CUDA is not available.
 """
 
@@ -31,6 +31,12 @@ def build_model(net_name="MEMC_Net_star", *, seed=0, dtype=torch.float32, device
     return model.to(device=dev, dtype=dtype).eval()
 
 
+def _padded(x_np, plan, device, dtype):
+    """A (3, H, W) host frame padded by ``plan`` as a (1, 3, H', W') tensor."""
+    t = torch.from_numpy(np.ascontiguousarray(pad_frame(x_np, plan)[None]))
+    return t.to(device=device, dtype=dtype)
+
+
 class PaddedInterp:
     """Pad -> forward -> unpad for the interpolation models."""
 
@@ -47,13 +53,9 @@ class PaddedInterp:
         if W > 1280 or H > 720:  # demo_MiddleBury.py:96-97
             raise ValueError(f"frames up to 1280x720, got {W}x{H}")
         plan = pad_plan(H, W)
-
-        def load(x):
-            t = torch.from_numpy(np.ascontiguousarray(pad_frame(x, plan)[None]))
-            return t.to(device=self.device, dtype=self.dtype)
-
+        x0, x2 = (_padded(x, plan, self.device, self.dtype) for x in (x0_np, x2_np))
         with torch.inference_mode():
-            outs, offs, filts, occs = self.model(load(x0_np), load(x2_np))
+            outs, offs, filts, occs = self.model(x0, x2)
 
             def host(t):
                 return unpad_frame(t[0].float().cpu().numpy(), plan, H, W)
@@ -67,3 +69,24 @@ class PaddedInterp:
                 "occlusions": [host(o) for o in occs],
             }
         return out, aux
+
+
+class PaddedVE:
+    """Pad -> forward -> unpad for MEMC_Net_VE (7-frame windows)."""
+
+    def __init__(self, model, dtype=torch.float32, device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model
+        self.dtype = dtype
+        self.last_out_dtype = None
+
+    def __call__(self, frames_np):
+        """frames_np: 7 frames (3, H, W) float32 in [0, 1] -> the enhanced
+        center frame (3, H, W) float32."""
+        _, H, W = frames_np[0].shape
+        plan = pad_plan(H, W)
+        frames = [_padded(f, plan, self.device, self.dtype) for f in frames_np]
+        with torch.inference_mode():
+            out = self.model(frames)
+            self.last_out_dtype = out.dtype
+            return unpad_frame(out[0].float().cpu().numpy(), plan, H, W)

@@ -17,8 +17,9 @@ Pipeline, for frames x0 and x2:
              occlusions)  [star: EDSR(169 ch, 10 resblocks, 128 feats) with
              the warped contexts, detached]
 
-Train mode and MEMC_Net_VE are still to port (ROADMAP.md Queue A).  Module
-attribute names make the state-dict keys equal the JAX flat-dict keys.
+Train mode is still to port (ROADMAP.md Queue A); MEMC_Net_VE is in
+models/memc_net_ve.py.  Module attribute names make the state-dict keys equal
+the JAX flat-dict keys.
 """
 
 import torch

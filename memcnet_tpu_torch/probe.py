@@ -15,20 +15,22 @@ import torch
 H, W = 768, 1344  # 1280x720 padded (data/padding.py)
 
 
-def synthetic_flow(B, device, seed=0):
-    """Smooth low-frequency flow (B, 2, H, W) float32 of up to ~20 px, with
+def synthetic_flow(B, device, seed=0, size=None):
+    """Smooth low-frequency flow (B, 2, h, w) float32 of up to ~20 px, with
     blocks whose landing falls outside the frame, so the gates and the holes
-    are exercised."""
+    are exercised.  ``size`` (h, w) defaults to (H, W); at another size the
+    blocks keep their place relative to the frame."""
+    h, w = size or (H, W)
     rng = np.random.RandomState(seed)
-    ys, xs = np.meshgrid(np.arange(H, dtype=np.float32), np.arange(W, dtype=np.float32),
+    ys, xs = np.meshgrid(np.arange(h, dtype=np.float32), np.arange(w, dtype=np.float32),
                          indexing="ij")
     flows = []
     for _ in range(B):
         a, b, c = rng.uniform(0, 2 * np.pi, 3)
-        fx = 20.0 * np.sin(2 * np.pi * ys / H + a) * np.cos(2 * np.pi * xs / W + b)
-        fy = 12.0 * np.cos(2 * np.pi * xs / (0.7 * W) + c)
-        fx[100:140, 200:300] = 2000.0
-        fy[600:620, 50:90] = -900.0
+        fx = 20.0 * np.sin(2 * np.pi * ys / h + a) * np.cos(2 * np.pi * xs / w + b)
+        fy = 12.0 * np.cos(2 * np.pi * xs / (0.7 * w) + c)
+        fx[100 * h // H:140 * h // H, 200 * w // W:300 * w // W] = 2000.0
+        fy[600 * h // H:620 * h // H, 50 * w // W:90 * w // W] = -900.0
         flows.append(np.stack([fx, fy]))
     return torch.from_numpy(np.stack(flows).astype(np.float32)).to(device)
 

@@ -49,3 +49,32 @@ def test_probe_level_flow_and_prologue_fit_every_spynet_level():
     flow = probe.level_flow(1, 5, "cpu")
     assert torch.equal(probe.level_prologue(fst, snd, flow),
                        gather_kernel.level_input_reference(fst, snd, flow))
+
+
+def test_chip_smoke_serves_ve_at_the_vimeo_window():
+    """chip_smoke.py serves MEMC_Net_VE on seven 256x448 frames, which pad to
+    the 320x512 window its kernel checks run at, with one K1 and one K4
+    launch per window."""
+    from memcnet_tpu_torch.data import pad_plan
+
+    left, right, top, bottom = pad_plan(chip_smoke.VE_FRAME_H, chip_smoke.VE_FRAME_W)
+    assert (chip_smoke.VE_FRAME_H + top + bottom, chip_smoke.VE_FRAME_W + left + right) == (
+        chip_smoke.VE_H, chip_smoke.VE_W) == (320, 512)
+    assert chip_smoke.EXPECTED_PER_FRAME["MEMC_Net_VE"] == {
+        "filter_interp_warp": 1, "base_scatter": 0, "fill_holes": 0, "conv2d_small": 1,
+        "grid_sample": 0}
+    frames = chip_smoke.synthetic_window(0, 40, 60)
+    assert len(frames) == 7 and all(f.shape == (3, 40, 60) for f in frames)
+    assert all(not np.array_equal(frames[3], f) for t, f in enumerate(frames) if t != 3)
+
+
+def test_probe_flow_at_the_ve_window_keeps_its_blocks():
+    """synthetic_flow at another size keeps its +-20 px field and its
+    out-of-frame blocks; at the default size it is the 720p flow."""
+    flow = probe.synthetic_flow(1, "cpu", size=(320, 512))
+    assert flow.shape == (1, 2, 320, 512)
+    assert int((flow[0, 0] == 2000.0).sum()) == (58 - 41) * (114 - 76)
+    assert int((flow[0, 1] == -900.0).sum()) == (258 - 250) * (34 - 19)
+    smooth = flow[0, 0][flow[0, 0] != 2000.0]
+    assert 15.0 < float(smooth.abs().max()) <= 20.0
+    assert probe.synthetic_flow(1, "cpu").shape == (1, 2, probe.H, probe.W)

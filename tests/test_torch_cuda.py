@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from memcnet_tpu_torch.cli.runner import PaddedInterp, build_model
+from memcnet_tpu_torch.cli.runner import PaddedInterp, PaddedVE, build_model
 from memcnet_tpu_torch.ops import cuda as K
 from memcnet_tpu_torch.ops import projection as TP
 from memcnet_tpu_torch.ops.cuda import conv_kernel, gather_kernel, warp_kernel
@@ -117,6 +117,26 @@ def test_warp_kernel_sources_borders_and_widths(rng, dev, dtype, channels, W, fs
     got = warp_kernel.launch(ims, flow, filt, fs)
     ref = warp_kernel.reference(ims, flow, filt, fs)
     assert len(got) == len(channels)
+    for g, r in zip(got, ref):
+        close(g, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("amp", [20.0, None])
+def test_warp_kernel_at_ve_batch(rng, dev, dtype, amp):
+    """MEMC_Net_VE's split warp: B = 6 (six neighbours), sources of 3 and 64
+    channels, on a smooth 20 px field or on +-20 px noise (source boxes too
+    wide for shared memory)."""
+    B, H, W = 6, 64, 96
+    ims = [torch.from_numpy(rng.rand(B, c, H, W).astype(np.float32)).to(dev, dtype)
+           for c in (3, 64)]
+    if amp is None:
+        flow = torch.from_numpy(rng.uniform(-20, 20, (B, 2, H, W)).astype(np.float32)).to(dev)
+    else:
+        flow = flow_field(rng, B, H, W, amp).to(dev)
+    filt = torch.from_numpy(rng.rand(B, 16, H, W).astype(np.float32)).to(dev, dtype)
+    got = warp_kernel.launch(ims, flow, filt, 4)
+    ref = warp_kernel.reference(ims, flow, filt, 4)
     for g, r in zip(got, ref):
         close(g, r)
 
@@ -407,3 +427,19 @@ def test_memc_s_served_path_launches_its_kernels_and_matches_cpu(rng, dev):
                                  "fill_holes": 1, "conv2d_small": 15, "grid_sample": 3}
     assert np.isfinite(got).all() and got.shape == (3, 60, 90)
     assert float(np.abs(got - ref).max()) <= 1e-3
+
+
+def test_ve_served_path_launches_its_kernels_and_matches_cpu(rng, dev):
+    """MEMC_Net_VE at 128x128 (padded from 40x100): one split warp and one
+    ctx conv per window, no projection; within 1e-3 of the output's scale of
+    the CPU path (random kaiming weights put it in the thousands)."""
+    base = rng.rand(3, 60, 120).astype(np.float32)
+    frames = [np.ascontiguousarray(base[:, 10 + d:50 + d, 10 + 2 * d:110 + 2 * d])
+              for d in range(-3, 4)]
+    ref = PaddedVE(build_model("MEMC_Net_VE", seed=1, device="cpu"), device="cpu")(frames)
+    K.reset_counters()
+    got = PaddedVE(build_model("MEMC_Net_VE", seed=1, device=dev), device=dev)(frames)
+    assert K.launch_counts() == {"filter_interp_warp": 1, "base_scatter": 0,
+                                 "fill_holes": 0, "conv2d_small": 1, "grid_sample": 0}
+    assert np.isfinite(got).all() and got.shape == (3, 40, 100)
+    assert float(np.abs(got - ref).max()) <= 1e-3 * max(1.0, float(np.abs(ref).max()))

@@ -349,11 +349,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_get_model_lists_only_ported():
-    assert TM.__all__ == ("MEMC_Net", "MEMC_Net_s", "MEMC_Net_star")
+    assert TM.__all__ == ("MEMC_Net", "MEMC_Net_s", "MEMC_Net_star", "MEMC_Net_VE")
     for name in TM.__all__:
         assert isinstance(TM.get_model(name), torch.nn.Module)
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        TM.get_model("MEMC_Net_VE")
     with pytest.raises(KeyError):
         TM.get_model("nope")
 
