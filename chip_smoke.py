@@ -33,7 +33,25 @@ Phases (any failed check exits non-zero and prints no result line):
      alone (CUDA events), its kernels by device time (torch.profiler) and one
      served frame split into host stages (pad, copy in, forward, copy out); for
      MEMC_Net_s also SPyNet's forward alone (B = 2) with its device
-     operations, and the same with the separate-op level input it replaced.
+     operations, and the same with the separate-op level input it replaced;
+  5. serve through the demos' own main(), on the card by default, each with
+     the launch counts set to 0 just before and read just after: demo_hd720p
+     (MEMC_Net_star, bf16) over a synthetic 1280x720 YUV420 stream of 9
+     frames, --frames 8 (4 pairs: exact output size, 4-line logs, 8 K1, 4 K2,
+     4 K3, 4 K4); demo_middlebury (MEMC_Net_s, bf16) on two synthetic 388x584
+     sequences (both artifacts, 4 K1, 2 K2, 2 K3, 60 K4, 12 K5); demo_vimeo_ve
+     (MEMC_Net_VE, bf16) on two 256x448 septuplets (im4.png each,
+     metrics.txt, 2 K1, 2 K4), their PNGs written with libpng's adaptive row
+     filters; each demo's proc and total ms per item; demo_hd720p on a
+     float32 64x128 stream with --device cuda against --device cpu (ground
+     truth byte-equal, reconstructions within 1 level on at most 0.5% of
+     bytes).  Every kernel launch of these runs is recorded with its shapes,
+     and each kernel is then held against its plain version at every shape
+     recorded (Middlebury's 512x640 pyramid among them), bf16 and float32,
+     under phase 2's rules.  Also: one HD720p pair split into host stages
+     through the demo's own helpers, and png.imread of adaptively filtered
+     388x584 and 256x448 frames, and their unfilter in C (csrc/png.cu) and in
+     Python.
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.  Long output (the kernels' build
 log, the full results) goes to chiprun_out/chip_smoke/.
@@ -85,6 +103,13 @@ TPU_KERNELS = {
     "grid_sample": ("memcnet_tpu_torch/csrc/gather.cu",
                     "memcnet_tpu/ops/pallas/gather_kernel.py:135"),
 }
+
+# the ShapeRecorder rows (phase 5) that hold each kernel of the line; K3
+# runs in flow_project with the fill
+DEMO_SHAPE_ROWS = {"filter_interp_warp": ("filter_interp_warp",),
+                   "base_scatter": ("flow_project",), "fill_holes": ("flow_project",),
+                   "conv2d_small": ("conv2d_small",),
+                   "grid_sample": ("spynet_level_input", "grid_sample")}
 
 
 class CheckFailed(Exception):
@@ -495,20 +520,10 @@ def phase_kernels(torch, results):
     results["kernels"] = rows
 
 
-def texture(rng, h, w):
-    """A (3, h, w) float32 scene in [0, 1]: four plane waves per channel."""
-    ys, xs = np.meshgrid(np.arange(h, dtype=np.float32), np.arange(w, dtype=np.float32),
-                         indexing="ij")
-    img = np.zeros((3, h, w), np.float32)
-    for c in range(3):
-        for _ in range(4):
-            kx, ky, ph = rng.uniform(0.005, 0.05), rng.uniform(0.005, 0.05), rng.uniform(0, 6.3)
-            img[c] += np.sin(kx * xs + ky * ys + ph)
-    return (img - img.min()) / (img.max() - img.min())
-
-
 def synthetic_frames(seed):
     """A textured 1280x720 frame and the same scene moved a few pixels."""
+    from memcnet_tpu_torch.probe import texture
+
     rng = np.random.RandomState(seed)
     img = texture(rng, FRAME_H + 40, FRAME_W + 40)
     dx, dy = rng.randint(2, 12), rng.randint(2, 8)
@@ -520,6 +535,8 @@ def synthetic_frames(seed):
 def synthetic_window(seed, h=VE_FRAME_H, w=VE_FRAME_W):
     """Seven textured h x w frames of one scene: the center (frame 3) and six
     neighbours, each moved 2-12 px across and 0-8 px down or up from it."""
+    from memcnet_tpu_torch.probe import texture
+
     rng = np.random.RandomState(100 + seed)
     img = texture(rng, h + 40, w + 40)
     frames = []
@@ -801,6 +818,503 @@ def phase_profile_ve(torch, model, frames, results):
     prof_res["host_stages_ms"] = stages
 
 
+# phase 5: the three demos through their main(), at full width, on the card
+# by default (no --device); each run's launch counts set to 0 just before it
+# and read just after
+MB_H, MB_W = 388, 584        # a Middlebury "other" frame (padded to 512x640)
+MB_SEQS = 2                  # sequences of the Middlebury run
+HD_FRAMES = 8                # --frames 8 of a 9-frame stream: one GOP of 4 pairs
+VE_SEQS = 2                  # septuplets of the Vimeo-VE run (--limit 2)
+YUV_FRAME_BYTES = FRAME_H * FRAME_W * 3 // 2  # 1,382,400
+SMALL_H, SMALL_W = 64, 128   # the card-against-CPU stream
+
+
+def run_demo(torch, results, path, main, argv, items, expected):
+    """``main(argv)`` of one demo with its output kept in
+    OUT_DIR/<path>.log; fails unless each kernel launched ``expected[k]``
+    times per item in this run alone and the demo printed one
+    ": interpolation error / PSNR :" line per item.  Returns (main's
+    result, stdout, stderr)."""
+    import contextlib
+    import io
+
+    from memcnet_tpu_torch.ops import cuda as K
+
+    out, err = io.StringIO(), io.StringIO()
+    K.reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        ret = main(argv)
+    wall_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    with open(os.path.join(OUT_DIR, f"{path}.log"), "w") as f:
+        f.write(out.getvalue() + err.getvalue())
+    for kname, per in expected.items():
+        if counts[kname] != per * items:
+            raise CheckFailed(f"{path}: {kname} launched {counts[kname]} times over {items} "
+                              f"items, expected {per * items}")
+    n_lines = out.getvalue().count(": interpolation error / PSNR :")
+    if n_lines != items:
+        raise CheckFailed(f"{path}: {n_lines} item lines printed, expected {items}")
+    results.setdefault("demos", {})[path] = dict(launches=counts, wall_s=wall_s, items=items)
+    return ret, out.getvalue(), err.getvalue()
+
+
+def stage_timers(path, text):
+    """proc and total ms per item, and the item count, of the StageTimers
+    summary a demo prints last."""
+    import re
+
+    found = re.findall(r"proc ([\d.]+) ms/item, total ([\d.]+) ms/item over (\d+) items", text)
+    if not found:
+        raise CheckFailed(f"{path}: no StageTimers summary in its output")
+    proc, total, n = found[-1]
+    return float(proc), float(total), int(n)
+
+
+def check_finite(path, **values):
+    bad = {k: v for k, v in values.items() if not np.all(np.isfinite(v))}
+    if bad:
+        raise CheckFailed(f"{path}: values not finite: {bad}")
+
+
+def demo_hd720p_run(torch, results, work, card):
+    """MEMC_Net_star in bf16 over a synthetic 1280x720 YUV420 stream of 9
+    frames (moving_frames: pairs moved 2-12 px), --frames 8: 4 pairs."""
+    from memcnet_tpu_torch import probe
+    from memcnet_tpu_torch.cli import demo_hd720p
+
+    src = probe.write_yuv(os.path.join(work, "hd.yuv"),
+                          probe.moving_frames(0, HD_FRAMES + 1, FRAME_H, FRAME_W))
+    out = os.path.join(work, "hd_out")
+    path, pairs = "demo_hd720p", HD_FRAMES // 2
+    (p, s), _, err = run_demo(
+        torch, results, path, demo_hd720p.main,
+        ["--yuv", src, "--height", str(FRAME_H), "--width", str(FRAME_W),
+         "--frames", str(HD_FRAMES), "--out-dir", out,
+         "--net-name", "MEMC_Net_star", "--dtype", "bfloat16", "--uid", "smoke"],
+        pairs, EXPECTED_PER_FRAME["MEMC_Net_star"])
+    size = os.path.getsize(os.path.join(out, "smoke", "hd.yuv"))
+    if size != 2 * pairs * YUV_FRAME_BYTES:
+        raise CheckFailed(f"{path}: output stream of {size} bytes, expected "
+                          f"{2 * pairs} x {YUV_FRAME_BYTES}")
+    logs = {}
+    for what in ("psnr", "ssim"):
+        logs[what] = np.loadtxt(os.path.join(out, "smoke", f"hd.yuv_{what}_Y.txt"), ndmin=1)
+        if logs[what].shape != (pairs,):
+            raise CheckFailed(f"{path}: {what} log has {logs[what].shape[0]} lines, expected "
+                              f"{pairs}")
+    check_finite(path, psnr=p, ssim=s, psnr_log=logs["psnr"], ssim_log=logs["ssim"])
+    proc, total, n = stage_timers(path, err)
+    log(f"  {path} MEMC_Net_star bf16, {pairs} pairs of 1280x720: proc {proc} ms/item, total "
+        f"{total} ms/item over {n} items; PSNR {p}, SSIM {s}; launches "
+        f"{results['demos'][path]['launches']}; card {card}")
+    results["demos"][path].update(proc_ms=proc, total_ms=total, items_timed=n, psnr=p, ssim=s,
+                                  psnr_Y=logs["psnr"].tolist(), ssim_Y=logs["ssim"].tolist(),
+                                  out_bytes=size)
+    return src
+
+
+def demo_hd720p_stages(torch, results, src, reps=3):
+    """One pair of the HD720p demo stage by stage (host clock, each stage
+    synchronised), ``reps`` times after one untimed pair: the loop body of
+    demo_hd720p.run, helper by helper in its order (read_triple, to_input,
+    the PaddedInterp call, to_uint8_frame, two writes, score_y), and beside
+    the PaddedInterp call the same forward copying out its output alone (the
+    difference is what the aux dict the demo discards costs)."""
+    from memcnet_tpu_torch.cli import demo_hd720p as D
+    from memcnet_tpu_torch.cli.runner import PaddedInterp, build_from_config
+    from memcnet_tpu_torch.data import YUVRead, YUVWrite, pad_frame, pad_plan, unpad_frame
+    from memcnet_tpu_torch.metrics import to_uint8_frame
+    from memcnet_tpu_torch.utils.config import Config
+
+    model = build_from_config(Config(net_name="MEMC_Net_star", dtype="bfloat16"))
+    fwd = PaddedInterp(model, dtype=torch.bfloat16)
+    plan = pad_plan(FRAME_H, FRAME_W)
+
+    def output_only(x0, x2):
+        xs = [torch.from_numpy(np.ascontiguousarray(pad_frame(x, plan)[None]))
+              .to(fwd.device, torch.bfloat16) for x in (x0, x2)]
+        with torch.inference_mode():
+            (_, rect), *_ = model(*xs)
+            return unpad_frame(rect[0].float().cpu().numpy(), plan, FRAME_H, FRAME_W)
+
+    reader = YUVRead(src, FRAME_H, FRAME_W)
+    writer = YUVWrite(os.devnull)
+    runs = []
+    try:
+        for r in range(reps + 1):
+            st = {}
+            f0, f2, gt = stage(torch, st, "read_triple", lambda: D.read_triple(reader, 0, 2, 1))
+            x0, x2 = stage(torch, st, "to_input", lambda: (D.to_input(f0), D.to_input(f2)))
+            out = stage(torch, st, "forward_padded_interp", lambda: fwd(x0, x2)[0])
+            stage(torch, st, "forward_output_only", lambda: output_only(x0, x2))
+            rec = stage(torch, st, "to_uint8", lambda: to_uint8_frame(out))
+            stage(torch, st, "write_x2", lambda: (writer.write(f0), writer.write(rec)))
+            stage(torch, st, "score_y", lambda: D.score_y(rec, gt))
+            if r:
+                runs.append(st)
+    finally:
+        reader.close()
+        writer.close()
+    for st in runs:
+        log("  demo_hd720p one pair by stage (host ms): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+            + f"; aux copies {st['forward_padded_interp'] - st['forward_output_only']:.3f}")
+    results["demos"]["demo_hd720p"]["host_stages_ms"] = runs
+
+
+def demo_middlebury_run(torch, results, work, card):
+    """MEMC_Net_s in bf16 on two synthetic 388x584 sequences with ground
+    truth: frame10i11.png and its diff image per sequence."""
+    from memcnet_tpu_torch import probe
+    from memcnet_tpu_torch.cli import demo_middlebury
+    from memcnet_tpu_torch.io.png import imread
+
+    names = [f"Seq{i}" for i in range(MB_SEQS)]
+    data, gt = probe.write_middlebury(os.path.join(work, "mb"), names, MB_H, MB_W)
+    out = os.path.join(work, "mb_out")
+    path = "demo_middlebury"
+    res, _, err = run_demo(
+        torch, results, path, demo_middlebury.main,
+        ["--data-dir", data, "--gt-dir", gt, "--out-dir", out, "--net-name", "MEMC_Net_s",
+         "--dtype", "bfloat16"],
+        MB_SEQS, EXPECTED_PER_FRAME["MEMC_Net_s"])
+    if [r[0] for r in res] != names:
+        raise CheckFailed(f"{path}: results for {[r[0] for r in res]}, expected {names}")
+    check_finite(path, ie=[r[1] for r in res], psnr=[r[2] for r in res])
+    (uid,) = os.listdir(out)
+    for name in names:
+        files = sorted(os.listdir(os.path.join(out, uid, name)))
+        diffs = [f for f in files if f.startswith("frame10i11_diff")]
+        if "frame10i11.png" not in files or len(diffs) != 1:
+            raise CheckFailed(f"{path}: {name} holds {files}")
+        for f in ("frame10i11.png", diffs[0]):
+            shape = imread(os.path.join(out, uid, name, f)).shape
+            if shape != (MB_H, MB_W, 3):
+                raise CheckFailed(f"{path}: {name}/{f} is {shape}")
+    proc, total, n = stage_timers(path, err)
+    log(f"  {path} MEMC_Net_s bf16, {MB_SEQS} sequences of {MB_W}x{MB_H}: proc {proc} ms/item, "
+        f"total {total} ms/item over {n} items; (IE, PSNR) "
+        f"{[(r[1], r[2]) for r in res]}; launches {results['demos'][path]['launches']}; "
+        f"card {card}")
+    results["demos"][path].update(proc_ms=proc, total_ms=total, items_timed=n,
+                                  results=[list(r) for r in res])
+
+
+def demo_vimeo_ve_run(torch, results, work, card):
+    """MEMC_Net_VE in bf16 on two synthetic 256x448 septuplets of the
+    denoise task, --limit 2: im4.png per sequence and metrics.txt."""
+    import re
+
+    from memcnet_tpu_torch import probe
+    from memcnet_tpu_torch.cli import demo_vimeo_ve
+    from memcnet_tpu_torch.io.png import imread
+
+    root = probe.write_vimeo(os.path.join(work, "vimeo"), VE_SEQS, VE_FRAME_H, VE_FRAME_W)
+    out = os.path.join(work, "ve_out")
+    path = "demo_vimeo_ve"
+    (p, s), stdout, _ = run_demo(
+        torch, results, path, demo_vimeo_ve.main,
+        ["--root", root, "--out-dir", out, "--task", "denoise", "--limit", str(VE_SEQS),
+         "--dtype", "bfloat16"],
+        VE_SEQS, EXPECTED_PER_FRAME["MEMC_Net_VE"])
+    for i in range(VE_SEQS):
+        shape = imread(os.path.join(out, "00001", f"{i + 1:04d}", "im4.png")).shape
+        if shape != (VE_FRAME_H, VE_FRAME_W, 3):
+            raise CheckFailed(f"{path}: im4.png of sequence {i + 1} is {shape}")
+    if not os.path.exists(os.path.join(out, "metrics.txt")):
+        raise CheckFailed(f"{path}: no metrics.txt")
+    check_finite(path, psnr=p, ssim=s)
+    total = float(re.findall(r"\(I/O \+ processing\) : (\S+)", stdout)[-1]) * 1e3
+    proc = float(re.findall(r"time \(processing\) : (\S+)", stdout)[-1]) * 1e3
+    log(f"  {path} MEMC_Net_VE bf16, {VE_SEQS} windows of {VE_FRAME_W}x{VE_FRAME_H}: proc "
+        f"{proc} ms/item, total {total} ms/item (I/O + processing); PSNR {p}, SSIM {s}; "
+        f"launches {results['demos'][path]['launches']}; card {card}")
+    results["demos"][path].update(proc_ms=proc, total_ms=total, psnr=p, ssim=s)
+
+
+def demo_card_vs_cpu(torch, results, work):
+    """The HD720p demo over one float32 stream of 5 frames at 64x128, with
+    --device cuda and with --device cpu: the ground-truth frames of the two
+    output streams byte-equal, the reconstructions within 1 level on at most
+    0.5% of bytes."""
+    import contextlib
+    import io
+
+    from memcnet_tpu_torch import probe
+    from memcnet_tpu_torch.cli import demo_hd720p
+
+    src = probe.write_yuv(os.path.join(work, "small.yuv"),
+                          probe.moving_frames(1, 5, SMALL_H, SMALL_W))
+    from memcnet_tpu_torch.ops import cuda as K
+
+    streams = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(work, f"small_{dev}")
+        K.reset_counters()
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            demo_hd720p.main(["--yuv", src, "--height", str(SMALL_H), "--width", str(SMALL_W),
+                              "--frames", "4", "--out-dir", out, "--net-name", "MEMC_Net_star",
+                              "--uid", "u", "--device", dev])
+        streams[dev] = np.fromfile(os.path.join(out, "u", "small.yuv"), np.uint8).reshape(4, -1)
+        if dev == "cuda":
+            counts = K.launch_counts()
+    gt_equal = bool(np.array_equal(streams["cuda"][0::2], streams["cpu"][0::2]))
+    most, share = probe.levels_apart(streams["cuda"][1::2], streams["cpu"][1::2])
+    sat = float(np.mean((streams["cpu"][1::2] == 0) | (streams["cpu"][1::2] == 255)))
+    log(f"  demo_hd720p card vs CPU, float32 64x128, 2 pairs: ground truth byte-equal {gt_equal}; "
+        f"reconstructions at most {most} level(s) apart on {share:.5f} of bytes (limits 1 and "
+        f"0.005); saturated share {sat:.4f}")
+    results["demos"]["card_vs_cpu"] = dict(gt_equal=gt_equal, max_levels=most,
+                                           share_differing=share, saturated=sat,
+                                           launches=counts)
+    if not gt_equal or most > 1 or share > 0.005:
+        raise CheckFailed("demo_hd720p: the card's output stream disagrees with the CPU's")
+
+
+class ShapeRecorder:
+    """Notes the shapes, types and options of every kernel launch made while
+    it is active, by wrapping each kernel's launch function in its wrapper
+    module (the functions the autograd.Functions call); it launches nothing
+    and leaves the launch counts alone.  ``seen`` maps a kernel to the set
+    of its launch signatures."""
+
+    def __init__(self):
+        import inspect
+
+        from memcnet_tpu_torch.ops.cuda import conv_kernel, gather_kernel, warp_kernel
+        from memcnet_tpu_torch.ops.cuda import project_kernel
+
+        def warp(a):
+            im = a["images"]
+            return (im[0].shape[0], tuple(x.shape[1] for x in im), *im[0].shape[2:],
+                    a["filter_size"])
+
+        self.targets = (
+            ("filter_interp_warp", warp_kernel, "launch", warp),
+            ("flow_project", project_kernel, "_sums",
+             lambda a: (*a["flow"].shape, bool(a["fillhole"]))),
+            ("conv2d_small", conv_kernel, "launch",
+             lambda a: (*a["x"].shape, *a["w"].shape, a["b"] is not None, bool(a["relu"]))),
+            ("spynet_level_input", gather_kernel, "launch_level_input",
+             lambda a: tuple(a["fst"].shape)),
+            ("grid_sample", gather_kernel, "launch",
+             lambda a: (*a["x"].shape, *a["grid"].shape[1:3])),
+        )
+        self.seen = {name: set() for name, *_ in self.targets}
+        self.calls = {name: 0 for name, *_ in self.targets}
+        self.saved = []
+        self.inspect = inspect
+
+    def __enter__(self):
+        for name, mod, attr, key in self.targets:
+            fn = getattr(mod, attr)
+            sig = self.inspect.signature(fn)
+
+            def wrapped(*args, _fn=fn, _sig=sig, _name=name, _key=key, **kwargs):
+                bound = _sig.bind(*args, **kwargs)
+                bound.apply_defaults()
+                self.seen[_name].add(_key(bound.arguments))
+                self.calls[_name] += 1
+                return _fn(*args, **kwargs)
+
+            self.saved.append((mod, attr, fn))
+            setattr(mod, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+        self.saved = []
+
+
+def hold_recorded_shapes(torch, results, seen):
+    """Each kernel against its plain version at every shape the demos
+    launched it at (``ShapeRecorder.seen``), in bf16 and in float32, on
+    synthetic inputs made as in phase 2 and under phase 2's rules: K1 on the
+    smooth +-20 px flow with out-of-frame blocks; the projection on that
+    flow, +-200 px noise and an all-invalid flow (counts and masks exact);
+    K4 with torch-0.2 default weights and bias where the path has a bias
+    (SPyNet), MSRA weights where it has none (ctx); K5's level input exact
+    in fst and up, its warp against the plain grid sample.  Per-shape lines
+    go to OUT_DIR/demo_shapes.log."""
+    from memcnet_tpu_torch.nn import init as I
+    from memcnet_tpu_torch.ops import projection
+    from memcnet_tpu_torch.ops.cuda import conv_kernel, gather_kernel, warp_kernel
+    from memcnet_tpu_torch.ops.cuda import project_kernel as P
+    from memcnet_tpu_torch.probe import synthetic_flow
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    wgen = torch.Generator().manual_seed(6)
+
+    def rand(*shape, dt, scale=1.0, shift=0.0):
+        return (torch.rand(shape, generator=gen, device=dev) * scale + shift).to(dt)
+
+    def warp(dt, B, chans, H, W, fs):
+        images = [rand(B, c, H, W, dt=dt) if k == 0 else
+                  torch.randn((B, c, H, W), generator=gen, device=dev).to(dt)
+                  for k, c in enumerate(chans)]
+        flow = synthetic_flow(B, dev, size=(H, W)).to(dt).float()
+        filt = rand(B, fs * fs, H, W, dt=dt, scale=1.0 / 8.0)
+        got = warp_kernel.launch(images, flow, filt, fs)
+        return compare(list(zip(got, warp_kernel.reference(images, flow, filt, fs))), 1e-4)
+
+    def project(dt, B, two, H, W, fillhole):
+        smooth = synthetic_flow(B, dev, size=(H, W)).to(dt)
+        if fillhole:
+            S, _, masks = P.launch_sums(smooth, True)
+            S_ref, _, masks_ref = P.sums_stage_reference(smooth, True)
+            check_projection_exact(torch, f"flow_project {dt} {H}x{W}", S, S_ref, masks,
+                                   masks_ref)
+        checks = []
+        for tag, fl in (("smooth", smooth),
+                        ("pm200", rand(B, 2, H, W, dt=dt, scale=400.0, shift=-200.0)),
+                        ("all_invalid", torch.full_like(smooth, 3.0 * W))):
+            got = projection.flow_project(fl, fillhole=fillhole)
+            checks.append(compare([(got, projection.reference(fl, fillhole=fillhole))], 1e-3))
+            if tag == "all_invalid" and got.any():
+                raise CheckFailed(f"flow_project {dt} {H}x{W}: an all-invalid flow gave "
+                                  "nonzero values")
+        return max(checks, key=lambda c: c[1])
+
+    def conv(dt, B, C, H, W, O, _C, K, _K, bias, relu):
+        x = rand(B, C, H, W, dt=dt, scale=4.0, shift=-2.0)
+        if bias:
+            w = I.torch_default_uniform((O, C, K, K), wgen).to(dev).to(dt)
+            b = I.torch_default_uniform((O,), wgen, fan_in=C * K * K).to(dev)
+        else:
+            w, b = I.resnet_msra((O, C, K, K), wgen).to(dev).to(dt), None
+        got = conv_kernel.launch(x, w, b, relu=relu)
+        ref = conv_kernel.reference(x, w, b, relu=relu)
+        return compare([(got, ref)], 5e-4, long_sums=True) if bias else \
+            compare([(got, ref)], 1e-4)
+
+    def level_input(dt, B, _three, H, W):
+        fst, snd = rand(B, 3, H, W, dt=dt), rand(B, 3, H, W, dt=dt)
+        cflow = synthetic_flow(B, dev, size=(H // 2, W // 2)).to(dt)
+        got = gather_kernel.launch_level_input(fst, snd, cflow)
+        ref = gather_kernel.level_input_reference(fst, snd, cflow)
+        for part, sl in (("fst", slice(0, 3)), ("up", slice(6, 8))):
+            if not torch.equal(got[:, sl], ref[:, sl]):
+                raise CheckFailed(f"spynet_level_input {dt} {H}x{W}: {part} differs from the "
+                                  "plain version")
+        want = gather_kernel.reference(snd, gather_kernel.warp_grid(got[:, 6:8]))
+        return compare([(got[:, 3:6], want)], 1e-5)
+
+    def grid_sample(dt, B, C, H, W, Ho, Wo):
+        x = rand(B, C, H, W, dt=dt)
+        grid = gather_kernel.warp_grid(synthetic_flow(B, dev, size=(Ho, Wo))).contiguous()
+        return compare([(gather_kernel.launch(x, grid), gather_kernel.reference(x, grid))], 1e-5)
+
+    holds = {"filter_interp_warp": warp, "flow_project": project, "conv2d_small": conv,
+             "spynet_level_input": level_input, "grid_sample": grid_sample}
+    rows, lines = [], []
+    for name, keys in seen.items():
+        for key in sorted(keys):
+            for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+                err, measure, limit, rule = holds[name](dt, *key)
+                ok = bool(measure <= limit)
+                rows.append(dict(kernel=name, key=list(key), dtype=dt_name, max_abs_err=err,
+                                 check=rule, check_value=measure, ok=ok))
+                lines.append(f"{name} {key} {dt_name}: max_abs_err {err:.3e} [{rule}: "
+                             f"{measure:.3g}] {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    with open(os.path.join(OUT_DIR, "demo_shapes.log"), "w") as f:
+                        f.write("\n".join(lines) + "\n")
+                    raise CheckFailed(f"{name} {key} {dt_name}: kernel disagrees with its plain "
+                                      f"version at a demo's shape ({rule}: {measure})")
+        torch.cuda.empty_cache()
+    with open(os.path.join(OUT_DIR, "demo_shapes.log"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    for name, keys in seen.items():
+        mine = [r for r in rows if r["kernel"] == name]
+        worst = {dt: max((r["check_value"] for r in mine if r["dtype"] == dt), default=None)
+                 for dt in ("bfloat16", "float32")}
+        log(f"  {name}: held at the demos' {len(keys)} shapes, bf16 and float32, worst check "
+            f"value bf16 {worst['bfloat16']}, float32 {worst['float32']}")
+    results["demo_shapes"] = rows
+
+
+def png_read_times(results, work):
+    """png.imread of one RGB frame written with libpng's adaptive filters
+    (Paeth on most rows) and with filter 0, at Middlebury's 388x584 and
+    Vimeo-90K's 256x448 (host ms, median of 3; the arrays read must equal
+    the frame written); and of the adaptive file's rows alone, the unfilter
+    in C (csrc/png.cu, what imread runs here) against the plain Python one
+    it replaces where nvcc is missing, which must agree."""
+    import zlib
+
+    from memcnet_tpu_torch import probe
+    from memcnet_tpu_torch.io import png
+
+    def median_ms(fn):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times)), out
+
+    if png._lib.nvcc_path() is None:
+        raise CheckFailed("png.imread: no nvcc, so no C unfilter to time")
+    res = {}
+    for h, w in ((MB_H, MB_W), (VE_FRAME_H, VE_FRAME_W)):
+        img = probe.moving_frames(3, 1, h, w)[0]
+        row = {}
+        for adaptive in (True, False):
+            path = os.path.join(work, f"read_{h}x{w}_{adaptive}.png")
+            png.imwrite(path, img, adaptive=adaptive)
+            row["imread_adaptive_ms" if adaptive else "imread_filter0_ms"], got = median_ms(
+                lambda: png.imread(path))
+            if not np.array_equal(got, img):
+                raise CheckFailed(f"png.imread {h}x{w} (adaptive {adaptive}): the frame read "
+                                  "differs from the one written")
+        with open(os.path.join(work, f"read_{h}x{w}_True.png"), "rb") as f:
+            raw = zlib.decompress(b"".join(body for kind, body in png._chunks(f.read())
+                                           if kind == b"IDAT"))
+        row["unfilter_c_ms"], ours = median_ms(lambda: png.unfilter(raw, h, w * 3, 3))
+        row["unfilter_python_ms"], plain = median_ms(lambda: png.unfilter_plain(raw, h, w * 3, 3))
+        row["paeth_rows"] = int(sum(raw[y * (w * 3 + 1)] == 4 for y in range(h)))
+        if not np.array_equal(ours, plain):
+            raise CheckFailed(f"png.unfilter {h}x{w}: the C unfilter differs from the plain one")
+        res[f"{h}x{w}"] = row
+        log(f"  png.imread {w}x{h} RGB (host ms, median of 3): adaptive filters "
+            f"({row['paeth_rows']} of {h} rows Paeth) {row['imread_adaptive_ms']:.3f}, filter 0 "
+            f"{row['imread_filter0_ms']:.3f}; the adaptive rows' unfilter in C "
+            f"{row['unfilter_c_ms']:.3f}, in Python {row['unfilter_python_ms']:.3f}")
+    results.setdefault("demos", {})["png_read_ms"] = res
+
+
+def phase_demos(torch, results, card):
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as work:
+        png_read_times(results, work)
+        with ShapeRecorder() as rec:
+            src = demo_hd720p_run(torch, results, work, card)
+            torch.cuda.empty_cache()
+            demo_middlebury_run(torch, results, work, card)
+            torch.cuda.empty_cache()
+            demo_vimeo_ve_run(torch, results, work, card)
+            torch.cuda.empty_cache()
+            demo_card_vs_cpu(torch, results, work)
+        # every launch of the demos went through the recorder, so every
+        # shape launched is held below
+        launched = {k: sum(d["launches"][k] for d in results["demos"].values() if "launches" in d)
+                    for k in ("filter_interp_warp", "base_scatter", "conv2d_small", "grid_sample")}
+        seen = {"filter_interp_warp": rec.calls["filter_interp_warp"],
+                "base_scatter": rec.calls["flow_project"],
+                "conv2d_small": rec.calls["conv2d_small"],
+                "grid_sample": rec.calls["spynet_level_input"] + rec.calls["grid_sample"]}
+        if seen != launched:
+            raise CheckFailed(f"phase 5: launches {launched}, recorded {seen}")
+        demo_hd720p_stages(torch, results, src)
+        torch.cuda.empty_cache()
+        hold_recorded_shapes(torch, results, rec.seen)
+
+
 def main():
     import torch
 
@@ -848,6 +1362,9 @@ def main():
             del served[name]
             torch.cuda.empty_cache()
         phase_profile_ve(torch, *served.pop("MEMC_Net_VE"), results)
+        torch.cuda.empty_cache()
+        log("phase 5: serve through the demos' entry points")
+        phase_demos(torch, results, card)
     except Exception:  # every failure ends the run with no result line
         traceback.print_exc()
         with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
@@ -867,6 +1384,8 @@ def main():
         dt = main_dtype[name]
         other = "float32" if dt == "bfloat16" else "bfloat16"
         by_path = {m: results["serve"][m]["launches"][name] for m in EXPECTED_PER_FRAME}
+        by_path.update({path: results["demos"][path]["launches"][name]
+                        for path in ("demo_hd720p", "demo_middlebury", "demo_vimeo_ve")})
 
         def row(key):
             r, o = krows[key][dt], krows[key][other]
@@ -897,6 +1416,13 @@ def main():
             entry["ve_shapes"] = [{"case": key.split("[ve ")[1].rstrip("]"),
                                    "shape": krows[key][dt]["shape"], **row(key)}
                                   for key in ve_rows]
+        # every shape the demos launched this kernel at, held in phase 5
+        held = [r for r in results["demo_shapes"] if r["kernel"] in DEMO_SHAPE_ROWS[name]
+                and (name != "fill_holes" or r["key"][-1])]
+        entry["demo_shapes_held"] = {
+            "shapes": len({tuple(map(str, r["key"])) + (r["kernel"],) for r in held}),
+            **{f"max_abs_err_{d}": max((r["max_abs_err"] for r in held if r["dtype"] == d),
+                                       default=None) for d in ("bfloat16", "float32")}}
         kernels.append(entry)
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump(results, f, indent=1)

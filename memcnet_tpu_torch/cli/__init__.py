@@ -1,2 +1,2 @@
-"""Serving entry points (cli/runner.py).  The demos of memcnet_tpu/cli are
-still to port (ROADMAP.md Queue A)."""
+"""Entry points: cli/runner.py (model construction, padded evaluation) and
+the three demos, demo_middlebury, demo_hd720p and demo_vimeo_ve."""

@@ -1,15 +1,20 @@
 """Serving entry points: model construction and padded evaluation (port of
-memcnet_tpu/cli/runner.py::build_model, PaddedInterp and PaddedVE).
+memcnet_tpu/cli/runner.py::build_model, cfg_jnp_dtype, PaddedInterp and
+PaddedVE).  ``build_model`` takes a model name; ``build_from_config`` does
+what the JAX ``build_model(cfg)`` does, for the demos.
 
 All run on the card unless the caller asks for the CPU: ``device`` defaults
 to ``"cuda"`` and raises when CUDA is not available.
 """
+
+import sys
 
 import numpy as np
 import torch
 
 from memcnet_tpu_torch import models as M
 from memcnet_tpu_torch.data import pad_frame, pad_plan, unpad_frame
+from memcnet_tpu_torch.io import checkpoint, pth_import
 
 
 def resolve_device(device):
@@ -29,6 +34,29 @@ def build_model(net_name="MEMC_Net_star", *, seed=0, dtype=torch.float32, device
     model = M.get_model(net_name, filter_size=filter_size, channel=channels)
     model.init_params(torch.Generator().manual_seed(seed))
     return model.to(device=dev, dtype=dtype).eval()
+
+
+def cfg_torch_dtype(cfg):
+    """The config's compute dtype (parameters, inputs and activations)."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def build_from_config(cfg, device="cuda"):
+    """``cfg.net_name`` with ``cfg.filter_size`` and ``cfg.channels``, seeded
+    by ``cfg.seed``; ``cfg.pretrained`` loaded over it (a ``.pth`` through
+    io.pth_import, anything else as an io.checkpoint file); then cast to
+    ``cfg_torch_dtype(cfg)`` on ``device``, in eval mode."""
+    model = build_model(cfg.net_name, seed=cfg.seed, device=device,
+                        filter_size=cfg.filter_size, channels=cfg.channels)
+    if cfg.pretrained:
+        if cfg.pretrained.endswith(".pth"):
+            _, report = pth_import.import_pth(model, cfg.pretrained)
+            print(f"imported {len(report['loaded'])} tensors from {cfg.pretrained} "
+                  f"(skipped {len(report['skipped'])}, missing {len(report['missing'])})",
+                  file=sys.stderr)
+        else:
+            checkpoint.load_params(model, checkpoint.load(cfg.pretrained)["params"])
+    return model.to(cfg_torch_dtype(cfg))
 
 
 def _padded(x_np, plan, device, dtype):

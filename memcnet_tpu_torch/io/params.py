@@ -9,6 +9,8 @@ their ``state_dict()`` keys are the same names.  So the bridge is
 import numpy as np
 import torch
 
+from memcnet_tpu_torch.io.checkpoint import load_params
+
 
 def params_from_jax(flat):
     """{name: array} -> {name: tensor} (float32 arrays stay float32)."""
@@ -18,10 +20,4 @@ def params_from_jax(flat):
 def load_jax_params(module, flat):
     """Strict-load a JAX flat dict into ``module``.  BatchNorm's
     ``num_batches_tracked`` (which JAX does not keep) keeps its own value."""
-    sd = params_from_jax(flat)
-    own = module.state_dict()
-    for k in own:
-        if k.endswith("num_batches_tracked") and k not in sd:
-            sd[k] = own[k]
-    module.load_state_dict(sd, strict=True)
-    return module
+    return load_params(module, params_from_jax(flat))

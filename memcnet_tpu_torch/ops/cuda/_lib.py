@@ -3,7 +3,9 @@
 The sources live in ``memcnet_tpu_torch/csrc``.  At first use every ``.cu``
 file is compiled by its own ``nvcc`` process (all started together) for
 ``sm_90a`` into an object file, and the objects are linked into one shared
-library with a plain C interface, loaded with ``ctypes``.  The library goes
+library with a plain C interface, loaded with ``ctypes``.  Besides the
+kernels it holds one host function, ``csrc/png.cu``'s PNG unfilter, which
+io/png.py calls where the toolkit is installed.  The library goes
 into ``memcnet_tpu_torch/_build/<hash of the sources and flags>/`` (listed in
 ``.gitignore``), so a later process with the same sources reuses it.  The
 compiler's ``-Xptxas -v`` report is kept beside it in ``build.log``.
@@ -50,10 +52,18 @@ class LaunchCounter:
         self.count = 0
 
 
-def _nvcc():
+def nvcc_path():
+    """The CUDA toolkit's nvcc, or None where it is not installed."""
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
+    return None
+
+
+def _nvcc():
+    nvcc = nvcc_path()
+    if nvcc:
+        return nvcc
     raise RuntimeError(
         "nvcc not found: the CUDA kernels of memcnet_tpu_torch are built from "
         f"{CSRC_DIR} at first use and need the CUDA toolkit")
@@ -134,6 +144,8 @@ def _declare(lib):
     lib.memc_grid_sample.restype = i
     lib.memc_spynet_level_input.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
     lib.memc_spynet_level_input.restype = i
+    lib.memc_png_unfilter.argtypes = [ctypes.c_char_p, vp, i, i, i]
+    lib.memc_png_unfilter.restype = i
 
 
 def lib():

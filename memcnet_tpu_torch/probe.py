@@ -1,6 +1,12 @@
 """Inputs and a device-operation count shared by chip_smoke.py, the card
 tests and bench/kernel_ab.py.
 
+``texture`` and ``moving_frames`` make synthetic scenes, and
+``write_yuv``, ``write_middlebury`` and ``write_vimeo`` lay them out as the
+inputs of the three demos (a YUV420 stream, a Middlebury "other" folder, a
+Vimeo-90K test folder), the PNGs with libpng's adaptive row filters, as
+real files have them.
+
 ``synthetic_flow`` is the flow every card check of the projection and the
 warp is run on, and ``level_flow`` its coarse flow at each SPyNet level;
 ``level_prologue`` is SPyNet's level input as separate PyTorch ops around
@@ -9,10 +15,93 @@ runs it in another checkout's package); ``device_ops`` counts what one call
 puts on the device.  Nothing here builds or launches a kernel of its own.
 """
 
+import os
+
 import numpy as np
 import torch
 
 H, W = 768, 1344  # 1280x720 padded (data/padding.py)
+
+
+def texture(rng, h, w):
+    """A (3, h, w) float32 scene in [0, 1]: four plane waves per channel."""
+    ys, xs = np.meshgrid(np.arange(h, dtype=np.float32), np.arange(w, dtype=np.float32),
+                         indexing="ij")
+    img = np.zeros((3, h, w), np.float32)
+    for c in range(3):
+        for _ in range(4):
+            kx, ky, ph = rng.uniform(0.005, 0.05), rng.uniform(0.005, 0.05), rng.uniform(0, 6.3)
+            img[c] += np.sin(kx * xs + ky * ys + ph)
+    return (img - img.min()) / (img.max() - img.min())
+
+
+def moving_frames(seed, n, h, w):
+    """``n`` uint8 (h, w, 3) frames of one textured scene, each moved 1-6 px
+    across and 0-4 px down from the one before, so that frames two apart
+    (an interpolated pair) are 2-12 px apart."""
+    rng = np.random.RandomState(seed)
+    img = texture(rng, h + 4 * n, w + 6 * n)
+    frames, y, x = [], 0, 0
+    for _ in range(n):
+        frames.append(np.round(255.0 * img[:, y:y + h, x:x + w].transpose(1, 2, 0))
+                      .astype(np.uint8))
+        y, x = y + rng.randint(0, 5), x + rng.randint(1, 7)
+    return frames
+
+
+def levels_apart(got, want):
+    """(largest difference in levels, share of values that differ) of two
+    uint8 arrays of one shape."""
+    if got.shape != want.shape:
+        raise ValueError(f"shapes differ: {got.shape} against {want.shape}")
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return int(diff.max()), float(np.mean(diff > 0))
+
+
+def write_yuv(path, frames):
+    """``frames`` as a YUV420 stream (data/yuv.py)."""
+    from memcnet_tpu_torch.data import YUVWrite
+
+    writer = YUVWrite(path)
+    try:
+        for f in frames:
+            writer.write(f)
+    finally:
+        writer.close()
+    return path
+
+
+def write_middlebury(root, names, h, w, seed=0):
+    """A Middlebury "other" layout: <root>/data/<name>/frame10.png and
+    frame11.png, <root>/gt/<name>/frame10i11.png, from three moving frames
+    per sequence (the middle one the ground truth).  Returns (data, gt)."""
+    from memcnet_tpu_torch.io.png import imwrite
+
+    data, gt = os.path.join(root, "data"), os.path.join(root, "gt")
+    for i, name in enumerate(names):
+        f10, f10i11, f11 = moving_frames(seed + i, 3, h, w)
+        for d, fname, img in ((data, "frame10.png", f10), (data, "frame11.png", f11),
+                              (gt, "frame10i11.png", f10i11)):
+            os.makedirs(os.path.join(d, name), exist_ok=True)
+            imwrite(os.path.join(d, name, fname), img, adaptive=True)
+    return data, gt
+
+
+def write_vimeo(root, n, h, w, seed=0, task_dir="sequences_sigma20_byMTLB"):
+    """A Vimeo-90K test layout of ``n`` septuplets: <root>/<task_dir>/00001/
+    <seq>/im1..7.png, and the center frame as <root>/target/00001/<seq>/
+    im4.png.  Returns root."""
+    from memcnet_tpu_torch.io.png import imwrite
+
+    for s in range(n):
+        seq = os.path.join("00001", f"{s + 1:04d}")
+        frames = moving_frames(seed + s, 7, h, w)
+        for d, names in ((task_dir, range(7)), ("target", (3,))):
+            os.makedirs(os.path.join(root, d, seq), exist_ok=True)
+            for i in names:
+                imwrite(os.path.join(root, d, seq, f"im{i + 1}.png"), frames[i],
+                        adaptive=True)
+    return root
 
 
 def synthetic_flow(B, device, seed=0, size=None):

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the served paths and the three demos against their CPU runs.
 
 These tests need an NVIDIA GPU with the CUDA toolkit (the kernels are built
 from memcnet_tpu_torch/csrc at first use); without CUDA they skip.  Run them
@@ -23,7 +24,10 @@ import numpy as np
 import pytest
 import torch
 
+from memcnet_tpu_torch import probe
+from memcnet_tpu_torch.cli import demo_hd720p, demo_middlebury, demo_vimeo_ve
 from memcnet_tpu_torch.cli.runner import PaddedInterp, PaddedVE, build_model
+from memcnet_tpu_torch.io.png import imread
 from memcnet_tpu_torch.ops import cuda as K
 from memcnet_tpu_torch.ops import projection as TP
 from memcnet_tpu_torch.ops.cuda import conv_kernel, gather_kernel, warp_kernel
@@ -443,3 +447,106 @@ def test_ve_served_path_launches_its_kernels_and_matches_cpu(rng, dev):
                                  "fill_holes": 0, "conv2d_small": 1, "grid_sample": 0}
     assert np.isfinite(got).all() and got.shape == (3, 40, 100)
     assert float(np.abs(got - ref).max()) <= 1e-3 * max(1.0, float(np.abs(ref).max()))
+
+
+def assert_levels_close(got, want):
+    """uint8 outputs of the card and the CPU: within 1 level, unequal on at
+    most 0.5% of values (float32 sums in another order may flip a rounding)."""
+    most, share = probe.levels_apart(got, want)
+    assert most <= 1 and share <= 0.005, (most, share)
+
+
+def run_demo(main, args, device):
+    """One demo run on ``device``; the launch counts of that run."""
+    K.reset_counters()
+    result = main(args + ["--device", device])
+    return result, K.launch_counts()
+
+
+def test_hd720p_demo_launches_its_kernels_and_matches_cpu(dev, tmp_path):
+    """MEMC_Net_star over a 5-frame 64x128 stream, 2 pairs: 2 K1, 1 K2, 1 K3
+    and 1 K4 a pair; ground truth in the output stream byte-equal, the
+    reconstructions within 1 level of the CPU run's."""
+    src = probe.write_yuv(str(tmp_path / "in.yuv"), probe.moving_frames(0, 5, 64, 128))
+    streams = {}
+    for d in ("cpu", "cuda"):
+        _, counts = run_demo(demo_hd720p.main, [
+            "--yuv", src, "--height", "64", "--width", "128", "--frames", "4",
+            "--out-dir", str(tmp_path / d), "--net-name", "MEMC_Net_star", "--uid", "u"], d)
+        streams[d] = np.fromfile(str(tmp_path / d / "u" / "in.yuv"), np.uint8).reshape(4, -1)
+    assert counts == {"filter_interp_warp": 4, "base_scatter": 2, "fill_holes": 2,
+                      "conv2d_small": 2, "grid_sample": 0}
+    np.testing.assert_array_equal(streams["cuda"][0::2], streams["cpu"][0::2])
+    assert_levels_close(streams["cuda"][1::2], streams["cpu"][1::2])
+
+
+def test_middlebury_demo_memc_s_launches_its_kernels_and_matches_cpu(dev, tmp_path):
+    """MEMC_Net_s on two 64x96 sequences (padded to 128x128: SPyNet runs
+    three levels, 15 K4 and 3 K5 launches a pair), weights offset as in
+    offset_spynet and shared through one .pth."""
+    data, gt = probe.write_middlebury(str(tmp_path / "mb"), ["A", "B"], 64, 96)
+    pth = str(tmp_path / "s.pth")
+    torch.save(offset_spynet(build_model("MEMC_Net_s", seed=1, device="cpu")).state_dict(), pth)
+    outs = {}
+    for d in ("cpu", "cuda"):
+        out = tmp_path / d
+        results, counts = run_demo(demo_middlebury.main, [
+            "--data-dir", data, "--gt-dir", gt, "--out-dir", str(out),
+            "--net-name", "MEMC_Net_s", "--pretrained", pth], d)
+        (uid,) = out.iterdir()
+        outs[d] = (results, [imread(str(uid / n / "frame10i11.png")) for n in ("A", "B")])
+    assert counts == {"filter_interp_warp": 4, "base_scatter": 2, "fill_holes": 2,
+                      "conv2d_small": 30, "grid_sample": 6}
+    for (_, ie, _), (_, ie_cpu, _) in zip(outs["cuda"][0], outs["cpu"][0]):
+        assert abs(ie - ie_cpu) <= 0.01
+    for got, want in zip(outs["cuda"][1], outs["cpu"][1]):
+        assert_levels_close(got, want)
+
+
+def test_vimeo_ve_demo_launches_its_kernels_and_matches_cpu(dev, tmp_path):
+    """MEMC_Net_VE on one 64x96 septuplet: 1 K1 and 1 K4 a window.  The .pth
+    scales the rectifier's last conv by 1e-3, so the output is not all 0 or
+    255 (random kaiming EDSR outputs are in the thousands)."""
+    root = probe.write_vimeo(str(tmp_path / "vimeo"), 1, 64, 96)
+    model = build_model("MEMC_Net_VE", seed=1, device="cpu")
+    with torch.no_grad():
+        model.rectifyNet.tail[0].weight.mul_(1e-3)
+    pth = str(tmp_path / "ve.pth")
+    torch.save(model.state_dict(), pth)
+    recs = {}
+    for d in ("cpu", "cuda"):
+        _, counts = run_demo(demo_vimeo_ve.main, [
+            "--root", root, "--out-dir", str(tmp_path / d), "--task", "denoise",
+            "--pretrained", pth], d)
+        recs[d] = imread(str(tmp_path / d / "00001" / "0001" / "im4.png"))
+    assert counts == {"filter_interp_warp": 1, "base_scatter": 0, "fill_holes": 0,
+                      "conv2d_small": 1, "grid_sample": 0}
+    assert_levels_close(recs["cuda"], recs["cpu"])
+
+
+@pytest.mark.parametrize("ch", [1, 3, 4])
+def test_png_native_unfilter_matches_plain(dev, tmp_path, ch):
+    """csrc/png.cu's host unfilter against the plain Python one, on rows of
+    each filter type and on an adaptively filtered file; a bad filter type
+    raises."""
+    from memcnet_tpu_torch.io import png
+    from memcnet_tpu_torch.ops.cuda import _lib
+
+    assert _lib.nvcc_path() is not None  # imread takes the C unfilter here
+    frame = probe.moving_frames(ch, 1, 37, 53)[0]
+    img = frame[..., 0] if ch == 1 else (
+        frame if ch == 3 else np.concatenate([frame, frame[..., :1]], axis=2))
+    flat = img.reshape(37, 53 * ch)
+    each = png.filter_rows(flat, ch)
+    for kinds in [np.full(37, t) for t in range(5)] + [np.arange(37) % 5]:
+        rows = np.concatenate([kinds[:, None].astype(np.uint8), each[kinds, np.arange(37)]], 1)
+        raw = rows.tobytes()
+        got = png.unfilter(raw, 37, 53 * ch, ch)
+        np.testing.assert_array_equal(got, flat)
+        np.testing.assert_array_equal(got, png.unfilter_plain(raw, 37, 53 * ch, ch))
+    path = str(tmp_path / "a.png")
+    png.imwrite(path, img, adaptive=True)
+    np.testing.assert_array_equal(png.imread(path), img)
+    rows[5, 0] = 9
+    with pytest.raises(ValueError, match="row 5 has unknown filter type 9"):
+        png.unfilter(rows.tobytes(), 37, 53 * ch, ch)
