@@ -51,7 +51,25 @@ Phases (any failed check exits non-zero and prints no result line):
      under phase 2's rules.  Also: one HD720p pair split into host stages
      through the demo's own helpers, and png.imread of adaptively filtered
      388x584 and 256x448 frames, and their unfilter in C (csrc/png.cu) and in
-     Python.
+     Python;
+  6. train each model on the card, float32 (Config's type) and seeded random
+     weights, on synthetic 256x448 frames: MEMC_Net_star 6 steps in float32
+     and 6 in bf16, MEMC_Net and MEMC_Net_s 4 steps each, through
+     build_interp_trainer and fit over a VimeoTriplet of one fixed triplet
+     written by probe.write_vimeo (a checkpoint at the end); MEMC_Net_VE 4
+     steps of make_ve_train_step on a seven-frame window.  Each step's
+     launches, counted around the whole step (forward, backward, optimizer),
+     equal EXPECTED_PER_STEP (no K3: training turns the hole fill off); the
+     losses fall; every BatchNorm running statistic moves.  Each run's ms per
+     step (CUDA events), peak memory and one profiled step (kernels by device
+     time, idle share, forward / backward / optimizer device ms, the share of
+     each kernel's plain-version backward); one MEMC_Net_star bf16 step at
+     768x1344 (time, peak memory); one float32 MEMC_Net and MEMC_Net_star step
+     at 2x 64x128 on the card against the CPU (loss, every gradient, every
+     parameter and running statistic after the update); every kernel held
+     against its plain version at every shape the train steps launched it at
+     (recorded), bf16 and float32, and its step gradient against the plain
+     version's at the largest such shape.
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.  Long output (the kernels' build
 log, the full results) goes to chiprun_out/chip_smoke/.
@@ -1129,16 +1147,17 @@ class ShapeRecorder:
         self.saved = []
 
 
-def hold_recorded_shapes(torch, results, seen):
-    """Each kernel against its plain version at every shape the demos
-    launched it at (``ShapeRecorder.seen``), in bf16 and in float32, on
+def hold_recorded_shapes(torch, results, seen, tag="demo"):
+    """Each kernel against its plain version at every shape a path (the
+    demos, the train steps) launched it at (``ShapeRecorder.seen``), in bf16
+    and in float32, on
     synthetic inputs made as in phase 2 and under phase 2's rules: K1 on the
     smooth +-20 px flow with out-of-frame blocks; the projection on that
     flow, +-200 px noise and an all-invalid flow (counts and masks exact);
     K4 with torch-0.2 default weights and bias where the path has a bias
     (SPyNet), MSRA weights where it has none (ctx); K5's level input exact
     in fst and up, its warp against the plain grid sample.  Per-shape lines
-    go to OUT_DIR/demo_shapes.log."""
+    go to OUT_DIR/<tag>_shapes.log, the rows to results["<tag>_shapes"]."""
     from memcnet_tpu_torch.nn import init as I
     from memcnet_tpu_torch.ops import projection
     from memcnet_tpu_torch.ops.cuda import conv_kernel, gather_kernel, warp_kernel
@@ -1221,20 +1240,20 @@ def hold_recorded_shapes(torch, results, seen):
                 lines.append(f"{name} {key} {dt_name}: max_abs_err {err:.3e} [{rule}: "
                              f"{measure:.3g}] {'ok' if ok else 'FAIL'}")
                 if not ok:
-                    with open(os.path.join(OUT_DIR, "demo_shapes.log"), "w") as f:
+                    with open(os.path.join(OUT_DIR, f"{tag}_shapes.log"), "w") as f:
                         f.write("\n".join(lines) + "\n")
                     raise CheckFailed(f"{name} {key} {dt_name}: kernel disagrees with its plain "
-                                      f"version at a demo's shape ({rule}: {measure})")
+                                      f"version at a {tag} path's shape ({rule}: {measure})")
         torch.cuda.empty_cache()
-    with open(os.path.join(OUT_DIR, "demo_shapes.log"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"{tag}_shapes.log"), "w") as f:
         f.write("\n".join(lines) + "\n")
     for name, keys in seen.items():
         mine = [r for r in rows if r["kernel"] == name]
         worst = {dt: max((r["check_value"] for r in mine if r["dtype"] == dt), default=None)
                  for dt in ("bfloat16", "float32")}
-        log(f"  {name}: held at the demos' {len(keys)} shapes, bf16 and float32, worst check "
-            f"value bf16 {worst['bfloat16']}, float32 {worst['float32']}")
-    results["demo_shapes"] = rows
+        log(f"  {name}: held at the {tag} paths' {len(keys)} shapes, bf16 and float32, worst "
+            f"check value bf16 {worst['bfloat16']}, float32 {worst['float32']}")
+    results[f"{tag}_shapes"] = rows
 
 
 def png_read_times(results, work):
@@ -1315,6 +1334,420 @@ def phase_demos(torch, results, card):
         hold_recorded_shapes(torch, results, rec.seen)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: train steps on the card (build_interp_trainer + fit, make_ve_train_step)
+
+TRAIN_H, TRAIN_W = 256, 448  # Vimeo-90K triplets: multiples of FlowNetS's 64, no padding
+# the interpolation models train at Config().lr (2e-3, the upstream trainer's);
+# MEMC_Net_VE, the 768x1344 step and the card-vs-CPU steps at the rate of the JAX
+# package's VE descent test (tests/test_train.py): random kaiming EDSR weights
+# put VE's outputs in the hundreds, and 2e-3 makes its loss swing
+TRAIN_LR = 1e-4
+# (model, dtype, steps); each step's launches are counted around the whole step
+TRAIN_RUNS = (("MEMC_Net_star", "float32", 6), ("MEMC_Net_star", "bfloat16", 6),
+              ("MEMC_Net", "float32", 4), ("MEMC_Net_s", "float32", 4),
+              ("MEMC_Net_VE", "float32", 4))
+# launches per train step: the served counts without the hole fill (K3), which
+# training turns off; SPyNet has 5 levels at 256x448 (it stops halving at 16x28)
+EXPECTED_PER_STEP = {
+    "MEMC_Net_star": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 0,
+                      "conv2d_small": 1, "grid_sample": 0},
+    "MEMC_Net_s": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 0,
+                   "conv2d_small": 25, "grid_sample": 5},
+    "MEMC_Net": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 0,
+                 "conv2d_small": 0, "grid_sample": 0},
+    "MEMC_Net_VE": {"filter_interp_warp": 1, "base_scatter": 0, "fill_holes": 0,
+                    "conv2d_small": 1, "grid_sample": 0},
+}
+# the autograd Functions whose backward is autograd of a kernel's plain version
+BACKWARD_NODES = {"filter_interp_warp": "_WarpFunctionBackward",
+                  "flow_project": "_ProjectFunctionBackward",
+                  "conv2d_small": "_ConvFunctionBackward",
+                  "spynet_level_input": "_LevelInputFunctionBackward"}
+STEP_GRAD_TOL = 1e-2        # card vs CPU step: gradients, of their subnet's largest
+STEP_TRUNK_GRAD_TOL = 0.1   # the same in MEMC_Net's train-mode BatchNorm trunks
+
+
+class CountedStep:
+    """A train step that counts each call's kernel launches (set to 0 just
+    before, read just after) and records CUDA events around it; ``fit``
+    reads its ``model`` and ``optimizer``."""
+
+    def __init__(self, torch, step):
+        self.torch, self.step = torch, step
+        self.model, self.optimizer = step.model, step.optimizer
+        self.counts, self.events = [], []
+
+    def __call__(self, *inputs):
+        from memcnet_tpu_torch.ops import cuda as K
+
+        start = self.torch.cuda.Event(enable_timing=True)
+        end = self.torch.cuda.Event(enable_timing=True)
+        K.reset_counters()
+        start.record()
+        loss = self.step(*inputs)
+        end.record()
+        self.counts.append(K.launch_counts())
+        self.events.append((start, end))
+        return loss
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def running_stats(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items() if "running_" in k}
+
+
+def profile_train_step(torch, tag, step, inputs):
+    """One profiled train step: kernels by device time, the device's idle
+    share over the step, device ms of the forward and the optimizer (their
+    record_function ranges) and of the backward (autograd's top-level
+    evaluate_function events), and each kernel's plain-version backward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*inputs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda_kind = torch.autograd.DeviceType.CUDA
+    # the record_function ranges also appear on the device timeline (as
+    # annotations spanning their kernels): count kernels only
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == cuda_kind and e.self_device_time_total > 0
+                   and not e.key.startswith("train_step.")),
+                  key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    events = prof.events()
+
+    def device_ms(e):
+        """Device ms of the kernels that ``e`` and the events under it launched."""
+        own = sum(k.duration for k in e.kernels if not k.name.startswith("train_step."))
+        return own / 1e3 + sum(device_ms(c) for c in e.cpu_children)
+
+    def under_backward(e):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name.startswith("autograd::engine::evaluate_function"):
+                return True
+            p = p.cpu_parent
+        return False
+
+    phases = {"forward": 0.0, "optimizer": 0.0, "backward": 0.0}
+    plain_bwd = {k: 0.0 for k in BACKWARD_NODES}
+    for e in events:
+        if e.name in ("train_step.forward", "train_step.optimizer"):
+            phases[e.name.split(".")[1]] += device_ms(e)
+        elif e.name.startswith("autograd::engine::evaluate_function") and not under_backward(e):
+            phases["backward"] += device_ms(e)
+            for k, node in BACKWARD_NODES.items():
+                if e.name.endswith(node):
+                    plain_bwd[k] += device_ms(e)
+    share = {k: v / busy if busy else None for k, v in plain_bwd.items()}
+    log(f"  {tag}: profiled step wall {wall_ms:.3f} ms, kernels {busy:.3f} ms, idle share "
+        f"{max(0.0, 1 - busy / wall_ms):.3f}; device ms forward {phases['forward']:.3f}, "
+        f"backward {phases['backward']:.3f}, optimizer {phases['optimizer']:.3f}; plain-version "
+        "backward " + ", ".join(f"{k} {v:.3f} ms ({100 * (share[k] or 0):.1f}%)"
+                                for k, v in plain_bwd.items() if v))
+    with open(os.path.join(OUT_DIR, f"profile_train_{tag}.txt"), "w") as f:
+        for key, ms_, n in rows:
+            f.write(f"{ms_:10.4f} ms {n:5d}x  {key}\n")
+    for key, ms_, n in rows[:8]:
+        log(f"    {ms_:9.4f} ms {100 * ms_ / max(busy, 1e-9):5.1f}% {n:4d}x  {key[:90]}")
+    return dict(wall_ms=wall_ms, kernel_ms=busy, idle_share=max(0.0, 1 - busy / wall_ms),
+                phase_device_ms=phases, plain_backward_device_ms=plain_bwd,
+                plain_backward_share=share, top=rows[:25])
+
+
+def check_falling(tag, hist):
+    """tests/test_train.py's rules (Adamax's first step may overshoot):
+    finite, the last loss below step 1's, and the last step still falls."""
+    if not all(np.isfinite(hist)) or not (hist[-1] < hist[1] and hist[-1] < hist[-2]):
+        raise CheckFailed(f"{tag}: losses do not fall: {hist}")
+
+
+def train_run(torch, name, dt_name, steps, root, work, results):
+    """Train ``name`` in ``dt_name`` for ``steps`` steps on the card: an
+    interpolation model with build_interp_trainer + fit over a VimeoTriplet
+    of one fixed 256x448 triplet (a checkpoint at the end), MEMC_Net_VE with
+    make_ve_train_step on one synthetic 256x448 window.  Checks the launches
+    of every step, the falling losses and, with BatchNorm, that every
+    running statistic moved."""
+    from memcnet_tpu_torch.cli.runner import build_model
+    from memcnet_tpu_torch.data.vimeo90k import VimeoTriplet
+    from memcnet_tpu_torch.train import trainer as T
+    from memcnet_tpu_torch.utils.config import Config
+
+    tag = f"{name}_{dt_name}"
+    dt = getattr(torch, dt_name)
+    model = build_model(name, seed=0, dtype=dt, device="cuda")
+    before = running_stats(model)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if name == "MEMC_Net_VE":
+        opt = T.make_optimizer(model, lr=TRAIN_LR, subnet_lr=True, plateau=True)
+        step = CountedStep(torch, T.make_ve_train_step(model, opt, device="cuda"))
+        window = synthetic_window(11, TRAIN_H, TRAIN_W)
+        inputs = ([w[None] for w in window], window[3][None])
+        hist = [float(step(*inputs)) for _ in range(steps)]
+    else:
+        _, tstep = T.build_interp_trainer(model, Config(), device="cuda")
+        step = CountedStep(torch, tstep)
+        ds = VimeoTriplet(root, seed=0)
+        ds.paths = ds.paths[:1]  # overfit one fixed triplet
+        ckpt = os.path.join(work, f"ckpt_{tag}")
+        hist = T.fit(step, ds.batches(1, shuffle=False), steps=steps, eval_every=steps,
+                     checkpoint_dir=ckpt, log=lambda m: log(f"  {tag} fit: {m}"))
+        if os.listdir(ckpt) != [f"step_{steps}.pt"]:
+            raise CheckFailed(f"{tag}: fit wrote {os.listdir(ckpt)}")
+        inputs = next(ds.batches(1, shuffle=False))
+    peak = torch.cuda.max_memory_allocated()
+    ms = step.ms()
+    check_falling(tag, hist)
+    after = running_stats(model)
+    still = [k for k in before if torch.equal(before[k], after[k])]
+    if still or (name != "MEMC_Net_star") != bool(before):
+        raise CheckFailed(f"{tag}: {len(still)} of {len(before)} running statistics did not move")
+    per_step = float(np.median(ms[1:]))
+    log(f"  {tag}: {steps} steps, losses {', '.join(f'{h:.5f}' for h in hist)}; ms/step "
+        f"{', '.join(f'{m:.3f}' for m in ms)} (median after the first {per_step:.3f}); peak "
+        f"memory {peak / 2 ** 30:.3f} GiB; {len(before)} running statistics moved")
+    prof = profile_train_step(torch, tag, step, inputs)
+    for i, counts in enumerate(step.counts):  # the profiled step's too
+        if counts != EXPECTED_PER_STEP[name]:
+            raise CheckFailed(f"{tag} step {i}: launches {counts}, expected "
+                              f"{EXPECTED_PER_STEP[name]}")
+    log(f"  {tag}: launches per step, {len(step.counts)} steps: {step.counts[0]}")
+    results.setdefault("train", {})[tag] = dict(
+        losses=hist, ms=ms, ms_per_step=per_step, peak_bytes=peak, steps=len(step.counts),
+        launches_per_step=step.counts[0],
+        launches={k: sum(c[k] for c in step.counts) for k in step.counts[0]},
+        bn_stats_moved=len(before), profile=prof)
+    del model, step
+    torch.cuda.empty_cache()
+
+
+def train_step_720p(torch, results):
+    """One MEMC_Net_star bf16 train step at 768x1344 (1280x720 padded), the
+    size at which the JAX package chunked its warp backward; the port's
+    backward is not chunked.  Two steps (the first chooses cuDNN's
+    algorithms): their times and the peak memory."""
+    from memcnet_tpu_torch.cli.runner import build_model
+    from memcnet_tpu_torch.data import pad_frame, pad_plan
+    from memcnet_tpu_torch.train import trainer as T
+
+    model = build_model("MEMC_Net_star", seed=0, dtype=torch.bfloat16, device="cuda")
+    opt = T.make_optimizer(model, lr=TRAIN_LR, subnet_lr=True, plateau=True)
+    step = CountedStep(torch, T.make_interp_train_step(model, opt, alpha=(1.0, 0.0),
+                                                       device="cuda"))
+    plan = pad_plan(FRAME_H, FRAME_W)
+    x0, x2 = (np.ascontiguousarray(pad_frame(f, plan)[None]) for f in synthetic_frames(3))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(x0, (x0 + x2) / 2, x2)) for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated()
+    ms = step.ms()
+    if not all(np.isfinite(losses)) or step.counts[-1] != EXPECTED_PER_STEP["MEMC_Net_star"]:
+        raise CheckFailed(f"star bf16 768x1344 step: losses {losses}, launches {step.counts}")
+    log(f"  MEMC_Net_star bf16 train step at {H}x{W}: ms {', '.join(f'{m:.3f}' for m in ms)}; "
+        f"peak memory {peak / 2 ** 30:.3f} GiB; losses {losses}")
+    results.setdefault("train", {})["MEMC_Net_star_bfloat16_768x1344"] = dict(
+        ms=ms, peak_bytes=peak, losses=losses,
+        launches={k: sum(c[k] for c in step.counts) for k in step.counts[0]})
+    del model, step
+    torch.cuda.empty_cache()
+
+
+def card_vs_cpu_step(torch, name, results):
+    """One float32 train step of ``name`` at 2x 64x128 on the card and on the
+    CPU from the same weights and inputs: the loss within 1e-4 relative;
+    each parameter's gradient within STEP_GRAD_TOL of the largest gradient
+    magnitude in its subnet (the first component of its name), as
+    tests/test_torch_train_models.py holds the port against the JAX package
+    -- not of the tensor's own: FlowNetS's deepest layers, at its 0.02 / n
+    init, get gradients near float32 noise (a card-vs-CPU difference of up to
+    0.21 of their own largest, call 1 of PR 10) -- and within
+    STEP_TRUNK_GRAD_TOL in MEMC_Net's train-mode BatchNorm trunks, whose
+    backward amplifies float32 rounding (up to 5.2e-2 between the packages on
+    the CPU); the running statistics after the step within 1e-4 of each
+    tensor's largest magnitude; the parameters after the update within 2 lr
+    of each other everywhere (Adamax's first update is about lr * sign(g))
+    and within 1e-6 on at least 99% of their elements.  TF32 is off (phase 3
+    turned it off)."""
+    from memcnet_tpu_torch.cli.runner import build_model
+    from memcnet_tpu_torch.train import trainer as T
+
+    rng = np.random.RandomState(4)
+    x0 = rng.rand(2, 3, 64, 128).astype(np.float32)
+    x2 = np.roll(x0, (1, 2), axis=(2, 3)) * 0.9 + 0.05
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(name, seed=0, device=dev)
+        opt = T.make_optimizer(model, lr=TRAIN_LR, subnet_lr=True, plateau=True)
+        loss = float(T.make_interp_train_step(model, opt, device=dev)(x0, (x0 + x2) / 2, x2))
+        out[dev] = (loss, {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                           .detach().cpu() for k, p in model.named_parameters()},
+                    {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    (lc, gc, sc), (lg, gg, sg) = out["cpu"], out["cuda"]
+    worst = {"loss": abs(lg - lc) / abs(lc), "grad": 0.0, "stats": 0.0}
+    bad = []
+    if not worst["loss"] <= 1e-4:
+        bad.append(f"loss {lg} vs {lc}")
+    subnet_max = {}
+    for k, g in gc.items():
+        sub = k.split(".")[0]
+        subnet_max[sub] = max(subnet_max.get(sub, 0.0), float(g.abs().max()))
+    for k, g in gc.items():
+        sub = k.split(".")[0]
+        tol = STEP_TRUNK_GRAD_TOL if sub in ("initScaleNets_filter", "initScaleNets_occlusion") \
+            and name == "MEMC_Net" else STEP_GRAD_TOL
+        e = float((gg[k] - g).abs().max()) / max(subnet_max[sub], 1e-30)
+        worst["grad"] = max(worst["grad"], e / tol * STEP_GRAD_TOL)
+        if not e <= tol:
+            bad.append(f"grad {k}: {e:.3g} of its subnet's largest > {tol}")
+    close_elems = total = 0
+    for k, v in sc.items():
+        d = (sg[k].double() - v.double()).abs()
+        if "running_" in k:
+            e = float(d.max()) / max(float(v.abs().max()), 1e-30)
+            worst["stats"] = max(worst["stats"], e)
+            if not e <= 1e-4:
+                bad.append(f"{k}: {e:.3g}")
+        elif k in gc:
+            if float(d.max()) > 2 * TRAIN_LR * (1 + 1e-3):
+                bad.append(f"param {k}: {float(d.max()):.3g} > 2 lr")
+            close_elems += int((d <= 1e-6).sum())
+            total += d.numel()
+    worst["params_close_share"] = close_elems / total
+    if close_elems < 0.99 * total:
+        bad.append(f"only {close_elems / total:.4f} of parameter elements within 1e-6")
+    log(f"  {name} float32 2x 64x128 step, card vs CPU: loss {lg:.6f} vs {lc:.6f}; worst "
+        f"gradient {worst['grad']:.3g} (of {STEP_GRAD_TOL}), running stats {worst['stats']:.3g}, "
+        f"parameters within 1e-6: {worst['params_close_share']:.5f}")
+    results.setdefault("train_card_vs_cpu", {})[name] = worst
+    if bad:
+        raise CheckFailed(f"{name}: the card's train step disagrees with the CPU's: "
+                          + "; ".join(bad[:8]))
+
+
+def hold_gradients(torch, results, seen):
+    """The card's step gradients against the plain versions': at the largest
+    shape the train paths launched each kernel at, the kernel's
+    autograd.Function (kernel forward, backward = autograd of the plain
+    version) and the plain version alone, on the same inputs and cotangent,
+    in bf16 and float32, under phase 2's rules.  Deterministic algorithms
+    are on, so that the plain backward's atomic sums run in one order."""
+    from memcnet_tpu_torch.nn import init as I
+    from memcnet_tpu_torch.ops.cuda import conv_kernel, gather_kernel, warp_kernel
+    from memcnet_tpu_torch.ops.cuda import project_kernel as P
+    from memcnet_tpu_torch.probe import synthetic_flow
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    wgen = torch.Generator().manual_seed(9)
+
+    def rand(*shape, dt, scale=1.0, shift=0.0):
+        return (torch.rand(shape, generator=gen, device=dev) * scale + shift).to(dt)
+
+    def grads(fn, plain, inputs, dt):
+        inputs = [x.detach().requires_grad_() for x in inputs]
+        got = fn(*inputs)
+        got = got if isinstance(got, tuple) else (got,)
+        cot = [torch.randn(o.shape, generator=gen, device=dev).to(o.dtype) for o in got]
+        g_card = torch.autograd.grad(got, inputs, cot, allow_unused=True)
+        want = plain(*inputs)
+        want = want if isinstance(want, tuple) else (want,)
+        g_plain = torch.autograd.grad(want, inputs, cot, allow_unused=True)
+        return [(a, b) for a, b in zip(g_card, g_plain) if b is not None]
+
+    def warp(dt, B, chans, H, W, fs):
+        images = [rand(B, c, H, W, dt=dt) for c in chans]
+        flow = synthetic_flow(B, dev, size=(H, W)) * 0.1
+        filt = rand(B, fs * fs, H, W, dt=dt, scale=1.0 / 8.0)
+        return compare(grads(lambda f, fi, *im: warp_kernel.warp(im, f, fi, fs),
+                             lambda f, fi, *im: warp_kernel.reference(im, f, fi, fs),
+                             [flow, filt, *images], dt), 1e-4)
+
+    def project(dt, B, two, H, W, fillhole):
+        flow = (synthetic_flow(B, dev, size=(H, W)) * 0.1).to(dt)
+        return compare(grads(lambda f: P.flow_project(f, fillhole),
+                             lambda f: P.reference(f, fillhole), [flow], dt), 1e-3)
+
+    def conv(dt, B, C, H, W, O, _C, K, _K, bias, relu):
+        x = rand(B, C, H, W, dt=dt, scale=4.0, shift=-2.0)
+        w = I.torch_default_uniform((O, C, K, K), wgen).to(dev).to(dt)
+        b = I.torch_default_uniform((O,), wgen, fan_in=C * K * K).to(dev) if bias else None
+        ins = [x, w] + ([b] if bias else [])
+        return compare(grads(lambda *a: conv_kernel.conv2d_small(*a[:2], a[2] if bias else None,
+                                                                 relu=relu),
+                             lambda *a: conv_kernel.reference(*a[:2], a[2] if bias else None,
+                                                              relu=relu), ins, dt),
+                       5e-4, long_sums=True)
+
+    def level_input(dt, B, _three, H, W):
+        fst, snd = rand(B, 3, H, W, dt=dt), rand(B, 3, H, W, dt=dt)
+        cflow = synthetic_flow(B, dev, size=(H // 2, W // 2)).to(dt)
+        return compare(grads(gather_kernel.level_input, gather_kernel.level_input_reference,
+                             [fst, snd, cflow], dt), 1e-5)
+
+    holds = {"filter_interp_warp": warp, "flow_project": project, "conv2d_small": conv,
+             "spynet_level_input": level_input}
+    rows = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, keys in seen.items():
+            if not keys:
+                continue
+            key = max(keys, key=lambda k: np.prod([v for v in k if type(v) is int]))
+            for dt_name in ("bfloat16", "float32"):
+                err, measure, limit, rule = holds[name](getattr(torch, dt_name), *key)
+                ok = bool(measure <= limit)
+                rows.append(dict(kernel=name, key=list(key), dtype=dt_name, max_abs_err=err,
+                                 check=rule, check_value=measure, ok=ok))
+                log(f"  {name} gradient at {key} {dt_name}: max_abs_err {err:.3e} "
+                    f"[{rule}: {measure:.3g}] {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise CheckFailed(f"{name} {key} {dt_name}: the step's gradient disagrees "
+                                      f"with the plain version's ({rule}: {measure})")
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    results["train_gradients"] = rows
+
+
+def phase_train(torch, results):
+    import tempfile
+
+    from memcnet_tpu_torch import probe
+
+    with tempfile.TemporaryDirectory() as work:
+        root = probe.write_vimeo(os.path.join(work, "vimeo"), 2, TRAIN_H, TRAIN_W, seed=5)
+        with ShapeRecorder() as rec:
+            for name, dt_name, steps in TRAIN_RUNS:
+                train_run(torch, name, dt_name, steps, root, work, results)
+        # the recorder saw every launch of the runs, the profiled steps too
+        launched = {k: sum(r["launches"][k] for r in results["train"].values())
+                    for k in ("filter_interp_warp", "base_scatter", "conv2d_small",
+                              "grid_sample")}
+        seen = {"filter_interp_warp": rec.calls["filter_interp_warp"],
+                "base_scatter": rec.calls["flow_project"],
+                "conv2d_small": rec.calls["conv2d_small"],
+                "grid_sample": rec.calls["spynet_level_input"] + rec.calls["grid_sample"]}
+        if seen != launched:
+            raise CheckFailed(f"phase 6: launches {launched}, recorded {seen}")
+    if any(key[-1] for key in rec.seen["flow_project"]):
+        raise CheckFailed("phase 6: a train step ran the projection with the hole fill")
+    train_step_720p(torch, results)
+    for name in ("MEMC_Net", "MEMC_Net_star"):
+        card_vs_cpu_step(torch, name, results)
+    hold_recorded_shapes(torch, results, rec.seen, tag="train")
+    hold_gradients(torch, results, rec.seen)
+
+
 def main():
     import torch
 
@@ -1365,6 +1798,9 @@ def main():
         torch.cuda.empty_cache()
         log("phase 5: serve through the demos' entry points")
         phase_demos(torch, results, card)
+        torch.cuda.empty_cache()
+        log("phase 6: train steps on the card")
+        phase_train(torch, results)
     except Exception:  # every failure ends the run with no result line
         traceback.print_exc()
         with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
@@ -1386,6 +1822,8 @@ def main():
         by_path = {m: results["serve"][m]["launches"][name] for m in EXPECTED_PER_FRAME}
         by_path.update({path: results["demos"][path]["launches"][name]
                         for path in ("demo_hd720p", "demo_middlebury", "demo_vimeo_ve")})
+        by_path.update({f"train_{tag}": r["launches"][name]
+                        for tag, r in results["train"].items()})
 
         def row(key):
             r, o = krows[key][dt], krows[key][other]

@@ -1,6 +1,7 @@
 """FlowNetS: 6-level conv encoder + deconv decoder (port of
 memcnet_tpu/models/flownets.py; reference networks/FlowNetS/FlowNetS.py:33-117,
-batchNorm=False).  Returns the quarter-resolution 2-channel flow (flow2).
+batchNorm=False).  Returns the quarter-resolution 2-channel flow (flow2), or
+with ``training=True`` every scale's flow.
 State-dict keys match the reference: conv{N}.0.{weight,bias},
 deconv{N}.0.*, predict_flow{N}.weight, upsampled_flow{N}_to_{M}.weight.
 """
@@ -62,9 +63,13 @@ class FlowNetS(nn.Module):
             m = getattr(self, name)
             m.weight.copy_(I.flownets_normal_iohw(tuple(m.weight.shape), generator))
 
-    def forward(self, x):
+    def forward(self, x, training=False):
         """x: (B, 6, H, W) stacked pair, H and W divisible by 64 ->
-        (B, 2, H/4, W/4) flow2 (FlowNetS.py:80-111)."""
+        (B, 2, H/4, W/4) flow2 (FlowNetS.py:80-111); with ``training=True``
+        the multi-scale tuple (flow2, flow3, flow4, flow5, flow6), as the
+        reference's train-mode forward returns for FlowNetS's own multi-scale
+        supervision (FlowNetS.py:106-112).  An argument, not the module's
+        mode: the MEMC models take flow2 in train mode too."""
         acts = {}
         out = x
         for name, _ci, _co, k, s in _ENC:
@@ -96,4 +101,7 @@ class FlowNetS(nn.Module):
         flow3 = predict("predict_flow3", concat3)
         concat2 = torch.cat((acts["conv2"], deconv("deconv2", concat3),
                              upflow("upsampled_flow3_to_2", flow3)), 1)
-        return predict("predict_flow2", concat2)
+        flow2 = predict("predict_flow2", concat2)
+        if training:
+            return flow2, flow3, flow4, flow5, flow6
+        return flow2

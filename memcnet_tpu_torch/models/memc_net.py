@@ -1,11 +1,12 @@
-"""The three frame-interpolation models in eval mode: MEMC_Net, MEMC_Net_s
-and MEMC_Net_star (port of memcnet_tpu/models/memc_net.py; reference
+"""The three frame-interpolation models: MEMC_Net, MEMC_Net_s and
+MEMC_Net_star (port of memcnet_tpu/models/memc_net.py; reference
 MEMC_Net.py:69-146, MEMC_Net_s.py:62-145, MEMC_Net_star.py:78-169).
 
 Pipeline, for frames x0 and x2:
   flow:      FlowNetS on both directions batched, x (20/2), bilinear x4 upsample
              [_s: SPyNet(first, second) / 2, at full resolution already],
-             flow_project to the middle time with the hole fill
+             flow_project to the middle time, with the hole fill in eval
+             mode only (memc_net.py:152)
   filter:    MonoNet5 trunk -> two fs^2-channel branches
   occlusion: MonoNet5 trunk -> 0.5 + two 1-channel branches
              (filter and occlusion nets run as one groups=2 walk)
@@ -17,7 +18,9 @@ Pipeline, for frames x0 and x2:
              occlusions)  [star: EDSR(169 ch, 10 resblocks, 128 feats) with
              the warped contexts, detached]
 
-Train mode is still to port (ROADMAP.md Queue A); MEMC_Net_VE is in
+``model.train()`` switches to train mode: no hole fill, BatchNorm on batch
+statistics with the running statistics updated in its buffers, and
+``train_residuals`` gives the loss residuals.  MEMC_Net_VE is in
 models/memc_net_ve.py.  Module attribute names make the state-dict keys equal
 the JAX flat-dict keys.
 """
@@ -141,15 +144,25 @@ class MEMCNet(nn.Module):
     def forward(self, x0, x2):
         """x0, x2: (B, 3, H, W), H and W multiples of 128 (padded upstream).
         Returns ((interp, rectified), (off0, off1), (filt0, filt1),
-        (occ0, occ1)), as the JAX forward in eval mode."""
+        (occ0, occ1)), as the JAX forward in the module's mode."""
         fs = self.filter_size
         pair = torch.cat((x0, x2), dim=1)
-        offs = self._flows(x0, x2, fillhole=True)
+        offs = self._flows(x0, x2, fillhole=not self.training)
         filters, occs = self._filters_and_occlusions(pair)
         w0 = filter_interp_warp(x0, offs[0], filters[0], filter_size=fs)
         w1 = filter_interp_warp(x2, offs[1], filters[1], filter_size=fs)
         blended = self._blend(w0, w1, occs)
         return (blended, self._rectify(blended, offs, filters, occs)), offs, filters, occs
+
+    def train_residuals(self, x0, x1, x2):
+        """Train-mode loss residuals (MEMC_Net.py:132-137): returns
+        ([interp - x1, rectified - x1], offsets, filters, occlusions) for the
+        middle frame x1.  The BatchNorm running statistics are updated in
+        their buffers (the JAX function returns them as ``bn_updates``)."""
+        if not self.training:
+            raise RuntimeError("train_residuals runs the train-mode forward: call model.train()")
+        (blended, rectified), offs, filters, occs = self(x0, x2)
+        return [blended - x1, rectified - x1], offs, filters, occs
 
 
 class MEMCNetS(MEMCNet):
@@ -205,11 +218,11 @@ class MEMCNetStar(MEMCNet):
     def forward(self, x0, x2):
         """x0, x2: (B, 3, H, W), H and W multiples of 128 (padded upstream).
         Returns ((interp, rectified), (off0, off1), (filt0, filt1),
-        (occ0, occ1)), as the JAX forward in eval mode."""
+        (occ0, occ1)), as the JAX forward in the module's mode."""
         fs = self.filter_size
         B = x0.shape[0]
         pair = torch.cat((x0, x2), dim=1)
-        offs = self._flows(x0, x2, fillhole=True)
+        offs = self._flows(x0, x2, fillhole=not self.training)
         filters, occs = self._filters_and_occlusions(pair)
         cc = self.ctxNet(torch.stack((x0, x2), dim=1).reshape((2 * B,) + x0.shape[1:]))
         cc = cc.reshape((B, 2) + cc.shape[1:])

@@ -1,4 +1,4 @@
-"""MEMC_Net_VE: the 7-frame video-enhancement model in eval mode (port of
+"""MEMC_Net_VE: the 7-frame video-enhancement model (port of
 memcnet_tpu/models/memc_net_ve.py; reference networks/MEMC_Net_VE.py:129-290).
 
 Pipeline, for frames f0..f6 with the center f3:
@@ -15,9 +15,10 @@ Pipeline, for frames f0..f6 with the center f3:
              contexts (7), flows (6), filters (6) and frames (7), in temporal
              order with the center passed through (:208-260)
 
-Train mode (``training=True``, the BN batch statistics and
-``train_residuals``) is still to port (ROADMAP.md Queue A).  Module attribute
-names make the state-dict keys equal the JAX flat-dict keys.
+``model.train()`` switches to train mode: BatchNorm on batch statistics
+(running statistics updated in its buffers), the forward returns the warped
+neighbours too, and ``train_residuals`` gives the seven loss residuals.
+Module attribute names make the state-dict keys equal the JAX flat-dict keys.
 """
 
 import torch
@@ -72,7 +73,9 @@ class MEMCNetVE(nn.Module):
         """frames: 7 tensors (B, 3, H, W), H divisible by 64 and W by 64
         (padded upstream).  Returns the rectified center frame (B, 3, H, W);
         with ``debug=True`` also the (6B, 2, H, W) flow and (6B, fs^2, H, W)
-        filter, sample-major, as the JAX forward does."""
+        filter, sample-major, as the JAX forward does.  In train mode it
+        returns (outs, rectified): the six warped neighbours, not detached,
+        in temporal order with the center frame at slot 3."""
         if len(frames) != 7:
             raise ValueError(f"MEMC_Net_VE takes 7 frames, got {len(frames)}")
         B = frames[0].shape[0]
@@ -103,6 +106,18 @@ class MEMCNetVE(nn.Module):
         flows6 = [nb(flow, k) for k in range(6)]
         filts6 = [nb(filt, k) for k in range(6)]
         rectified = center + self.rectifyNet.forward_pieces(ctxs + flows6 + filts6 + outs)
+        if self.training:
+            return outs, rectified
         if debug:
             return rectified, flow, filt
         return rectified
+
+    def train_residuals(self, frames, y):
+        """MEMC_Net_VE.py:270-275: the six warped neighbours' residuals
+        against the target y, with the rectified frame's in slot 3.  The
+        BatchNorm running statistics are updated in their buffers (the JAX
+        function returns them as ``bn_updates``)."""
+        if not self.training:
+            raise RuntimeError("train_residuals runs the train-mode forward: call model.train()")
+        outs, rectified = self(frames)
+        return [(rectified if i == 3 else outs[i]) - y for i in range(7)]

@@ -6,9 +6,11 @@ A spec list ``[(kind, flat_idx, meta)]`` mirrors the reference's flat
 nn.ModuleList; ``build_modulelist`` makes that ModuleList, so state-dict keys
 are the reference's (e.g. ``initScaleNets_filter.12.weight``).  The walkers
 push the tensor entering each max-pool and add it back after each upsample
-(MEMC_Net.py:154-178).  The JAX package's block-diagonal dense weights and
-its env-gated Pallas routing (mononet.py:27-41, 155-160) are TPU workarounds;
-here the paired filter/occlusion walk is a ``groups=2`` conv.
+(MEMC_Net.py:154-178).  BatchNorm follows each module's mode, so
+``model.train()`` switches it to batch statistics.  The JAX package's
+block-diagonal dense weights and its env-gated Pallas routing
+(mononet.py:27-41, 155-160) are TPU workarounds; here the paired
+filter/occlusion walk is a ``groups=2`` conv.
 """
 
 import torch
@@ -123,11 +125,22 @@ def init_specs(modules, specs, init_fn, generator):
 
 
 def _bn(m, x):
-    return L.batch_norm_eval(x, m.weight, m.bias, m.running_mean, m.running_var, m.eps)
+    """BatchNorm ``m`` in its own mode: running statistics in eval mode; in
+    train mode batch statistics, and the new running statistics written
+    into ``m``'s buffers (the JAX walkers return them as ``bn_updates``)."""
+    if not m.training:
+        return L.batch_norm_eval(x, m.weight, m.bias, m.running_mean, m.running_var, m.eps)
+    y, new_mean, new_var = L.batch_norm_train(x, m.weight, m.bias, m.running_mean,
+                                              m.running_var, m.momentum, m.eps)
+    with torch.no_grad():
+        m.running_mean.copy_(new_mean)
+        m.running_var.copy_(new_var)
+    return y
 
 
 def forward_single_path(modules, specs, x):
-    """The reference stack walk (MEMC_Net.forward_singlePath), eval mode."""
+    """The reference stack walk (MEMC_Net.forward_singlePath); each BatchNorm
+    runs in its module's mode (``model.train()`` / ``model.eval()``)."""
     stack = []
     cur = x
     for kind, idx, _meta in specs:
@@ -150,7 +163,9 @@ def forward_single_path(modules, specs, x):
 
 def forward_dual_path(modules_a, modules_b, specs, x):
     """Two identical-spec nets on the same input as one walk of ``groups=2``
-    convs (channels [a | b]); eval mode.  Returns (out_a, out_b)."""
+    convs (channels [a | b]).  Each half keeps its own BatchNorm, in that
+    module's mode: per-channel statistics make this the JAX walk's BatchNorm
+    over the concatenated channels.  Returns (out_a, out_b)."""
     stack = []
     cur = torch.cat([x, x], dim=1)
     for kind, idx, _meta in specs:

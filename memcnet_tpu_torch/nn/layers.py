@@ -4,7 +4,8 @@ PyTorch (the JAX package leaves these to XLA, so they take no hand kernel).
 Weights keep the PyTorch layouts (conv OIHW, conv-transpose IOHW) and the
 reference's state-dict names, so parameters move between the two packages
 name for name.  PyTorch-0.2 semantics kept: bilinear upsampling is
-align_corners=True; BatchNorm eval uses running statistics with eps 1e-5.
+align_corners=True; BatchNorm eval uses running statistics with eps 1e-5,
+train mode the batch's (``batch_norm_train``).
 The JAX package's sub-pixel form of ConvTranspose2d (layers.py:166-197) is a
 TPU workaround and is not carried over.
 
@@ -79,3 +80,24 @@ def batch_norm_eval(x, gamma, beta, running_mean, running_var, eps=1e-5):
     scale = gamma.float() * inv
     shift = beta.float() - running_mean.float() * scale
     return x * scale.to(x.dtype).view(1, -1, 1, 1) + shift.to(x.dtype).view(1, -1, 1, 1)
+
+
+def batch_norm_train(x, gamma, beta, running_mean, running_var, momentum=0.1, eps=1e-5):
+    """BatchNorm2d in train mode (layers.py:208-232, torch's semantics):
+    normalise by the biased batch variance, in float32 whatever x's type, and
+    return the running statistics updated with the unbiased variance at
+    ``momentum``: running = (1 - momentum) * running + momentum * batch.
+    Returns (y in x's type, new running mean, new running var); the new
+    statistics keep the running statistics' type and carry no gradient."""
+    x32 = x.float()
+    mean = x32.mean(dim=(0, 2, 3))
+    var = (x32 - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    with torch.no_grad():
+        unbiased = var * (n / max(n - 1, 1))
+        new_mean = ((1.0 - momentum) * running_mean.float() + momentum * mean)
+        new_var = ((1.0 - momentum) * running_var.float() + momentum * unbiased)
+    inv = torch.rsqrt(var + eps)
+    y = (x32 - mean.view(1, -1, 1, 1)) * (gamma.float() * inv).view(1, -1, 1, 1)
+    y = y + beta.float().view(1, -1, 1, 1)
+    return y.to(x.dtype), new_mean.to(running_mean.dtype), new_var.to(running_var.dtype)

@@ -1,12 +1,14 @@
-"""Plain dataclass config of the demos (the serving fields of
-memcnet_tpu/utils/config.py, with the same names, defaults and coercions) —
-replaces the reference's my_args.py argparse module with import-time side
-effects (my_args.py:76-122).  The trainer's fields (dataset, batch size,
-learning rate, epochs, loss weights, run directory) come with the trainer's
-port; until then the demos take no such flag."""
+"""Plain dataclass config of the demos and the trainer (the fields of
+memcnet_tpu/utils/config.py that the port reads, with the same names,
+defaults and coercions) — replaces the reference's my_args.py argparse module
+with import-time side effects (my_args.py:76-122).  The trainer's fields
+(``TRAINER_FIELDS``: learning rate, Charbonnier epsilon, loss weights) are
+read by ``train.trainer.build_interp_trainer``; ``add_config_args`` leaves
+them out, so the demos refuse them.  The JAX fields that nothing in the port
+reads (dataset, batch size, epochs, run directory) are not carried."""
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 
 @dataclasses.dataclass
@@ -20,12 +22,22 @@ class Config:
     pretrained: Optional[str] = None           # a .pth file or an io.checkpoint file (:61)
     uid: Optional[str] = None
     dtype: str = "float32"                     # float32 | bfloat16
+    # trainer (documented upstream hyperparameters, my_args.py:41-59)
+    lr: float = 2e-3
+    epsilon: float = 1e-6
+    alpha: Sequence[float] = (1.0, 0.0)
 
+
+TRAINER_FIELDS = ("lr", "epsilon", "alpha")
 
 _COERCERS = {
     "int": int,
+    "float": float,
     "str": str,
     "Optional[str]": str,
+    # comma-separated command-line form, e.g. 1.0,0.0
+    "Sequence[float]": lambda v: v if isinstance(v, (tuple, list))
+    else tuple(float(x) for x in str(v).split(",") if x != ""),
 }
 
 
@@ -50,8 +62,10 @@ def _coerce(field, value):
 
 
 def add_config_args(parser):
+    """The demos' flags: every field but the trainer's."""
     for f in dataclasses.fields(Config):
-        parser.add_argument("--" + f.name.replace("_", "-"), default=None)
+        if f.name not in TRAINER_FIELDS:
+            parser.add_argument("--" + f.name.replace("_", "-"), default=None)
     return parser
 
 

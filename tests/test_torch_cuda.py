@@ -550,3 +550,101 @@ def test_png_native_unfilter_matches_plain(dev, tmp_path, ch):
     rows[5, 0] = 9
     with pytest.raises(ValueError, match="row 5 has unknown filter type 9"):
         png.unfilter(rows.tobytes(), 37, 53 * ch, ch)
+
+
+# ---------------------------------------------------------------- train steps
+
+TRAIN_LAUNCHES = {  # per train step at 64x128: SPyNet has 3 levels there, no hole fill
+    "MEMC_Net_star": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 0,
+                      "conv2d_small": 1, "grid_sample": 0},
+    "MEMC_Net_s": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 0,
+                   "conv2d_small": 15, "grid_sample": 3},
+    "MEMC_Net": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 0,
+                 "conv2d_small": 0, "grid_sample": 0},
+    "MEMC_Net_VE": {"filter_interp_warp": 1, "base_scatter": 0, "fill_holes": 0,
+                    "conv2d_small": 1, "grid_sample": 0},
+}
+
+
+def train_step(name, device, lr=1e-4):
+    from memcnet_tpu_torch import train as T
+
+    model = build_model(name, seed=0, device=device)
+    opt = T.make_optimizer(model, lr=lr, subnet_lr=True, plateau=True)
+    make = T.make_ve_train_step if name == "MEMC_Net_VE" else T.make_interp_train_step
+    return model, make(model, opt, device=device)
+
+
+def train_inputs(rng, name, B=1):
+    x0 = rng.rand(B, 3, 64, 128).astype(np.float32)
+    x2 = np.roll(x0, (1, 2), axis=(2, 3)) * 0.9 + 0.05
+    if name == "MEMC_Net_VE":
+        window = [np.roll(x0, (k - 3, 2 * (k - 3)), axis=(2, 3)) for k in range(7)]
+        return window, window[3] * 0.9 + 0.05
+    return x0, (x0 + x2) / 2, x2
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_LAUNCHES))
+def test_train_step_launches_its_kernels(rng, dev, name):
+    """Counted around the whole step (forward, backward, optimizer): the
+    forward's kernels once each; the backward (autograd of the plain
+    versions) and the optimizer launch none; no hole fill in training."""
+    _, step = train_step(name, "cuda")
+    args = train_inputs(rng, name)
+    for _ in range(2):
+        K.reset_counters()
+        loss = step(*args)
+        assert K.launch_counts() == TRAIN_LAUNCHES[name]
+        assert np.isfinite(float(loss))
+
+
+def test_train_step_on_card_matches_cpu(rng, dev):
+    """One float32 MEMC_Net_star step at 2x 64x128 from the same weights and
+    inputs: the loss within 1e-4 relative, each gradient within 1e-2 of the
+    largest gradient magnitude in its subnet (float32 sums in other orders
+    through ~100 layers; FlowNetS's deepest layers, at its 0.02 / n init, get
+    gradients near float32 noise, so not of the tensor's own), the parameters
+    after the update within 2 lr of the CPU's (Adamax's first update is about
+    lr * sign(g)) and within 1e-6 on 99% of elements."""
+    args = train_inputs(rng, "MEMC_Net_star", B=2)
+    out = {}
+    for device in ("cpu", "cuda"):
+        model, step = train_step("MEMC_Net_star", device)
+        loss = float(step(*args))
+        out[device] = (loss, {k: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+                              for k, p in model.named_parameters()},
+                       {k: p.detach().cpu() for k, p in model.named_parameters()})
+    (lc, gc, pc), (lg, gg, pg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    subnet_max = {}
+    for k, g in gc.items():
+        sub = k.split(".")[0]
+        subnet_max[sub] = max(subnet_max.get(sub, 0.0), float(g.abs().max()))
+    close_elems = total = 0
+    for k in gc:
+        assert float((gg[k] - gc[k]).abs().max()) <= 1e-2 * subnet_max[k.split(".")[0]], k
+        d = (pg[k] - pc[k]).abs()
+        assert float(d.max()) <= 2e-4 * (1 + 1e-3), k
+        close_elems += int((d <= 1e-6).sum())
+        total += d.numel()
+    assert close_elems >= 0.99 * total
+
+
+def test_bf16_k4_reads_the_optimizer_update(rng, dev):
+    """K4's bf16 packed weights are cached by (pointer, version): after an
+    in-place optimizer update the next launch packs the new weights, so it
+    matches the plain conv with the updated weights, not the old ones."""
+    from memcnet_tpu_torch import train as T
+
+    x = torch.from_numpy(rng.rand(2, 3, 64, 96).astype(np.float32)).to(dev, torch.bfloat16)
+    w = (torch.from_numpy(rng.randn(64, 3, 7, 7).astype(np.float32)) * 0.1).to(
+        dev, torch.bfloat16).requires_grad_()
+    opt = T.make_optimizer({"ctxNet.conv1.weight": w}, lr=0.05)
+    with torch.no_grad():
+        before = conv_kernel.conv2d_small(x, w)
+    w.grad = torch.ones_like(w)
+    opt.step()
+    with torch.no_grad():
+        after = conv_kernel.conv2d_small(x, w)
+    close(after, conv_kernel.reference(x, w.detach()), long_sums=True)
+    assert not torch.equal(after, before)

@@ -294,9 +294,9 @@ def test_png_refuses_what_it_does_not_read(tmp_path):
      "--uid", "u7"],
 ])
 def test_config_from_argv_matches_jax(argv):
-    """The port's config holds the JAX config's serving fields (the trainer's
-    wait for the trainer's port): the same names, types and defaults, and
-    the same values from the same argv."""
+    """The port's config holds the JAX config's serving fields and the
+    trainer's fields the port reads: the same names, types and defaults,
+    and the same values from the same argv."""
     import argparse
 
     cfgs = []
@@ -308,7 +308,7 @@ def test_config_from_argv_matches_jax(argv):
     assert {f.name: (str(f.type), f.default) for f in dataclasses.fields(torch_config.Config)} == \
         {k: jax_fields[k] for k in cfgs[0]}
     assert set(cfgs[0]) == {"net_name", "seed", "channels", "filter_size", "task", "save_which",
-                            "pretrained", "uid", "dtype"}
+                            "pretrained", "uid", "dtype", "lr", "epsilon", "alpha"}
 
 
 @pytest.mark.parametrize("flag", ["--lr", "--batch-size", "--num-epoch", "--task-param",

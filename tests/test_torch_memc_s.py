@@ -148,7 +148,7 @@ def test_thin_mononet_matches_jax(rng, with_bn):
     for k in flat:
         if k.endswith("running_var"):
             flat[k] = (rng.rand(*flat[k].shape) + 0.5).astype(np.float32)
-    load_jax_params(mods, flat)
+    load_jax_params(mods, flat).eval()  # BatchNorm follows the module's mode
     x = rng.rand(1, 6, 64, 64).astype(np.float32)
     want = jmono.forward_single_path(to_jax(flat), "t", specs, jnp.asarray(x))
     close(mononet.forward_single_path(mods["t"], specs, torch.from_numpy(x)), want, ATOL)

@@ -92,7 +92,7 @@ def test_mononet_dual_path_matches_jax(rng, with_bn):
     for k in flat:
         if k.endswith("running_var"):
             flat[k] = (rng.rand(*flat[k].shape) + 0.5).astype(np.float32)
-    load_jax_params(mods, flat)
+    load_jax_params(mods, flat).eval()  # BatchNorm follows the module's mode
     x = rng.rand(1, 6, 64, 64).astype(np.float32)
     want = jmono.forward_dual_path(to_jax(flat), "a", "b", specs, jnp.asarray(x))
     got = mononet.forward_dual_path(mods["a"], mods["b"], specs, torch.from_numpy(x))

@@ -175,3 +175,32 @@ def test_plain_path_launches_nothing(rng):
     K.reset_counters()
     TP.flow_project(t(edge_flow(rng, 1, 8, 40)), fillhole=True)
     assert set(K.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("fillhole", [False, True])
+def test_bf16_counts_past_256_are_exact(rng, fillhole):
+    """A bf16 flow whose 24 x 40 pixels all land on one cell (and two
+    clamped border cells): the counts are float32 sums, exact past 256
+    (a bf16 sum of ones stops at 256, as the JAX XLA branch's counter,
+    memcnet_tpu/ops/projection.py:80-81, does), and the bf16 projection is
+    the float32 one rounded once, within 1 bf16 ulp.  The train path runs
+    this op on bf16 flows."""
+    B, H, W = 1, 24, 40
+    ys, xs = np.meshgrid(np.arange(H, dtype=np.float32), np.arange(W, dtype=np.float32),
+                         indexing="ij")
+    flow = np.stack([20.0 - xs, 10.0 - ys])[None] + 0.25  # land on (10.25, 20.25)
+    flow[0, :, :, :3] = np.stack([W - 1 - xs, H - 1 - ys])[:, :, :3]  # the corner
+    bf = t(flow.astype(np.float32)).bfloat16()
+    S, avg, cnt = P.sums_and_average(bf)
+    assert S.dtype == torch.float32
+    assert float(S[0, 2, 10, 20]) == H * (W - 3) and float(S[0, 2, H - 1, W - 1]) == H * 3
+    assert float(cnt[0, 10, 20]) == float(cnt[0, 11, 21]) == H * (W - 3)
+    assert float(cnt[0, H - 1, W - 1]) == 4 * H * 3  # clamped: all four land on the corner
+    f = jnp.asarray(flow.astype(np.float32), jnp.bfloat16)
+    valid, ixL, ixR, iyT, iyB = JP._landing_cells(f)
+    _, jcnt = JP._scatter4(-f, jnp.ones_like(f[:, 0]), valid, ixL, ixR, iyT, iyB, H, W)
+    assert float(jcnt[0, 10, 20]) == 256.0  # the JAX bf16 count saturates
+    got = TP.flow_project(bf, fillhole=fillhole)
+    want = TP.flow_project(bf.float(), fillhole=fillhole)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want.bfloat16().float().numpy())
