@@ -45,11 +45,14 @@ Phases (any failed check exits non-zero and prints no result line):
      filters; each demo's proc and total ms per item; demo_hd720p on a
      float32 64x128 stream with --device cuda against --device cpu (ground
      truth byte-equal, reconstructions within 1 level on at most 0.5% of
-     bytes).  Every kernel launch of these runs is recorded with its shapes,
+     bytes); the native YUV library must build (g++) and the HD720p demo
+     must read every frame through its NativeYUVReader.  Every kernel launch
+     of these runs is recorded with its shapes,
      and each kernel is then held against its plain version at every shape
      recorded (Middlebury's 512x640 pyramid among them), bf16 and float32,
      under phase 2's rules.  Also: one HD720p pair split into host stages
-     through the demo's own helpers, and png.imread of adaptively filtered
+     through the demo's own helpers (read_triple through the native reader
+     and through the numpy YUVRead), and png.imread of adaptively filtered
      388x584 and 256x448 frames, and their unfilter in C (csrc/png.cu) and in
      Python;
   6. train each model on the card, float32 (Config's type) and seeded random
@@ -69,7 +72,21 @@ Phases (any failed check exits non-zero and prints no result line):
      parameter and running statistic after the update); every kernel held
      against its plain version at every shape the train steps launched it at
      (recorded), bf16 and float32, and its step gradient against the plain
-     version's at the largest such shape.
+     version's at the largest such shape;
+  7. the op library (ops.__all__'s 13 names) on the card, on textured frames
+     from probe.py and the +-20 px flows of phase 2: K2's payload entry (the
+     depth payload, 3 planes, and the brightness-gated one, 4) and K3's down
+     search against their plain versions at B = 2, 768x1344, bf16 and
+     float32 (counts and masks exact; timed beside their bounds and, for
+     K2, index_add_ of the same payload); depth_flow_project,
+     weighted_flow_project and flow_project with fix_down_scan_bug whole,
+     one K2 and (with the fill) one K3 per call; then the op library's run:
+     each of the 13 ops once on the card in float32 (the projections, the
+     warps and separable_conv at B = 2, 768x1344; the MC ops at B = 1, C = 3)
+     with the launch counts set to 0 just before and read just after, each
+     against the port's CPU result on the same inputs (and a VJP for the
+     ops with hand backwards), and each op's device ms from one profiled
+     call.
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.  Long output (the kernels' build
 log, the full results) goes to chiprun_out/chip_smoke/.
@@ -209,17 +226,38 @@ def bound(nbytes, flops, dtype):
 
 
 def check_projection_exact(torch, what, S, S_ref, masks, masks_ref):
-    """The projection's counts (base and folded) and its has-value masks
-    are sums of 1.0 and bits: the kernel must match its plain version
-    exactly."""
+    """The projection's counts (the last plane of S, base and folded) and its
+    has-value masks are sums of 1.0 (or of quarters) and bits: the kernel
+    must match its plain version exactly."""
     from memcnet_tpu_torch.ops.cuda import project_kernel as P
 
-    if not torch.equal(S[:, 2], S_ref[:, 2]) or not torch.equal(
-            P.fold(S)[:, 2], P.fold(S_ref)[:, 2]):
+    if not torch.equal(S[:, -1], S_ref[:, -1]) or not torch.equal(
+            P.fold(S)[:, -1], P.fold(S_ref)[:, -1]):
         raise CheckFailed(f"{what}: counts differ from the plain version")
     for name, m, r in zip(masks._fields, masks, masks_ref):
         if not torch.equal(m, r):
             raise CheckFailed(f"{what}: mask {name} differs from the plain version")
+
+
+def record_row(rows, name, dtype, check, k_ms, p_ms, lib_ms, nbytes, flops, op_dtype,
+               extra=None):
+    """Log one kernel row (its check against the plain version, its ms,
+    the plain version's, the library call's and its bound) into ``rows``;
+    raise if the check failed."""
+    err, measure, limit, rule = check
+    b_ms, b_by = bound(nbytes, flops, op_dtype)
+    ok = bool(measure <= limit)
+    rows.setdefault(name, {})[dtype] = dict(
+        max_abs_err=err, check=rule, check_value=measure, ok=ok, ms=k_ms, plain_ms=p_ms,
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+        **(extra or {}))
+    log(f"  {name:<19} {dtype:<8} max_abs_err {err:.3e} [{rule}: {measure:.3g}] "
+        f"{'ok' if ok else 'FAIL'}  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
+        f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    if not ok:
+        raise CheckFailed(f"{name} {dtype}: kernel disagrees with its plain version "
+                          f"({rule}: {measure})")
 
 
 def phase_kernels(torch, results):
@@ -239,21 +277,8 @@ def phase_kernels(torch, results):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
 
-    def record(name, dtype, check, k_ms, p_ms, lib_ms, nbytes, flops, op_dtype, extra=None):
-        err, measure, limit, rule = check
-        b_ms, b_by = bound(nbytes, flops, op_dtype)
-        ok = bool(measure <= limit)
-        rows.setdefault(name, {})[dtype] = dict(
-            max_abs_err=err, check=rule, check_value=measure, ok=ok, ms=k_ms, plain_ms=p_ms,
-            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
-            **(extra or {}))
-        log(f"  {name:<19} {dtype:<8} max_abs_err {err:.3e} [{rule}: {measure:.3g}] "
-            f"{'ok' if ok else 'FAIL'}  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
-            f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
-            f"bound {b_ms:.4f} ms ({b_by})")
-        if not ok:
-            raise CheckFailed(f"{name} {dtype}: kernel disagrees with its plain version "
-                              f"({rule}: {measure})")
+    def record(*args, **kw):
+        record_row(rows, *args, **kw)
 
     flow2 = synthetic_flow(2, dev)  # both directions, f32
     for dtype_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
@@ -902,16 +927,27 @@ def demo_hd720p_run(torch, results, work, card):
     from memcnet_tpu_torch import probe
     from memcnet_tpu_torch.cli import demo_hd720p
 
+    from memcnet_tpu_torch import native
+
     src = probe.write_yuv(os.path.join(work, "hd.yuv"),
                           probe.moving_frames(0, HD_FRAMES + 1, FRAME_H, FRAME_W))
     out = os.path.join(work, "hd_out")
     path, pairs = "demo_hd720p", HD_FRAMES // 2
-    (p, s), _, err = run_demo(
-        torch, results, path, demo_hd720p.main,
-        ["--yuv", src, "--height", str(FRAME_H), "--width", str(FRAME_W),
-         "--frames", str(HD_FRAMES), "--out-dir", out,
-         "--net-name", "MEMC_Net_star", "--dtype", "bfloat16", "--uid", "smoke"],
-        pairs, EXPECTED_PER_FRAME["MEMC_Net_star"])
+    native_reads = []
+    real_read = native.NativeYUVReader.read
+    native.NativeYUVReader.read = lambda self, i: native_reads.append(i) or real_read(self, i)
+    try:
+        (p, s), _, err = run_demo(
+            torch, results, path, demo_hd720p.main,
+            ["--yuv", src, "--height", str(FRAME_H), "--width", str(FRAME_W),
+             "--frames", str(HD_FRAMES), "--out-dir", out,
+             "--net-name", "MEMC_Net_star", "--dtype", "bfloat16", "--uid", "smoke"],
+            pairs, EXPECTED_PER_FRAME["MEMC_Net_star"])
+    finally:
+        native.NativeYUVReader.read = real_read
+    if len(native_reads) != 3 * pairs:
+        raise CheckFailed(f"{path}: {len(native_reads)} reads through NativeYUVReader, expected "
+                          f"{3 * pairs}")
     size = os.path.getsize(os.path.join(out, "smoke", "hd.yuv"))
     if size != 2 * pairs * YUV_FRAME_BYTES:
         raise CheckFailed(f"{path}: output stream of {size} bytes, expected "
@@ -929,14 +965,15 @@ def demo_hd720p_run(torch, results, work, card):
         f"{results['demos'][path]['launches']}; card {card}")
     results["demos"][path].update(proc_ms=proc, total_ms=total, items_timed=n, psnr=p, ssim=s,
                                   psnr_Y=logs["psnr"].tolist(), ssim_Y=logs["ssim"].tolist(),
-                                  out_bytes=size)
+                                  out_bytes=size, native_reads=len(native_reads))
     return src
 
 
 def demo_hd720p_stages(torch, results, src, reps=3):
     """One pair of the HD720p demo stage by stage (host clock, each stage
     synchronised), ``reps`` times after one untimed pair: the loop body of
-    demo_hd720p.run, helper by helper in its order (read_triple, to_input,
+    demo_hd720p.run, helper by helper in its order (read_triple through the
+    native reader the demo uses, and beside it through the numpy YUVRead, to_input,
     the PaddedInterp call, to_uint8_frame, two writes, score_y), and beside
     the PaddedInterp call the same forward copying out its output alone (the
     difference is what the aux dict the demo discards costs)."""
@@ -957,13 +994,18 @@ def demo_hd720p_stages(torch, results, src, reps=3):
             (_, rect), *_ = model(*xs)
             return unpad_frame(rect[0].float().cpu().numpy(), plan, FRAME_H, FRAME_W)
 
+    from memcnet_tpu_torch import native
+
     reader = YUVRead(src, FRAME_H, FRAME_W)
+    nreader = native.NativeYUVReader(src, FRAME_H, FRAME_W, stride=2)
     writer = YUVWrite(os.devnull)
     runs = []
     try:
         for r in range(reps + 1):
             st = {}
-            f0, f2, gt = stage(torch, st, "read_triple", lambda: D.read_triple(reader, 0, 2, 1))
+            f0, f2, gt = stage(torch, st, "read_triple_native",
+                               lambda: D.read_triple(nreader, 0, 2, 1))
+            stage(torch, st, "read_triple_numpy", lambda: D.read_triple(reader, 0, 2, 1))
             x0, x2 = stage(torch, st, "to_input", lambda: (D.to_input(f0), D.to_input(f2)))
             out = stage(torch, st, "forward_padded_interp", lambda: fwd(x0, x2)[0])
             stage(torch, st, "forward_output_only", lambda: output_only(x0, x2))
@@ -974,6 +1016,7 @@ def demo_hd720p_stages(torch, results, src, reps=3):
                 runs.append(st)
     finally:
         reader.close()
+        nreader.close()
         writer.close()
     for st in runs:
         log("  demo_hd720p one pair by stage (host ms): "
@@ -1309,6 +1352,10 @@ def png_read_times(results, work):
 def phase_demos(torch, results, card):
     import tempfile
 
+    from memcnet_tpu_torch import native
+
+    if not native.available():  # the HD720p demo would fall back to numpy
+        raise CheckFailed(f"the native YUV library did not build: {native.build_error()}")
     with tempfile.TemporaryDirectory() as work:
         png_read_times(results, work)
         with ShapeRecorder() as rec:
@@ -1748,6 +1795,284 @@ def phase_train(torch, results):
     hold_gradients(torch, results, rec.seen)
 
 
+# Phase 7: the op library (memcnet_tpu_torch.ops, the 13 names of the JAX
+# package's ops.__all__) at full width: the projections, the warps and
+# separable_conv at B = 2, 768x1344; the MC ops at B = 1, C = 3, 768x1344
+OPLIB_SEPCONV_FS = 11       # separable_conv's 1-D kernel length
+OPLIB_CTX_C = 16            # bilinear_warp_ch's channels
+# the op library's run: launches of each kernel over one call of each op
+EXPECTED_OPLIB = {"filter_interp_warp": 1, "base_scatter": 3, "fill_holes": 3,
+                  "conv2d_small": 0, "grid_sample": 0}
+# ops whose backward is the reference's hand rule: held backward too
+HAND_BACKWARD = ("depth_flow_project", "occlusion_weight", "pixel_splat", "pixel_value",
+                 "pixel_weight", "reliable_weight")
+
+
+def oplib_inputs(torch, dev):
+    """Seeded full-width inputs (float32, on ``dev``): textured frame pairs
+    2-12 px apart (probe.moving_frames), the +-20 px flows of phase 2 with
+    their out-of-frame blocks, depths in quarters from 0.5 to 1.5 (so their
+    sums are exact in any order) and the other planes uniform."""
+    from memcnet_tpu_torch.probe import moving_frames, synthetic_flow
+
+    frames = [torch.from_numpy(f.transpose(2, 0, 1).astype(np.float32) / 255.0)
+              for f in moving_frames(7, 3, H, W)]
+    gen = torch.Generator().manual_seed(11)
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(dev)
+
+    fs = OPLIB_SEPCONV_FS
+    return dict(
+        frame1=torch.stack(frames[:2]).to(dev), frame2=torch.stack(frames[1:]).to(dev),
+        flow=synthetic_flow(2, dev),
+        depth=(torch.randint(0, 5, (2, 1, H, W), generator=gen) * 0.25 + 0.5).to(dev),
+        filt=u(2, 16, H, W, hi=0.125), ctx=u(2, OPLIB_CTX_C, H, W, lo=-1.0),
+        vert=u(2, fs, H - fs + 1, W - fs + 1), horiz=u(2, fs, H - fs + 1, W - fs + 1),
+        fw=u(1, 1, H, W))
+
+
+def oplib_calls(ops, x):
+    """(name, fn, inputs) of each of the 13 ops; the MC ops on the first
+    sample (B = 1)."""
+    f1, f2, flow = x["frame1"], x["frame2"], x["flow"]
+    return [
+        ("filter_interp_warp", lambda a, f, k: ops.filter_interp_warp(a, f, k),
+         [f1, flow, x["filt"]]),
+        ("bilinear_warp", ops.bilinear_warp, [f1, flow]),
+        ("bilinear_warp_ch", ops.bilinear_warp_ch, [x["ctx"], flow]),
+        ("flow_project", lambda f: ops.flow_project(f, fillhole=True, fix_down_scan_bug=True),
+         [flow]),
+        ("depth_flow_project", lambda f, d: ops.depth_flow_project(f, d, fillhole=True),
+         [flow, x["depth"]]),
+        ("weighted_flow_project",
+         lambda f, a, b: ops.weighted_flow_project(f, a, b, fillhole=True), [flow, f1, f2]),
+        ("separable_conv", ops.separable_conv, [f1, x["vert"], x["horiz"]]),
+        ("separable_conv_flow", ops.separable_conv_flow, [x["vert"], x["horiz"]]),
+        ("occlusion_weight", ops.occlusion_weight, [f1[:1], f2[:1], flow[:1]]),
+        ("pixel_splat", ops.pixel_splat, [f1[:1], flow[:1], x["fw"]]),
+        ("pixel_value", ops.pixel_value, [f1[:1], flow[:1], x["fw"]]),
+        ("pixel_weight", ops.pixel_weight, [flow[:1], x["fw"]]),
+        ("reliable_weight", ops.reliable_weight, [flow[:1]]),
+    ]
+
+
+def oplib_kernels(torch, x, rows):
+    """K2's payload entry (the depth payload, P = 3, and the gated one,
+    P = 4) and K3's down search against their plain versions under phase
+    2's rules, in bf16 and float32; then the depth-weighted and gated
+    projections and flow_project with the down search whole, against their
+    plain compositions, with their launches and device operations per
+    call."""
+    from memcnet_tpu_torch.ops import cuda as K
+    from memcnet_tpu_torch.ops import projection
+    from memcnet_tpu_torch.ops.cuda import project_kernel as P
+    from memcnet_tpu_torch.probe import device_ops
+
+    dev = torch.device("cuda")
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    B, HW = 2, H * W
+    launches = {}
+    for dtype_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        esize = torch.tensor([], dtype=dt).element_size()
+        flow = x["flow"].to(dt)
+        f1, f2, depth = x["frame1"].to(dt), x["frame2"].to(dt), x["depth"].to(dt)
+        payloads = {3: projection.depth_payload(flow, depth),
+                    4: projection.weighted_payload(flow, f1, f2, 20.0 / 255.0)}
+        gated = float((payloads[4][:, 3] > 0).float().mean())
+        for planes, payload in payloads.items():
+            name = f"base_scatter[payload P={planes}]"
+            for fillhole in (True, False):
+                S, out, extra, masks = P.launch_payload(flow, payload, fillhole)
+                S_ref, out_ref, extra_ref, masks_ref = P.payload_stage_reference(
+                    flow, payload, fillhole)
+                if fillhole:
+                    check_projection_exact(torch, f"{name} {dtype_name}", S, S_ref, masks,
+                                           masks_ref)
+                pairs = [(out, out_ref)] + ([(extra, extra_ref)] if extra is not None else [])
+                check = compare(pairs, 1e-3)
+                if not check[1] <= check[2]:
+                    raise CheckFailed(f"{name} {dtype_name} fill {fillhole}: kernel disagrees "
+                                      f"with its plain version ({check[3]}: {check[1]})")
+            valid, ixL, iyT = P.landing_cells(flow.float())
+            cell = (torch.where(valid, iyT * W + ixL, 0).long()
+                    + (torch.arange(B, device=dev) * HW).view(B, 1, 1)).reshape(-1)
+            src = torch.where(valid[:, None], payload, 0.0).permute(0, 2, 3, 1).reshape(B * HW,
+                                                                                     planes)
+
+            def lib_scatter():  # the same P-plane base scatter, one PyTorch call
+                return torch.zeros(B * HW, planes, device=dev).index_add_(0, cell, src)
+
+            # reads the flow and the payload, writes the result and the extra planes
+            record_row(rows, name, dtype_name, check,
+                       timed_ms(torch, lambda: P.launch_payload(flow, payload, False),
+                                flush=flush),
+                       timed_ms(torch, lambda: P.payload_stage_reference(flow, payload, False),
+                                flush=flush),
+                       timed_ms(torch, lib_scatter, flush=flush),
+                       nbytes=B * HW * (2 * esize + planes * 4 + (planes - 1) * esize),
+                       flops=0, op_dtype="float32",
+                       extra=dict(valid_pixels=int(valid.sum()), gated_share=gated,
+                                  fill_ms=timed_ms(
+                                      torch, lambda: P.launch_payload(flow, payload, True),
+                                      flush=flush)))
+            del S, S_ref, out, out_ref, extra, extra_ref, src, cell
+
+        # K3 with the down search, on the flow projection's average and masks
+        _, avg_ref, masks_ref = P.sums_stage_reference(flow, True)
+        mask_bytes = 4 * sum(m.numel() for m in masks_ref)
+        got = P.launch_fill(avg_ref, masks_ref, dt, down=True)
+        ref = P.fill_stage_reference(avg_ref, masks_ref, dt, down=True)
+        if torch.equal(got, P.fill_stage_reference(avg_ref, masks_ref, dt)):
+            raise CheckFailed("fill_holes[down]: the down search changed no hole")
+        record_row(rows, "fill_holes[down]", dtype_name, compare([(got, ref)], 1e-5),
+                   timed_ms(torch, lambda: P.launch_fill(avg_ref, masks_ref, dt, down=True),
+                            flush=flush),
+                   timed_ms(torch, lambda: P.fill_stage_reference(avg_ref, masks_ref, dt,
+                                                                  down=True), flush=flush),
+                   None, nbytes=B * HW * (2 * 4 + 2 * esize) + mask_bytes, flops=0,
+                   op_dtype="float32",
+                   extra=dict(no_down_ms=timed_ms(
+                       torch, lambda: P.launch_fill(avg_ref, masks_ref, dt), flush=flush)))
+        del avg_ref, masks_ref, got, ref
+
+        # the whole ops: launches per call, device operations, against the plain
+        # compositions; bytes = each input read once and each output written once
+        whole = [
+            ("depth_flow_project", lambda fl: projection.depth_flow_project(flow, depth,
+                                                                           fillhole=fl),
+             lambda fl: projection.depth_reference(flow, depth, fillhole=fl),
+             B * HW * (2 + 1 + 2) * esize),
+            ("weighted_flow_project",
+             lambda fl: projection.weighted_flow_project(flow, f1, f2, fillhole=fl),
+             lambda fl: projection.weighted_reference(flow, f1, f2, fillhole=fl),
+             B * HW * (2 + 3 + 3 + 2 + 1) * esize),
+            ("flow_project[down]",
+             lambda fl: projection.flow_project(flow, fillhole=True, fix_down_scan_bug=True),
+             lambda fl: projection.reference(flow, fillhole=True, fix_down_scan_bug=True),
+             B * HW * (2 + 2) * esize),
+        ]
+        for name, fn, ref_fn, nbytes in whole:
+            per = {}
+            for fillhole in (True, False) if name != "flow_project[down]" else (True,):
+                K.reset_counters()
+                got = fn(fillhole)
+                counts = K.launch_counts()
+                want = {"base_scatter": 1, "fill_holes": int(fillhole)}
+                if {k: counts[k] for k in want} != want or any(
+                        counts[k] for k in counts if k not in want):
+                    raise CheckFailed(f"{name} {dtype_name} fill {fillhole}: launches {counts}, "
+                                      f"expected {want}")
+                got = got if isinstance(got, tuple) else (got,)
+                ref = ref_fn(fillhole)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                check = compare(list(zip(got, ref)), 1e-3)
+                n_ops, dev_ms, by_kernel = device_ops(lambda: fn(fillhole))
+                most = 4 if fillhole else 3
+                log(f"  {name:<19} {dtype_name:<8} fill {fillhole}: max_abs_err {check[0]:.3e} "
+                    f"[{check[3]}: {check[1]:.3g}]; launches {want}; device ops per call "
+                    f"{n_ops}, device ms {dev_ms:.4f}: "
+                    + ", ".join(f"{k[:40]} {v:.4f}" for k, v in by_kernel.items()))
+                if not check[1] <= check[2]:
+                    raise CheckFailed(f"{name} {dtype_name} fill {fillhole}: the card disagrees "
+                                      f"with the plain composition ({check[3]}: {check[1]})")
+                per[fillhole] = dict(check=check, device_ops=n_ops, device_ms=dev_ms,
+                                     device_ms_by_kernel=by_kernel, launches=want)
+                launches[name] = want
+            fl = name == "flow_project[down]"
+            record_row(rows, name, dtype_name, per[fl]["check"],
+                       timed_ms(torch, lambda: fn(fl), flush=flush),
+                       timed_ms(torch, lambda: ref_fn(fl), flush=flush), None,
+                       nbytes=nbytes, flops=0, op_dtype="float32",
+                       extra=dict(fillhole=fl, device_ops=per[fl]["device_ops"],
+                                  device_ms=per[fl]["device_ms"],
+                                  by_fill={str(k): {kk: vv for kk, vv in v.items()
+                                                    if kk != "check"}
+                                           for k, v in per.items()}))
+        del payloads, flow, f1, f2, depth
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_oplib(torch, results):
+    """Phase 7: the kernels of the op library against their plain versions
+    (oplib_kernels); then the op library's run -- each of the 13 ops once on
+    the card, float32, the launch counts set to 0 just before and read just
+    after -- each op's result (and, for the hand backwards, its VJP of a
+    seeded cotangent) against the port's CPU result on the same inputs,
+    within 1e-4 of the output's scale (float atomics and index_add in a
+    run-dependent order); each op's device ms from one profiled call."""
+    from memcnet_tpu_torch import ops
+    from memcnet_tpu_torch.ops import cuda as K
+    from memcnet_tpu_torch.probe import device_ops
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = {}
+    dev = torch.device("cuda")
+    x = oplib_inputs(torch, dev)
+    per_call = oplib_kernels(torch, x, rows)
+
+    calls = oplib_calls(ops, x)
+    cot_gen = torch.Generator().manual_seed(12)
+    card, op_launches = {}, {}
+    K.reset_counters()
+    for name, fn, inputs in calls:
+        xs = [t.requires_grad_(name in HAND_BACKWARD) for t in
+              (a.detach().clone() for a in inputs)]
+        before = K.launch_counts()
+        out = fn(*xs)
+        op_launches[name] = {k: v - before[k] for k, v in K.launch_counts().items()}
+        out = out if isinstance(out, tuple) else (out,)
+        grads = []
+        if name in HAND_BACKWARD:
+            cts = [torch.randn(o.shape, generator=cot_gen).to(dev) for o in out]
+            grads = list(torch.autograd.grad(out, xs, cts))
+        else:
+            cts = []
+        card[name] = ([o.detach().cpu() for o in out], [g.cpu() for g in grads],
+                      [c.cpu() for c in cts])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    log(f"  op library run (13 ops, float32): launches {counts}")
+    if counts != EXPECTED_OPLIB:
+        raise CheckFailed(f"phase 7: launches {counts}, expected {EXPECTED_OPLIB}")
+
+    per_op = {}
+    for name, fn, inputs in calls:
+        xs = [t.requires_grad_(name in HAND_BACKWARD) for t in
+              (a.detach().cpu().clone() for a in inputs)]
+        t0 = time.perf_counter()
+        out = fn(*xs)
+        out = out if isinstance(out, tuple) else (out,)
+        got_out, got_grads, cts = card[name]
+        grads = list(torch.autograd.grad(out, xs, cts)) if cts else []
+        cpu_s = time.perf_counter() - t0
+        worst = 0.0
+        for a, b in zip(got_out + got_grads, [o.detach() for o in out] + grads):
+            scale = max(1.0, float(b.abs().max()))
+            worst = max(worst, float((a - b).abs().max()) / scale)
+        n_ops, dev_ms, by_kernel = device_ops(lambda: fn(*inputs))
+        ev_ms = timed_ms(torch, lambda: fn(*inputs), reps=5)
+        per_op[name] = dict(rel_err=worst, backward=bool(cts), device_ops=n_ops,
+                            device_ms=dev_ms if n_ops else None, device_ms_by_kernel=by_kernel,
+                            ms=ev_ms, cpu_s=cpu_s, shapes=[list(a.shape) for a in inputs])
+        log(f"  {name:<22} card vs CPU{' (+ VJP)' if cts else ''}: max err {worst:.3e} of the "
+            f"output's scale (tol 1e-4); device ops {n_ops}, device ms "
+            f"{f'{dev_ms:.4f}' if n_ops else 'not measured (the profiler kept no record)'}; "
+            f"{ev_ms:.4f} ms by events (median of 5, L2 warm); CPU {cpu_s:.2f} s")
+        if not worst <= 1e-4:
+            raise CheckFailed(f"{name}: the card's result disagrees with the CPU's ({worst} of "
+                              f"the output's scale)")
+        finite = all(bool(torch.isfinite(o).all()) for o in got_out)
+        if not finite:
+            raise CheckFailed(f"{name}: the card's result is not finite")
+    for name, got in op_launches.items():
+        per_op[name]["launches"] = got
+    results["oplib"] = dict(kernels=rows, launches=counts, per_call=per_call, ops=per_op)
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -1801,6 +2126,9 @@ def main():
         torch.cuda.empty_cache()
         log("phase 6: train steps on the card")
         phase_train(torch, results)
+        torch.cuda.empty_cache()
+        log("phase 7: the op library on the card")
+        phase_oplib(torch, results)
     except Exception:  # every failure ends the run with no result line
         traceback.print_exc()
         with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
@@ -1824,6 +2152,7 @@ def main():
                         for path in ("demo_hd720p", "demo_middlebury", "demo_vimeo_ve")})
         by_path.update({f"train_{tag}": r["launches"][name]
                         for tag, r in results["train"].items()})
+        by_path["oplib"] = results["oplib"]["launches"][name]
 
         def row(key):
             r, o = krows[key][dt], krows[key][other]
@@ -1862,6 +2191,40 @@ def main():
             **{f"max_abs_err_{d}": max((r["max_abs_err"] for r in held if r["dtype"] == d),
                                        default=None) for d in ("bfloat16", "float32")}}
         kernels.append(entry)
+    # phase 7's entries: K2's payload entry (the depth payload's row, the gated
+    # one beside it) and K3's down search, launched in the op library's run by
+    # depth_flow_project and weighted_flow_project (K2), and flow_project with
+    # fix_down_scan_bug (K3)
+    orows = results["oplib"]["kernels"]
+    oplaunch = {k: v["launches"] for k, v in results["oplib"]["ops"].items()}
+    payload_launches = {k: oplaunch[k]["base_scatter"]
+                        for k in ("depth_flow_project", "weighted_flow_project")}
+    down_launches = oplaunch["flow_project"]["fill_holes"]
+
+    def orow(key, dt="bfloat16"):
+        r, o = orows[key][dt], orows[key]["float32"]
+        return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "dtype": dt,
+                "other_dtype_max_abs_err": o["max_abs_err"], "other_dtype_ms": o["ms"],
+                "other_dtype_library_ms": o["library_ms"]}
+
+    kernels.append({"name": "base_scatter[payload]", "route": "cuda",
+                    "source": TPU_KERNELS["base_scatter"][0],
+                    "replaces": TPU_KERNELS["base_scatter"][1],
+                    "entry": "memc_project_payload", "launches": sum(payload_launches.values()),
+                    "launches_by_path": {"oplib": payload_launches},
+                    **orow("base_scatter[payload P=3]"),
+                    "payload_p4": orow("base_scatter[payload P=4]"),
+                    "whole_ops": {k: orow(k) for k in ("depth_flow_project",
+                                                       "weighted_flow_project")}})
+    kernels.append({"name": "fill_holes[down]", "route": "cuda",
+                    "source": TPU_KERNELS["fill_holes"][0],
+                    "replaces": TPU_KERNELS["fill_holes"][1],
+                    "entry": "memc_project_fill(down=1)", "launches": down_launches,
+                    "launches_by_path": {"oplib": {"flow_project": down_launches}},
+                    **orow("fill_holes[down]"),
+                    "whole_op": {"name": "flow_project[down]", **orow("flow_project[down]")}})
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump(results, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -11,9 +11,11 @@ MEMC_Net_s and MEMC_Net (``cli.runner.PaddedInterp``) and MEMC_Net_VE
 ``python -m memcnet_tpu_torch.cli.demo_middlebury``, ``demo_hd720p`` and
 ``demo_vimeo_ve``, with their config (``utils.config``), readers
 (``data``), metrics (``metrics``), PNG I/O (``io.png``), ``.pth`` import and
-checkpoints (``io``) and GOP scheduler (``parallel.gop``); and training of
-all four models (``model.train()``, ``train``: losses, Adamax with optax's
-numbers, train steps, ``build_interp_trainer``, ``fit``).  Entry points and
-train steps default to ``device="cuda"`` and raise without CUDA unless the
-caller asks for the CPU.
+checkpoints (``io``) and GOP scheduler (``parallel.gop``); training of all
+four models (``model.train()``, ``train``: losses, Adamax with optax's
+numbers, train steps, ``build_interp_trainer``, ``fit``, resumable); the whole
+op library (``ops``: N1-N11); and the host library (``native``: the C++ YUV
+reader, built with g++ at first use; ``io.t7_import``; ``utils.flowviz``).
+Entry points and train steps default to ``device="cuda"`` and raise without
+CUDA unless the caller asks for the CPU.
 """

@@ -12,8 +12,9 @@ journaled, restartable work units; `--journal` makes completions durable so
 an interrupted run can be resumed.  `--trace-dir` wraps the run in a
 torch.profiler trace, and StageTimers report proc/total per item (the
 reference's AverageMeter protocol, demo_Vimeo_VE.py:97-98).  Frames are read
-by data.yuv.YUVRead; the JAX package's C++ prefetching reader and its
-multihost launch are not ported.
+by the native C++ prefetching reader (native.NativeYUVReader, stride 2) when
+its library builds, else by data.yuv.YUVRead, as the JAX demo does; the JAX
+demo's multihost launch is not ported.
 """
 
 import argparse
@@ -21,6 +22,7 @@ import os
 import random
 import sys
 
+from memcnet_tpu_torch import native
 from memcnet_tpu_torch.cli.runner import PaddedInterp, build_from_config, cfg_torch_dtype
 from memcnet_tpu_torch.data import YUVRead, YUVWrite
 from memcnet_tpu_torch.metrics import (AverageMeter, interp_error, psnr, ssim, to_uint8_frame,
@@ -64,7 +66,11 @@ def run(cfg, yuv_path, height, width, out_dir, frames=100, step=2, *,
     os.makedirs(gen_dir, exist_ok=True)
     name = os.path.basename(yuv_path)
 
-    reader = YUVRead(yuv_path, height, width)
+    # the native prefetching reader when its library is built; numpy otherwise
+    if native.available():
+        reader = native.NativeYUVReader(yuv_path, height, width, stride=step)
+    else:
+        reader = YUVRead(yuv_path, height, width)
     # each process writes its own stream segment file (GOPs are disjoint)
     suffix = f".part{sched.process_index}" if sched.process_count > 1 else ""
     writer = YUVWrite(os.path.join(gen_dir, name + suffix))

@@ -29,10 +29,22 @@
 //                      one thread per pixel: a hole takes the mean of the
 //                      nearest value to its left, right and above (no
 //                      down-scan: the reference disabled it by accident,
-//                      my_lib_kernel.cu:1799); every pixel is written in the
-//                      flow's type.
+//                      my_lib_kernel.cu:1799; the JAX opt-in
+//                      fix_down_scan_bug adds the nearest value below, the
+//                      mirror of the up search in the same column masks);
+//                      every pixel is written in the flow's type.
 //
-// Bound on the H100: memory -- the flow read once, the result written once;
+// K2's payload entry (memc_project_payload) serves the depth-weighted and
+// the brightness-gated projections (memcnet_tpu/ops/projection.py::
+// depth_flow_project and weighted_flow_project, whose _scatter4 runs
+// scatter_bands on a payload of P = 3 or 4 planes): the same memset, a
+// scatter of a float32 payload of P planes (built by PyTorch; zero where a
+// gate fails) into the landing cells the flow sets, and the same fold, which
+// divides planes 0 .. P-2 by plane P-1 where it is > 0 and takes "has a
+// value" from plane P-1 > 0 (a sum of depths, or a count of gated pixels).
+//
+// Bound on the H100: memory -- the flow (and the payload) read once, the
+// result written once;
 // S (24.8 MB for B = 2 at 768x1344) and the average stay in the 50 MB L2.
 // The TPU kernels' band plans and bucket walk turned a scatter into vector
 // shifted adds and their cross-band carry relied on grid steps running in
@@ -89,6 +101,33 @@ project_scatter_kernel(const T* __restrict__ flow, float* __restrict__ sums, int
   atomicAdd(s + 2 * HW, 1.f);
 }
 
+// The payload entry's scatter: the landing cell of project_scatter_kernel,
+// and the P float32 planes of the payload added there.
+template <typename T, int P>
+__global__ void __launch_bounds__(256)
+project_payload_scatter_kernel(const T* __restrict__ flow, const float* __restrict__ payload,
+                               float* __restrict__ sums, int H, int W, int64_t HW,
+                               int64_t total) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int64_t b = idx / HW;
+  const int64_t p = idx - b * HW;
+  const int y = static_cast<int>(p / W);
+  const int x = static_cast<int>(p - static_cast<int64_t>(y) * W);
+  const T* f = flow + 2 * b * HW + p;
+  const float x2 = static_cast<float>(x) + to_f32(f[0]);
+  const float y2 = static_cast<float>(y) + to_f32(f[HW]);
+  if (!(x2 >= 0.f && y2 >= 0.f && x2 <= static_cast<float>(W - 1) &&
+        y2 <= static_cast<float>(H - 1)))
+    return;
+  const int ix = clampi(__float2int_rz(x2), 0, W - 1);
+  const int iy = clampi(__float2int_rz(y2), 0, H - 1);
+  const float* v = payload + P * b * HW + p;
+  float* s = sums + P * b * HW + static_cast<int64_t>(iy) * W + ix;
+#pragma unroll
+  for (int c = 0; c < P; ++c) atomicAdd(s + c * HW, v[c * HW]);
+}
+
 // T (the x fold of S) at row y of one plane.
 __device__ __forceinline__ float fold_x(const float* __restrict__ plane, int y, int x, int W) {
   const float* r = plane + static_cast<int64_t>(y) * W;
@@ -97,13 +136,15 @@ __device__ __forceinline__ float fold_x(const float* __restrict__ plane, int y, 
   return cur + fold_term(prev, cur, x, W);
 }
 
-// OutT is the flow's type without the fill and float (the average) with it.
+// S has P planes; planes 0 and 1, divided by plane P-1, go to ``out``: the
+// flow's type without the fill and float (the average) with it; planes
+// 2 .. P-2, divided the same way, go to ``ex`` (B, P-3, H, W) in ExT.
 // Block: 32 x 8 threads over a tile of 32 columns x 32 rows, grid
 // (words_for(W), words_for(H), B), so tile (i, j) is row word i and column
 // word j of the masks.
-template <typename OutT, bool kFill>
+template <typename OutT, typename ExT, int P, bool kFill>
 __global__ void __launch_bounds__(kTile * kTileWarps)
-project_fold_kernel(const float* __restrict__ sums, OutT* __restrict__ out,
+project_fold_kernel(const float* __restrict__ sums, OutT* __restrict__ out, ExT* __restrict__ ex,
                     uint32_t* __restrict__ rows, uint32_t* __restrict__ row_sums,
                     uint32_t* __restrict__ cols, uint32_t* __restrict__ col_sums, int H, int W) {
   __shared__ uint32_t tile_rows[kTile];
@@ -111,23 +152,28 @@ project_fold_kernel(const float* __restrict__ sums, OutT* __restrict__ out,
   const int x = blockIdx.x * kTile + lane;
   const int b = blockIdx.z;
   const int64_t HW = static_cast<int64_t>(H) * W;
-  const float* s = sums + 3 * b * HW;
+  const float* s = sums + P * b * HW;
   for (int r = threadIdx.y; r < kTile; r += kTileWarps) {
     const int y = blockIdx.y * kTile + r;  // the same for the whole warp
     bool has = false;
     if (y < H && x < W) {
-      float v[3];
-      for (int c = 0; c < 3; ++c) {
+      float v[P];
+#pragma unroll
+      for (int c = 0; c < P; ++c) {
         const float* plane = s + c * HW;
         const float t = fold_x(plane, y, x, W);
         const float tp = y > 0 ? fold_x(plane, y - 1, x, W) : 0.f;
         v[c] = t + fold_term(tp, t, y, H);
       }
-      const float cnt = v[2];
+      const float cnt = v[P - 1];
       const float den = cnt > 0.f ? cnt : 1.f;
-      OutT* o = out + 2 * b * HW + static_cast<int64_t>(y) * W + x;
+      const int64_t p = static_cast<int64_t>(y) * W + x;
+      OutT* o = out + 2 * b * HW + p;
       o[0] = from_f32<OutT>(v[0] / den);
       o[HW] = from_f32<OutT>(v[1] / den);
+#pragma unroll
+      for (int c = 2; c < P - 1; ++c)
+        ex[(static_cast<int64_t>(b) * (P - 3) + c - 2) * HW + p] = from_f32<ExT>(v[c] / den);
       has = cnt > 0.f;
     }
     if (kFill) {
@@ -189,7 +235,8 @@ __device__ __forceinline__ int nearest_above(const uint32_t* __restrict__ words,
 }
 
 // Block: 32 x 8 threads, one pixel each; grid (words_for(W), ceil(H / 8), B).
-template <typename T>
+// kDown adds the nearest value below (fix_down_scan_bug).
+template <typename T, bool kDown>
 __global__ void __launch_bounds__(256)
 project_fill_kernel(const float* __restrict__ avg, const uint32_t* __restrict__ rows,
                     const uint32_t* __restrict__ row_sums, const uint32_t* __restrict__ cols,
@@ -230,6 +277,13 @@ project_fill_kernel(const float* __restrict__ avg, const uint32_t* __restrict__ 
   nx += u >= 0 ? ax[up] : 0.f;
   ny += u >= 0 ? ay[up] : 0.f;
   den += u >= 0 ? 1.f : 0.f;
+  if (kDown) {
+    const int d = nearest_above(cols + cline * nh, col_sums + cline * words_for(nh), y, H);
+    const int64_t down = static_cast<int64_t>(d) * W + x;
+    nx += d < H ? ax[down] : 0.f;
+    ny += d < H ? ay[down] : 0.f;
+    den += d < H ? 1.f : 0.f;
+  }
   ox[0] = from_f32<T>(den > 0.f ? nx / den : ax[p]);
   ox[HW] = from_f32<T>(den > 0.f ? ny / den : ay[p]);
 }
@@ -245,13 +299,76 @@ cudaError_t launch_sums(const T* flow, float* sums, void* out, uint32_t* rows, u
   if (err != cudaSuccess) return err;
   const dim3 grid(words_for(W), words_for(H), B), block(kTile, kTileWarps);
   if (fill) {
-    project_fold_kernel<float, true><<<grid, block, 0, st>>>(
-        sums, static_cast<float*>(out), rows, row_sums, cols, col_sums, H, W);
+    project_fold_kernel<float, float, 3, true><<<grid, block, 0, st>>>(
+        sums, static_cast<float*>(out), nullptr, rows, row_sums, cols, col_sums, H, W);
   } else {
-    project_fold_kernel<T, false><<<grid, block, 0, st>>>(
-        sums, static_cast<T*>(out), nullptr, nullptr, nullptr, nullptr, H, W);
+    project_fold_kernel<T, T, 3, false><<<grid, block, 0, st>>>(
+        sums, static_cast<T*>(out), nullptr, nullptr, nullptr, nullptr, nullptr, H, W);
   }
   return cudaGetLastError();
+}
+
+template <typename T, int P>
+cudaError_t launch_payload(const T* flow, const float* payload, float* sums, void* out, T* ex,
+                           uint32_t* rows, uint32_t* row_sums, uint32_t* cols,
+                           uint32_t* col_sums, int B, int H, int W, bool fill, cudaStream_t st) {
+  const int64_t HW = static_cast<int64_t>(H) * W;
+  const int64_t total = B * HW;
+  project_payload_scatter_kernel<T, P><<<ceil_div(total, 256), 256, 0, st>>>(
+      flow, payload, sums, H, W, HW, total);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(words_for(W), words_for(H), B), block(kTile, kTileWarps);
+  if (fill) {
+    project_fold_kernel<float, T, P, true><<<grid, block, 0, st>>>(
+        sums, static_cast<float*>(out), ex, rows, row_sums, cols, col_sums, H, W);
+  } else {
+    project_fold_kernel<T, T, P, false><<<grid, block, 0, st>>>(
+        sums, static_cast<T*>(out), ex, nullptr, nullptr, nullptr, nullptr, H, W);
+  }
+  return cudaGetLastError();
+}
+
+// Zero S (P float32 planes) and, with the fill, the mask summaries, which
+// must follow S in memory (row_sums, then col_sums) so that one memset
+// covers all three.
+inline cudaError_t zero_scratch(void* sums, void* row_sums, void* col_sums, void* rows,
+                                void* cols, int B, int P, int H, int W, bool fill,
+                                cudaStream_t st) {
+  const int64_t HW = static_cast<int64_t>(H) * W;
+  size_t zero_bytes = sizeof(float) * P * B * HW;
+  if (fill) {
+    const int64_t nrs = static_cast<int64_t>(B) * H * words_for(words_for(W));
+    auto* rs = static_cast<uint32_t*>(row_sums);
+    if (reinterpret_cast<char*>(rs) != static_cast<char*>(sums) + zero_bytes ||
+        static_cast<uint32_t*>(col_sums) != rs + nrs || rows == nullptr || cols == nullptr)
+      return cudaErrorInvalidValue;
+    const int64_t ncs = static_cast<int64_t>(B) * W * words_for(words_for(H));
+    zero_bytes += sizeof(uint32_t) * (nrs + ncs);
+  }
+  return cudaMemsetAsync(sums, 0, zero_bytes, st);
+}
+
+template <typename T>
+cudaError_t launch_payload_p(const void* flow, const void* payload, void* sums, void* out,
+                             void* ex, void* rows, void* row_sums, void* cols, void* col_sums,
+                             int B, int P, int H, int W, bool fill, cudaStream_t st) {
+  auto* f = static_cast<const T*>(flow);
+  auto* v = static_cast<const float*>(payload);
+  auto* s = static_cast<float*>(sums);
+  auto* r = static_cast<uint32_t*>(rows);
+  auto* rs = static_cast<uint32_t*>(row_sums);
+  auto* c = static_cast<uint32_t*>(cols);
+  auto* cs = static_cast<uint32_t*>(col_sums);
+  if (P == 3) {
+    return launch_payload<T, 3>(f, v, s, out, static_cast<T*>(ex), r, rs, c, cs, B, H, W, fill,
+                                st);
+  }
+  if (P == 4) {
+    return launch_payload<T, 4>(f, v, s, out, static_cast<T*>(ex), r, rs, c, cs, B, H, W, fill,
+                                st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace memc
@@ -270,26 +387,16 @@ cudaError_t launch_sums(const T* flow, float* sums, void* out, uint32_t* rows, u
 MEMC_API int memc_project_sums(const void* flow, void* sums, void* out, void* rows,
                                void* row_sums, void* cols, void* col_sums, int B, int H, int W,
                                int dtype, int fill, void* stream) {
-  using memc::words_for;
   if (B == 0 || H == 0 || W == 0) return cudaSuccess;
   const auto st = static_cast<cudaStream_t>(stream);
-  const int64_t HW = static_cast<int64_t>(H) * W;
-  auto* s = static_cast<float*>(sums);
-  auto* rs = static_cast<uint32_t*>(row_sums);
-  auto* cs = static_cast<uint32_t*>(col_sums);
-  size_t zero_bytes = sizeof(float) * 3 * B * HW;
-  if (fill) {
-    const int64_t nrs = static_cast<int64_t>(B) * H * words_for(words_for(W));
-    const int64_t ncs = static_cast<int64_t>(B) * W * words_for(words_for(H));
-    if (reinterpret_cast<char*>(rs) != reinterpret_cast<char*>(s) + zero_bytes ||
-        cs != rs + nrs || rows == nullptr || cols == nullptr)
-      return cudaErrorInvalidValue;
-    zero_bytes += sizeof(uint32_t) * (nrs + ncs);
-  }
-  cudaError_t err = cudaMemsetAsync(sums, 0, zero_bytes, st);
+  cudaError_t err = memc::zero_scratch(sums, row_sums, col_sums, rows, cols, B, 3, H, W,
+                                       fill != 0, st);
   if (err != cudaSuccess) return err;
+  auto* s = static_cast<float*>(sums);
   auto* r = static_cast<uint32_t*>(rows);
+  auto* rs = static_cast<uint32_t*>(row_sums);
   auto* c = static_cast<uint32_t*>(cols);
+  auto* cs = static_cast<uint32_t*>(col_sums);
   if (dtype == memc::kFloat32) {
     return memc::launch_sums(static_cast<const float*>(flow), s, out, r, rs, c, cs, B, H, W,
                              fill != 0, st);
@@ -301,10 +408,37 @@ MEMC_API int memc_project_sums(const void* flow, void* sums, void* out, void* ro
   return cudaErrorInvalidValue;
 }
 
+// K2's payload entry.  flow: (B, 2, H, W) in dtype; payload: (B, P, H, W)
+// float32, P = 3 or 4; sums: (B, P, H, W) float32 scratch.  out: (B, 2, H, W)
+// in dtype without fill, float32 (the average) with it, planes 0 and 1 of the
+// result; ex: (B, P-3, H, W) in dtype, planes 2 .. P-2 (null for P = 3); the
+// masks and their layout as memc_project_sums's, from plane P-1 > 0.
+MEMC_API int memc_project_payload(const void* flow, const void* payload, void* sums, void* out,
+                                  void* ex, void* rows, void* row_sums, void* cols,
+                                  void* col_sums, int B, int P, int H, int W, int dtype,
+                                  int fill, void* stream) {
+  if (B == 0 || H == 0 || W == 0) return cudaSuccess;
+  if ((P != 3 && P != 4) || (P == 4 && ex == nullptr)) return cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = memc::zero_scratch(sums, row_sums, col_sums, rows, cols, B, P, H, W,
+                                       fill != 0, st);
+  if (err != cudaSuccess) return err;
+  if (dtype == memc::kFloat32) {
+    return memc::launch_payload_p<float>(flow, payload, sums, out, ex, rows, row_sums, cols,
+                                         col_sums, B, P, H, W, fill != 0, st);
+  }
+  if (dtype == memc::kBFloat16) {
+    return memc::launch_payload_p<__nv_bfloat16>(flow, payload, sums, out, ex, rows, row_sums,
+                                                 cols, col_sums, B, P, H, W, fill != 0, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 // avg: (B, 2, H, W) float32; the masks as above; out: (B, 2, H, W) in dtype.
+// down: also search the nearest value below (fix_down_scan_bug).
 MEMC_API int memc_project_fill(const void* avg, const void* rows, const void* row_sums,
                                const void* cols, const void* col_sums, void* out, int B, int H,
-                               int W, int dtype, void* stream) {
+                               int W, int dtype, int down, void* stream) {
   if (B == 0 || H == 0 || W == 0) return cudaSuccess;
   const auto st = static_cast<cudaStream_t>(stream);
   const dim3 grid(memc::words_for(W), memc::ceil_div(H, 8), B), block(32, 8);
@@ -314,11 +448,21 @@ MEMC_API int memc_project_fill(const void* avg, const void* rows, const void* ro
   const auto* c = static_cast<const uint32_t*>(cols);
   const auto* cs = static_cast<const uint32_t*>(col_sums);
   if (dtype == memc::kFloat32) {
-    memc::project_fill_kernel<float><<<grid, block, 0, st>>>(a, r, rs, c, cs,
-                                                             static_cast<float*>(out), H, W);
+    auto* o = static_cast<float*>(out);
+    if (down) {
+      memc::project_fill_kernel<float, true><<<grid, block, 0, st>>>(a, r, rs, c, cs, o, H, W);
+    } else {
+      memc::project_fill_kernel<float, false><<<grid, block, 0, st>>>(a, r, rs, c, cs, o, H, W);
+    }
   } else if (dtype == memc::kBFloat16) {
-    memc::project_fill_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
-        a, r, rs, c, cs, static_cast<__nv_bfloat16*>(out), H, W);
+    auto* o = static_cast<__nv_bfloat16*>(out);
+    if (down) {
+      memc::project_fill_kernel<__nv_bfloat16, true><<<grid, block, 0, st>>>(a, r, rs, c, cs, o,
+                                                                              H, W);
+    } else {
+      memc::project_fill_kernel<__nv_bfloat16, false><<<grid, block, 0, st>>>(a, r, rs, c, cs,
+                                                                               o, H, W);
+    }
   } else {
     return cudaErrorInvalidValue;
   }

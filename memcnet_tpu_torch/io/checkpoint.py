@@ -25,6 +25,8 @@ def save(path, module_or_state_dict, opt_state=None, step=None):
 
 
 def load(path):
+    """The saved dict: "params", and "opt_state" and "step" where they were
+    saved (``train.trainer.Adamax.load_state_dict`` takes "opt_state")."""
     return torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
 
 

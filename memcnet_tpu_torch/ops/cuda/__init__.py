@@ -7,8 +7,10 @@ kernel on CUDA tensors (or raises) and takes the plain version only for CPU
 tensors.
 
   warp_kernel     K1  filter-interpolation warp   (csrc/warp.cu)
-  project_kernel  K2  projection scatter, folds and divide  (csrc/project.cu)
-                  K3  projection hole fill                  (csrc/project.cu)
+  project_kernel  K2  projection scatter, folds and divide, and its payload
+                      entry for the depth-weighted and gated projections
+                  K3  projection hole fill, with the down search on request
+                                                            (csrc/project.cu)
   conv_kernel     K4  small-C conv: bf16 on tensor cores, float32 direct  (csrc/conv.cu)
   gather_kernel   K5  bilinear grid sample, and SPyNet's level input around it
                       in one launch               (csrc/gather.cu)

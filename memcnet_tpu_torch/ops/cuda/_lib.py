@@ -134,7 +134,10 @@ def _declare(lib):
     lib.memc_filter_interp_warp.restype = i
     lib.memc_project_sums.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
     lib.memc_project_sums.restype = i
-    lib.memc_project_fill.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
+    lib.memc_project_payload.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
+                                         vp]
+    lib.memc_project_payload.restype = i
+    lib.memc_project_fill.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
     lib.memc_project_fill.restype = i
     lib.memc_conv2d_small.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
     lib.memc_conv2d_small.restype = i

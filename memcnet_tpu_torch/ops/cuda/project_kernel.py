@@ -10,7 +10,10 @@ _scatter4``, the divide, ``_directional_fill``).  CUDA source:
 operations: K2 -- a memset, ``project_scatter_kernel`` and
 ``project_fold_kernel`` -- counted as one launch of ``base_scatter``, and,
 with the fill, K3 -- ``project_fill_kernel`` -- counted as one launch of
-``fill_holes``.
+``fill_holes``.  K2's payload entry (``payload_project``) serves the depth-
+weighted and brightness-gated projections (``ops/projection.py``): the same
+three operations on a float32 payload of P = 3 or 4 planes, also counted as
+one launch of ``base_scatter``.
 
 Function, per source pixel p with flow f: it lands at p + f, in float32
 whatever the flow's type, and if that is inside [0, W-1] x [0, H-1] it adds
@@ -21,7 +24,13 @@ the fill, every pixel with count 0 takes the mean of the nearest projected
 value to its left, to its right and above it, over the directions that have
 one (``memcnet_tpu/ops/projection.py::_directional_fill_xla`` with
 ``fix_down_scan_bug=False``: the down-scan is dead in the reference,
-my_lib_kernel.cu:1799).  The result is cast to the flow's type once.
+my_lib_kernel.cu:1799; with the JAX opt-in ``fix_down_scan_bug`` K3 also
+takes the nearest value below).  The result is cast to the flow's type once.
+
+The payload entry: the flow sets the landing cells as above, and the P
+planes of the payload (zero where a gate fails) are scattered there, folded,
+and planes 0 .. P-2 divided by plane P-1 where it is > 0; with the fill,
+"has a value" is plane P-1 > 0 (a sum of depths or a count of gated pixels).
 
 What bounds it on the H100: memory (read the flow, write the result).  Its
 design: float ``atomicAdd`` into S, which stays in L2; one gather pass per
@@ -180,6 +189,21 @@ def _last_valid_index(has, axis, reverse=False):
     return torch.cummax(idx, dim=axis).values
 
 
+def payload_average(flow, payload):
+    """Plain (S (B, P, H, W), planes 0 .. P-2 of the folded sums divided by
+    plane P-1 where it is > 0 (B, P-1, H, W), plane P-1 (B, H, W)), all
+    float32: K2's payload entry.  flow: (B, 2, H, W); payload: (B, P, H, W),
+    zero where a gate fails."""
+    f = flow.float()
+    valid, ixL, iyT = landing_cells(f)
+    W = f.shape[3]
+    lin = torch.where(valid, iyT * W + ixL, torch.full_like(iyT, -1))
+    S = scatter_reference(payload.float(), lin)
+    out = fold(S)
+    den = out[:, -1]
+    return S, out[:, :-1] / torch.where(den > 0.0, den, 1.0)[:, None], den
+
+
 def fill_reference(avg, cnt, fix_down_scan_bug=False):
     """K3's TPU function, plain: nearest-projected-value scans (cummax over
     indices) and the mean over the directions found.  With
@@ -225,28 +249,50 @@ def sums_stage_reference(flow, fillhole):
     return S, avg.to(flow.dtype), None
 
 
-def fill_stage_reference(avg, masks, dtype):
+def fill_stage_reference(avg, masks, dtype, down=False):
     """Plain version of ``launch_fill``: the fill of the float32 average
     ``avg`` whose has-value pixels are set in ``masks.rows``, in ``dtype``."""
     has = unpack_bits(masks.rows, avg.shape[3])
-    return fill_reference(avg, has.float()).to(dtype)
+    return fill_reference(avg, has.float(), fix_down_scan_bug=down).to(dtype)
+
+
+def payload_stage_reference(flow, payload, fillhole):
+    """Plain version of ``launch_payload``, same outputs."""
+    S, avg, den = payload_average(flow, payload)
+    extra = avg[:, 2:].to(flow.dtype) if payload.shape[1] > 3 else None
+    if fillhole:
+        return S, avg[:, :2].contiguous(), extra, pack_masks(den > 0.0)
+    return S, avg[:, :2].to(flow.dtype), extra, None
 
 
 # -- the card ------------------------------------------------------------------
 
 
 @functools.lru_cache(maxsize=32)
-def _layout(B, H, W):
-    """Word offsets of K2's int32 scratch with the fill: S (3 float32 planes),
-    then the row and column summaries (zeroed with S by one memset, as
-    memc_project_sums requires), then the row and column masks.  Returns
-    ({name: (offset, shape)}, total words)."""
+def _layout(B, H, W, P=3):
+    """Word offsets of K2's int32 scratch with the fill: S (P float32
+    planes), then the row and column summaries (zeroed with S by one memset,
+    as memc_project_sums and memc_project_payload require), then the row and
+    column masks.  Returns ({name: (offset, shape)}, total words)."""
     shapes = mask_shapes(B, H, W)._asdict()
-    layout, off = {"sums": (0, (B, 3, H, W))}, 3 * B * H * W
+    layout, off = {"sums": (0, (B, P, H, W))}, P * B * H * W
     for k in ("row_sums", "col_sums", "rows", "cols"):
         layout[k] = (off, shapes[k])
         off += math.prod(shapes[k])
     return layout, off
+
+
+def _buffers(flow, fillhole, P):
+    """K2's scratch (S of P planes, and with the fill the masks behind it),
+    its result and the mask pointers (None without the fill)."""
+    B, _, H, W = flow.shape
+    if fillhole:
+        layout, words = _layout(B, H, W, P)
+        scratch = torch.empty(words, dtype=torch.int32, device=flow.device)
+        ptrs = [scratch.data_ptr() + 4 * layout[k][0] for k in Masks._fields]
+        return scratch, torch.empty((B, 2, H, W), dtype=torch.float32, device=flow.device), ptrs
+    scratch = torch.empty((B, P, H, W), dtype=torch.float32, device=flow.device)
+    return scratch, torch.empty_like(flow), [None] * 4
 
 
 def _sums(flow, fillhole):
@@ -262,35 +308,59 @@ def _sums(flow, fillhole):
     if two != 2:
         raise ValueError(f"{what}: flow must be (B, 2, H, W), got {tuple(flow.shape)}")
     _lib.check_cuda_args(what, flow)
-    if fillhole:
-        layout, words = _layout(B, H, W)
-        scratch = torch.empty(words, dtype=torch.int32, device=flow.device)
-        base = scratch.data_ptr()
-        ptrs = [base + 4 * layout[k][0] for k in Masks._fields]
-        out = torch.empty((B, 2, H, W), dtype=torch.float32, device=flow.device)
-    else:
-        scratch = torch.empty((B, 3, H, W), dtype=torch.float32, device=flow.device)
-        base = scratch.data_ptr()
-        ptrs = [None] * 4
-        out = torch.empty_like(flow)
-    err = _lib.lib().memc_project_sums(flow.data_ptr(), base, out.data_ptr(), *ptrs,
+    scratch, out, ptrs = _buffers(flow, fillhole, 3)
+    err = _lib.lib().memc_project_sums(flow.data_ptr(), scratch.data_ptr(), out.data_ptr(), *ptrs,
                                        B, H, W, code, int(fillhole), _lib.stream_ptr(flow))
     _lib.check(err, what)
     scatter_counter.count += 1
     return scratch, out, ptrs
 
 
-def _fill(avg, mask_ptrs, dtype):
-    """K3 on masks given as device pointers in ``Masks`` order."""
+def _payload_sums(flow, payload, fillhole):
+    """K2's payload entry.  Returns (scratch, result, extra, mask pointers)
+    as ``_sums``, with ``extra`` the planes 2 .. P-2 of the result (None for
+    P = 3)."""
+    what = "project_payload"
+    code = _lib.dtype_code(flow.dtype)
+    B, two, H, W = flow.shape
+    P = payload.shape[1]
+    if two != 2 or P not in (3, 4) or tuple(payload.shape) != (B, P, H, W) \
+            or payload.dtype != torch.float32:
+        raise ValueError(f"{what}: takes a flow (B, 2, H, W) and a float32 payload (B, 3 or 4, "
+                         f"H, W), got {tuple(flow.shape)} and {payload.dtype} "
+                         f"{tuple(payload.shape)}")
+    _lib.check_cuda_args(what, flow, payload)
+    scratch, out, ptrs = _buffers(flow, fillhole, P)
+    extra = torch.empty((B, P - 3, H, W), dtype=flow.dtype, device=flow.device) if P > 3 \
+        else None
+    err = _lib.lib().memc_project_payload(
+        flow.data_ptr(), payload.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        None if extra is None else extra.data_ptr(), *ptrs, B, P, H, W, code, int(fillhole),
+        _lib.stream_ptr(flow))
+    _lib.check(err, what)
+    scatter_counter.count += 1
+    return scratch, out, extra, ptrs
+
+
+def _fill(avg, mask_ptrs, dtype, down=False):
+    """K3 on masks given as device pointers in ``Masks`` order; ``down``
+    adds the search below (fix_down_scan_bug)."""
     what = "project_fill"
     code = _lib.dtype_code(dtype)
     B, _, H, W = avg.shape
     out = torch.empty((B, 2, H, W), dtype=dtype, device=avg.device)
     err = _lib.lib().memc_project_fill(avg.data_ptr(), *mask_ptrs, out.data_ptr(), B, H, W,
-                                       code, _lib.stream_ptr(avg))
+                                       code, int(down), _lib.stream_ptr(avg))
     _lib.check(err, what)
     fill_counter.count += 1
     return out
+
+
+def _views(scratch, B, H, W, P):
+    """(S, ``Masks``) views of the scratch of a call with the fill."""
+    layout, _ = _layout(B, H, W, P)
+    views = {k: scratch[o:o + math.prod(shape)].view(shape) for k, (o, shape) in layout.items()}
+    return views.pop("sums").view(torch.float32), Masks(**views)
 
 
 def launch_sums(flow, fillhole):
@@ -303,15 +373,26 @@ def launch_sums(flow, fillhole):
     if not fillhole:
         return scratch, out, None
     B, _, H, W = flow.shape
-    layout, _ = _layout(B, H, W)
-    views = {k: scratch[o:o + math.prod(shape)].view(shape) for k, (o, shape) in layout.items()}
-    S = views.pop("sums").view(torch.float32)
-    return S, out, Masks(**views)
+    S, masks = _views(scratch, B, H, W, 3)
+    return S, out, masks
 
 
-def launch_fill(avg, masks, dtype):
+def launch_payload(flow, payload, fillhole):
+    """K2's payload entry alone, for checks: the memset, the payload scatter
+    and the fold-and-divide.  Returns (S, result, extra, masks) as
+    ``payload_stage_reference`` does."""
+    scratch, out, extra, _ = _payload_sums(flow, payload, fillhole)
+    if not fillhole:
+        return scratch, out, extra, None
+    B, P, H, W = payload.shape
+    S, masks = _views(scratch, B, H, W, P)
+    return S, out, extra, masks
+
+
+def launch_fill(avg, masks, dtype, down=False):
     """K3 alone, for checks.  avg: (B, 2, H, W) float32, contiguous; masks:
-    ``Masks`` as K2 writes them; returns (B, 2, H, W) in ``dtype``."""
+    ``Masks`` as K2 writes them; returns (B, 2, H, W) in ``dtype``; ``down``
+    adds the search below."""
     what = "project_fill"
     B, K, H, W = avg.shape
     if K != 2 or avg.dtype != torch.float32:
@@ -321,7 +402,7 @@ def launch_fill(avg, masks, dtype):
         if tuple(got.shape) != want or got.dtype != torch.int32:
             raise ValueError(f"{what}: mask {got.dtype} {tuple(got.shape)}, want int32 {want}")
     _lib.check_cuda_args(what, avg, *masks)
-    return _fill(avg, [m.data_ptr() for m in masks], dtype)
+    return _fill(avg, [m.data_ptr() for m in masks], dtype, down)
 
 
 class _ProjectFunction(torch.autograd.Function):
@@ -329,30 +410,40 @@ class _ProjectFunction(torch.autograd.Function):
     composition."""
 
     @staticmethod
-    def forward(ctx, flow, fillhole):
+    def forward(ctx, flow, fillhole, down):
         ctx.save_for_backward(flow)
-        ctx.fillhole = fillhole
+        ctx.fillhole, ctx.down = fillhole, down
         # the fill reads the masks in K2's scratch: keep it until then
         scratch, out, mask_ptrs = _sums(flow, fillhole)
         if fillhole:
-            out = _fill(out, mask_ptrs, flow.dtype)
+            out = _fill(out, mask_ptrs, flow.dtype, down)
         return out
 
     @staticmethod
     def backward(ctx, g):
         (flow,) = ctx.saved_tensors
-        (gf,) = _lib.reference_grads(lambda f: reference(f, ctx.fillhole), [flow], [True], [g])
-        return gf, None
+        (gf,) = _lib.reference_grads(lambda f: reference(f, ctx.fillhole, ctx.down), [flow],
+                                     [True], [g])
+        return gf, None, None
 
 
 def flow_project(flow, fillhole=False, fix_down_scan_bug=False):
     """The projection: the kernels on CUDA tensors, the plain composition on
-    CPU tensors.  The kernels' fill scans left, right and up, as the
-    reference does; ``fix_down_scan_bug`` (the JAX opt-in down-scan) has no
-    kernel and is refused on the card."""
+    CPU tensors.  The fill scans left, right and up, as the reference does;
+    ``fix_down_scan_bug`` (the JAX opt-in) adds the scan down."""
     if not _lib.on_cuda(flow):
         return reference(flow, fillhole, fix_down_scan_bug)
-    if fix_down_scan_bug:
-        raise ValueError("flow_project: fix_down_scan_bug has no kernel; the card's fill "
-                         "scans left, right and up, as the reference does")
-    return _ProjectFunction.apply(flow.contiguous(), fillhole)
+    return _ProjectFunction.apply(flow.contiguous(), fillhole, fix_down_scan_bug)
+
+
+def payload_project(flow, payload, fillhole=False):
+    """K2's payload entry and, with the fill, K3 (no down search), on CUDA
+    tensors: (planes 0 and 1 of the result in the flow's type, planes
+    2 .. P-2 in the flow's type or None).  No gradient: the ops of
+    ``ops/projection.py`` wrap it in their own ``autograd.Function``s."""
+    # the fill reads the masks in K2's scratch: keep it until then
+    scratch, out, extra, mask_ptrs = _payload_sums(flow.contiguous(), payload.contiguous(),
+                                                   fillhole)
+    if fillhole:
+        out = _fill(out, mask_ptrs, flow.dtype)
+    return out, extra

@@ -1,5 +1,6 @@
 """Flow projection to the intermediate time step (port of
-memcnet_tpu/ops/projection.py::flow_project).
+memcnet_tpu/ops/projection.py: ``flow_project``, ``depth_flow_project`` and
+``weighted_flow_project``).
 
 Reference semantics (my_lib_kernel.cu:1630-1836, as the JAX package pins
 them): each source pixel p with flow f lands at x2 = p + f; if
@@ -8,8 +9,7 @@ integer neighbours, the right/bottom ones clamped to the border (a clamped
 cell receives the contribution twice).  The sums are divided by the count
 where it is > 0.  With ``fillhole`` (eval only), count-0 pixels take the mean
 of the nearest projected value to the left, right and above; the down-scan is
-dead in the reference and only ``fix_down_scan_bug=True`` enables it, on CPU
-tensors only.
+dead in the reference and only ``fix_down_scan_bug=True`` enables it.
 
 The four neighbours are the base cell plus constant offsets, so only the
 base scatter is a scatter: the other three are border folds of its result.
@@ -18,9 +18,18 @@ On CUDA tensors the whole op is one autograd.Function over kernels K2
 (ops/cuda/project_kernel.py, csrc/project.cu); on CPU tensors it is the plain
 composition ``reference``.  Coordinates, sums and the fill are float32
 whatever the flow's type; the result is cast back to it once.
+
+The depth-weighted (N7, DepthFlowProjectionLayer, my_lib.c:1637-1877) and
+brightness-gated (N8, WeightedFlowProjectionLayer, my_lib.c:1879-2160)
+projections scatter other payloads through the same machinery: K2's payload
+entry and, with the fill, K3 without the down search, on CUDA tensors; their
+plain compositions on CPU tensors.  Each payload is built in float32 by
+PyTorch in front of the kernel, as the JAX package builds it in XLA.
 """
 
-from memcnet_tpu_torch.ops.cuda import project_kernel
+import torch
+
+from memcnet_tpu_torch.ops.cuda import _lib, project_kernel
 
 
 def project(flow, *, fillhole=False, fix_down_scan_bug=False):
@@ -37,3 +46,193 @@ def flow_project(flow, *, fillhole=False, fix_down_scan_bug=False):
     """Project forward flow F_{t->t+1} (B, 2, H, W) to time t (negated
     average scatter).  Returns (B, 2, H, W) in the flow's type."""
     return project_kernel.flow_project(flow, fillhole, fix_down_scan_bug)
+
+
+# -- N7: the depth-weighted projection -------------------------------------------
+
+
+def depth_payload(flow, depth):
+    """(-f d, d) in float32 (B, 3, H, W): what each source pixel scatters."""
+    f, d = flow.float(), depth.float()
+    return torch.cat([-f * d, d], dim=1)
+
+
+def _neighbour_cells(flow32):
+    """Validity and the four landing neighbours (iy, ix) of each source
+    pixel, right and bottom clamped to the border."""
+    H, W = flow32.shape[2:]
+    valid, ixL, iyT = project_kernel.landing_cells(flow32)
+    ixR, iyB = (ixL + 1).clamp(max=W - 1), (iyT + 1).clamp(max=H - 1)
+    return valid, ((iyT, ixL), (iyT, ixR), (iyB, ixL), (iyB, ixR))
+
+
+def depth_project_backward(flow, depth, avg, cnt, g):
+    """The reference's hand backward of the depth projection (my_lib.c:
+    1751-1877; memcnet_tpu/ops/projection.py::_depth_project_bwd), which is
+    not the true gradient: the depth term uses f(p) - avg[n] where autograd
+    would give f(p) + avg[n].  A count of 0 divides by 1, as in the JAX
+    package.  avg, cnt: the unfilled float32 average and depth sum; g: the
+    average's cotangent.  Returns (flow grad, depth grad) in their types."""
+    f, d = flow.float(), depth.float()
+    B, _, H, W = f.shape
+    valid, cells = _neighbour_cells(f)
+    gdivc = g.float() / torch.where(cnt > 0.0, cnt, 1.0)[:, None]
+    planes = torch.cat([gdivc, avg.float()], dim=1).reshape(B, 4, H * W)
+    gflow = torch.zeros_like(f)
+    gdepth = torch.zeros_like(d[:, 0])
+    for iy, ix in cells:
+        lin = (iy * W + ix).reshape(B, 1, H * W).long().expand(B, 4, H * W)
+        got = planes.gather(2, lin).view(B, 4, H, W)
+        gc, av = got[:, :2], got[:, 2:]
+        gflow = gflow - gc * d
+        gdepth = gdepth - torch.sum(gc * (f - av), dim=1)
+    m = valid[:, None]
+    return (torch.where(m, gflow, 0.0).to(flow.dtype),
+            torch.where(m, gdepth[:, None], 0.0).to(depth.dtype))
+
+
+class _DepthCore(torch.autograd.Function):
+    """The plain (average, depth sum) with the reference's hand backward
+    (``_depth_project`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, flow, depth):
+        _, avg, cnt = project_kernel.payload_average(flow, depth_payload(flow, depth))
+        ctx.save_for_backward(flow, depth, avg, cnt)
+        ctx.mark_non_differentiable(cnt)
+        return avg, cnt
+
+    @staticmethod
+    def backward(ctx, g, _g_cnt):  # no gradient flows through the depth sum
+        return depth_project_backward(*ctx.saved_tensors, g)
+
+
+def depth_reference(flow, depth, *, fillhole=False):
+    """The plain composition of ``depth_flow_project``, on any device."""
+    avg, cnt = _DepthCore.apply(flow, depth)
+    if fillhole:
+        avg = project_kernel.fill_reference(avg, cnt)
+    return avg.to(flow.dtype)
+
+
+class _DepthProjectFunction(torch.autograd.Function):
+    """K2's payload entry (3 planes) then, with the fill, K3; backward is
+    autograd of ``depth_reference``, whose core has the hand backward."""
+
+    @staticmethod
+    def forward(ctx, flow, depth, fillhole):
+        ctx.save_for_backward(flow, depth)
+        ctx.fillhole = fillhole
+        out, _ = project_kernel.payload_project(flow, depth_payload(flow, depth), fillhole)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        flow, depth = ctx.saved_tensors
+        gf, gd = _lib.reference_grads(
+            lambda f, d: depth_reference(f, d, fillhole=ctx.fillhole), [flow, depth],
+            ctx.needs_input_grad[:2], [g])
+        return gf, gd, None
+
+
+def depth_flow_project(flow, depth, *, fillhole=False):
+    """Depth-weighted flow projection (DAIN-style; N7): each source pixel
+    scatters d(p) * -f(p) and d(p) into its four landing neighbours, and the
+    average is the depth-weighted mean of -f.  The fill (no down-scan, as in
+    the reference, my_lib_kernel.cu:2227) takes "has a value" from a depth
+    sum > 0.
+
+    Args:
+      flow: (B, 2, H, W);  depth: (B, 1, H, W) positive weights.
+    Returns:
+      projected flow (B, 2, H, W) in the flow's type.
+    """
+    if not _lib.on_cuda(flow, depth):
+        return depth_reference(flow, depth, fillhole=fillhole)
+    return _DepthProjectFunction.apply(flow.contiguous(), depth.contiguous(), fillhole)
+
+
+# -- N8: the brightness-gated projection -------------------------------------------
+
+
+def brightness_error(flow, frame1, frame2):
+    """err (B, H, W) float32: mean over the 3 channels of |frame1(p) -
+    frame2(nn)| + 1e-8, nn the pixel of p + 2f clamped to the frame and
+    truncated (my_lib.c:1959-1971), summed as d0/3 + d1/3 + d2/3 + 1e-8 in
+    that order; the coordinates in float32 whatever the flow's type."""
+    f = flow.float()
+    B, _, H, W = f.shape
+    C = frame2.shape[1]
+    xs = torch.arange(W, dtype=torch.float32, device=f.device).view(1, 1, W)
+    ys = torch.arange(H, dtype=torch.float32, device=f.device).view(1, H, 1)
+    x3 = (xs + 2.0 * f[:, 0]).clamp(0.0, W - 1.0).to(torch.int32)
+    y3 = (ys + 2.0 * f[:, 1]).clamp(0.0, H - 1.0).to(torch.int32)
+    lin = (y3 * W + x3).reshape(B, 1, H * W).long().expand(B, C, H * W)
+    samp = frame2.float().reshape(B, C, H * W).gather(2, lin).view(B, C, H, W)
+    diff = (frame1.float() - samp).abs()
+    # a tensor divisor: PyTorch's CUDA division by a Python number multiplies
+    # by its reciprocal, which is not x / 3 in the last bit, and the gate
+    # would flip at the threshold
+    three = torch.full((), 3.0, device=diff.device)
+    return diff[:, 0] / three + diff[:, 1] / three + diff[:, 2] / three + 1e-8
+
+
+def weighted_payload(flow, frame1, frame2, threshold):
+    """(-fx, -fy, err, 1) in float32 (B, 4, H, W), zero where the gate
+    ``valid landing & err <= threshold`` (threshold compared in float32)
+    fails."""
+    f = flow.float()
+    err = brightness_error(f, frame1, frame2)
+    valid, _, _ = project_kernel.landing_cells(f)
+    gate = valid & (err <= threshold)
+    payload = torch.cat([-f, err[:, None], torch.ones_like(err[:, None])], dim=1)
+    return torch.where(gate[:, None], payload, 0.0)
+
+
+def weighted_reference(flow, frame1, frame2, *, threshold=20.0 / 255.0, fillhole=False):
+    """The plain composition of ``weighted_flow_project``, on any device."""
+    payload = weighted_payload(flow, frame1, frame2, threshold)
+    _, avg, cnt = project_kernel.payload_average(flow, payload)
+    out = avg[:, :2]
+    if fillhole:
+        out = project_kernel.fill_reference(out, cnt)
+    return out.to(flow.dtype), avg[:, 2:].to(flow.dtype)
+
+
+class _WeightedProjectFunction(torch.autograd.Function):
+    """The gate in PyTorch, K2's payload entry (4 planes) then, with the
+    fill, K3 on the flow; backward is autograd of ``weighted_reference``
+    (the JAX op's autodiff)."""
+
+    @staticmethod
+    def forward(ctx, flow, frame1, frame2, threshold, fillhole):
+        ctx.save_for_backward(flow, frame1, frame2)
+        ctx.threshold, ctx.fillhole = threshold, fillhole
+        return project_kernel.payload_project(
+            flow, weighted_payload(flow, frame1, frame2, threshold), fillhole)
+
+    @staticmethod
+    def backward(ctx, g, gw):
+        grads = _lib.reference_grads(
+            lambda f, a, b: weighted_reference(f, a, b, threshold=ctx.threshold,
+                                               fillhole=ctx.fillhole),
+            list(ctx.saved_tensors), ctx.needs_input_grad[:3], [g, gw])
+        return (*grads, None, None)
+
+
+def weighted_flow_project(flow, frame1, frame2, *, threshold=20.0 / 255.0, fillhole=False):
+    """Brightness-constancy-gated flow projection (N8): pixels whose landing
+    is in the frame and whose ``brightness_error`` is <= threshold scatter
+    -f with a count of 1, and err into a weight plane; both are divided by
+    the count.  The fill (no down-scan) fills the flow only.
+
+    Args:
+      flow: (B, 2, H, W); frame1, frame2: (B, 3, H, W).
+    Returns:
+      (projected flow (B, 2, H, W), weight plane (B, 1, H, W)), both in the
+      flow's type.
+    """
+    if not _lib.on_cuda(flow, frame1, frame2):
+        return weighted_reference(flow, frame1, frame2, threshold=threshold, fillhole=fillhole)
+    return _WeightedProjectFunction.apply(flow.contiguous(), frame1.contiguous(),
+                                          frame2.contiguous(), float(threshold), fillhole)

@@ -12,7 +12,16 @@ On CUDA tensors the forward is the hand-written kernel K1
 (ops/cuda/warp_kernel.py); on CPU tensors it is the plain PyTorch version
 beside it.  Gradients are autograd of the plain version in both cases.
 Landing coordinates are computed in float32 even for bf16 activations.
+
+``bilinear_warp`` (N3, InterpolationLayer; N4, InterpolationChLayer, any
+channel count; my_lib_kernel.cu:507-686) is the classic backward warp, valid
+iff 0 <= x2 < W and 0 <= y2 < H (strict, unlike the filter warp's <= W-1),
+the right and bottom taps clamped to the border, zero outside.  It is XLA in
+the JAX package and stock PyTorch here (four gathers; autograd backward), on
+any device.
 """
+
+import torch
 
 from memcnet_tpu_torch.ops.cuda import warp_kernel
 
@@ -34,3 +43,34 @@ def filter_interp_warp_split(images, flow, filt, *, filter_size=4):
 def filter_interp_warp(image, flow, filt, *, filter_size=4):
     """Warp one (B, C, H, W) source; see filter_interp_warp_split."""
     return warp_kernel.warp((image,), flow, filt, filter_size)[0]
+
+
+def gather_hw(image, iy, ix):
+    """image (B, C, H, W) at per-pixel cells iy, ix (B, H, W), in bounds."""
+    B, C, H, W = image.shape
+    lin = (iy * W + ix).reshape(B, 1, H * W).long().expand(B, C, H * W)
+    return image.reshape(B, C, H * W).gather(2, lin).view(B, C, H, W)
+
+
+def bilinear_warp(image, flow):
+    """Bilinear backward warp of image (B, C, H, W) along flow (B, 2, H, W);
+    out of range -> 0.  Coordinates and blend weights in float32; the result
+    in the image's type."""
+    B, C, H, W = image.shape
+    f = flow.float()
+    x2 = torch.arange(W, dtype=torch.float32, device=f.device).view(1, 1, W) + f[:, 0]
+    y2 = torch.arange(H, dtype=torch.float32, device=f.device).view(1, H, 1) + f[:, 1]
+    valid = (x2 >= 0.0) & (y2 >= 0.0) & (x2 < float(W)) & (y2 < float(H))
+    ixL = x2.to(torch.int32).clamp(0, W - 1)
+    iyT = y2.to(torch.int32).clamp(0, H - 1)
+    ixR = (ixL + 1).clamp(max=W - 1)  # my_lib_kernel.cu:552-553
+    iyB = (iyT + 1).clamp(max=H - 1)
+    a = (x2 - ixL.float())[:, None]
+    b = (y2 - iyT.float())[:, None]
+    out = ((1 - a) * (1 - b) * gather_hw(image, iyT, ixL) + a * (1 - b) * gather_hw(image, iyT, ixR)
+           + (1 - a) * b * gather_hw(image, iyB, ixL) + a * b * gather_hw(image, iyB, ixR))
+    return torch.where(valid[:, None], out, 0.0).to(image.dtype)
+
+
+# the reference's two layers share one function, as in the JAX package
+bilinear_warp_ch = bilinear_warp

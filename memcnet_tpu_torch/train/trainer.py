@@ -148,6 +148,29 @@ class Adamax:
                 "plateau": {"best": float(self.best), "plateau_count": self.plateau_count,
                             "scale": float(self.scale)}}
 
+    def load_state_dict(self, sd):
+        """The inverse of ``state_dict``: restores the step count, mu and nu
+        by parameter name (each on its parameter's device, in the type of
+        this optimizer's own state tensor) and the plateau.  Raises on a
+        missing or extra name or a shape that differs."""
+        for key in ("mu", "nu"):
+            names, want = set(sd[key]), set(self.names)
+            if names != want:
+                raise KeyError(f"Adamax.load_state_dict: {key} lacks {sorted(want - names)}, "
+                               f"has extra {sorted(names - want)}")
+            for n, cur in zip(self.names, getattr(self, key)):
+                if tuple(sd[key][n].shape) != tuple(cur.shape):
+                    raise ValueError(f"Adamax.load_state_dict: {key}[{n!r}] has shape "
+                                     f"{tuple(sd[key][n].shape)}, the parameter {tuple(cur.shape)}")
+        for key in ("mu", "nu"):
+            setattr(self, key, [sd[key][n].to(device=cur.device, dtype=cur.dtype).clone()
+                                for n, cur in zip(self.names, getattr(self, key))])
+        self.count = int(sd["count"])
+        plateau = sd["plateau"]
+        self.best = np.float32(plateau["best"])
+        self.plateau_count = int(plateau["plateau_count"])
+        self.scale = torch.tensor(plateau["scale"], dtype=self.scale_dtype)
+
 
 def make_optimizer(params, lr=2e-3, weight_decay=0.0, *, clip_norm=None, subnet_lr=None,
                    plateau=False, patience=5, factor=0.2):
@@ -237,8 +260,12 @@ def fit(step, batches, *, steps, eval_every=0, eval_fn=None, checkpoint_dir=None
     ``eval_fn(model)`` where given) and a checkpoint of the model and the
     optimizer state (io.checkpoint, ``checkpoint_dir/step_<n>.pt``).
     Raises if a loss is not finite.  Returns the losses.  The JAX ``fit``
-    also takes and returns the params and optimizer state; here they live in
-    ``step.model`` and ``step.optimizer``."""
+    takes and returns the params and the optimizer state explicitly; here
+    they live in ``step.model`` and ``step.optimizer``, so a run resumes from
+    ``step_<n>.pt`` by loading them there first (``io.checkpoint.load``:
+    ``load_params(step.model, ckpt["params"])`` and
+    ``step.optimizer.load_state_dict(ckpt["opt_state"])``) and passing the
+    batches after the n-th."""
     history = []
     for i, (x0, gt, x1) in zip(range(steps), batches):
         loss = float(step(x0, gt, x1))

@@ -3,9 +3,11 @@ memcnet_tpu/utils/config.py that the port reads, with the same names,
 defaults and coercions) — replaces the reference's my_args.py argparse module
 with import-time side effects (my_args.py:76-122).  The trainer's fields
 (``TRAINER_FIELDS``: learning rate, Charbonnier epsilon, loss weights) are
-read by ``train.trainer.build_interp_trainer``; ``add_config_args`` leaves
-them out, so the demos refuse them.  The JAX fields that nothing in the port
-reads (dataset, batch size, epochs, run directory) are not carried."""
+read by ``train.trainer.build_interp_trainer``.  The JAX fields that nothing
+in the port reads (dataset, batch size, task parameter, run directory,
+epochs: ``JAX_ONLY_FIELDS``) are not carried; ``add_config_args`` still
+accepts a flag for each, as the JAX demos do, and ``config_from_args`` drops
+it, so a command line written for a JAX demo runs the port's."""
 
 import dataclasses
 from typing import Optional, Sequence
@@ -29,6 +31,9 @@ class Config:
 
 
 TRAINER_FIELDS = ("lr", "epsilon", "alpha")
+# memcnet_tpu/utils/config.py's fields that the port does not carry
+JAX_ONLY_FIELDS = ("dataset_name", "dataset_path", "batch_size", "task_param", "save_path",
+                   "num_epoch")
 
 _COERCERS = {
     "int": int,
@@ -62,10 +67,10 @@ def _coerce(field, value):
 
 
 def add_config_args(parser):
-    """The demos' flags: every field but the trainer's."""
-    for f in dataclasses.fields(Config):
-        if f.name not in TRAINER_FIELDS:
-            parser.add_argument("--" + f.name.replace("_", "-"), default=None)
+    """The demos' flags: one per field of Config and of JAX_ONLY_FIELDS, the
+    JAX ``add_config_args``'s set; a demo ignores those it does not read."""
+    for name in [f.name for f in dataclasses.fields(Config)] + list(JAX_ONLY_FIELDS):
+        parser.add_argument("--" + name.replace("_", "-"), default=None)
     return parser
 
 

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from memcnet_tpu_torch import probe
+from memcnet_tpu_torch import ops, probe
 from memcnet_tpu_torch.cli import demo_hd720p, demo_middlebury, demo_vimeo_ve
 from memcnet_tpu_torch.cli.runner import PaddedInterp, PaddedVE, build_model
 from memcnet_tpu_torch.io.png import imread
@@ -390,9 +390,135 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                            torch.zeros(1, 9, 8, 8, device=dev), 3)
     with pytest.raises(TypeError):
         TP.flow_project(torch.zeros(1, 2, 8, 8, device=dev, dtype=torch.float16))
-    with pytest.raises(ValueError, match="fix_down_scan_bug"):
-        TP.flow_project(torch.zeros(1, 2, 8, 8, device=dev), fillhole=True,
-                        fix_down_scan_bug=True)
+    with pytest.raises(ValueError, match="payload"):  # K2's payload entry takes 3 or 4 planes
+        P.payload_project(torch.zeros(1, 2, 8, 8, device=dev),
+                          torch.zeros(1, 5, 8, 8, device=dev))
+    with pytest.raises(ValueError, match="payload"):  # and a float32 payload
+        P.payload_project(torch.zeros(1, 2, 8, 8, device=dev),
+                          torch.zeros(1, 3, 8, 8, device=dev, dtype=torch.bfloat16))
+
+
+# ---------------------------------------------------------------- the op library (N2-N11)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("planes", [3, 4])
+@pytest.mark.parametrize("fillhole", [True, False])
+@pytest.mark.parametrize("kind", ["amp12", "pm200", "all_invalid"])
+@pytest.mark.parametrize("H,W", PROJ_SHAPES)
+def test_payload_entry_matches_plain(rng, dev, dtype, planes, fillhole, kind, H, W):
+    """K2's payload entry: counts (plane P-1 of S, base and folded) and
+    masks exact on 0/1 weights, the result within 1e-3 (float32) or 2 ulps
+    (bf16), the extra plane likewise."""
+    B = 2
+    flow = projection_flow(rng, B, H, W, kind).to(dev, dtype)
+    payload = torch.from_numpy(rng.randn(B, planes, H, W).astype(np.float32) * 5).to(dev)
+    payload[:, -1] = (payload[:, -1] > -3).float()  # a gate: weights 0 or 1
+    payload[:, :-1] *= payload[:, -1:]
+    S, out, extra, masks = P.launch_payload(flow, payload, fillhole)
+    S_ref, out_ref, extra_ref, masks_ref = P.payload_stage_reference(flow, payload, fillhole)
+    assert torch.equal(S[:, -1], S_ref[:, -1])
+    assert torch.equal(P.fold(S)[:, -1], P.fold(S_ref)[:, -1])
+    if fillhole:
+        for m, r in zip(masks, masks_ref):
+            assert torch.equal(m, r)
+    close_projection(out, out_ref)
+    assert (extra is None) == (planes == 3)
+    if extra is not None:
+        close_projection(extra, extra_ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("density", [0.1, 0.6, 0.0])
+@pytest.mark.parametrize("H,W", [(45, 97), (1100, 40)])
+def test_fill_stage_down_search_matches_plain(rng, dev, dtype, density, H, W):
+    B = 2
+    cnt = torch.from_numpy((rng.rand(B, H, W) < density).astype(np.float32)).to(dev)
+    avg = torch.from_numpy(rng.randn(B, 2, H, W).astype(np.float32)).to(dev) * (cnt > 0)[:, None]
+    masks = P.pack_masks(cnt > 0)
+    close_projection(P.launch_fill(avg, masks, dtype, down=True),
+                     P.fill_stage_reference(avg, masks, dtype, down=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["amp12", "pm200"])
+def test_flow_project_down_scan_on_the_card(rng, dev, dtype, kind):
+    flow = projection_flow(rng, 2, 45, 1100, kind).to(dev, dtype)
+    K.reset_counters()
+    got = TP.flow_project(flow, fillhole=True, fix_down_scan_bug=True)
+    assert K.launch_counts()["base_scatter"] == 1 and K.launch_counts()["fill_holes"] == 1
+    close_projection(got, TP.reference(flow, fillhole=True, fix_down_scan_bug=True))
+
+
+def op_library_calls(rng, B=2, H=40, W=72):
+    """Each op of the library with seeded inputs: (name, fn, inputs, which
+    inputs take a gradient)."""
+    def r(*shape, scale=1.0):
+        return torch.from_numpy((rng.rand(*shape) * scale).astype(np.float32))
+
+    flow = flow_field(rng, B, H, W, 4.0)
+    f1 = r(B, 3, H, W)
+    f2 = (f1 + torch.from_numpy(rng.randn(B, 3, H, W).astype(np.float32)) * 0.05).clamp(0, 1)
+    fs = 5
+    vh = [torch.from_numpy(rng.randn(B, fs, H - fs + 1, W - fs + 1).astype(np.float32))
+          for _ in range(2)]
+    kern = [r(B, fs, H - fs + 1, W - fs + 1) for _ in range(2)]  # sums away from 0
+    kern[0][0, :, 3, 4] = 0.0  # the sentinel
+    return [
+        ("bilinear_warp", ops.bilinear_warp, [f1, flow], [True, True]),
+        ("bilinear_warp_ch", ops.bilinear_warp_ch, [r(B, 6, H, W), flow], [True, True]),
+        ("flow_project_down", lambda f: ops.flow_project(f, fillhole=True,
+                                                         fix_down_scan_bug=True), [flow], [True]),
+        ("depth_flow_project", lambda f, d: ops.depth_flow_project(f, d, fillhole=True),
+         [flow, r(B, 1, H, W) + 0.5], [True, True]),
+        ("depth_flow_project_nofill", ops.depth_flow_project, [flow, r(B, 1, H, W) + 0.5],
+         [True, True]),
+        ("weighted_flow_project", lambda f, a, b: ops.weighted_flow_project(f, a, b,
+                                                                             fillhole=True),
+         [flow, f1, f2], [True, True, True]),
+        ("separable_conv", ops.separable_conv, [f1, *vh], [True, True, True]),
+        ("separable_conv_flow", ops.separable_conv_flow, kern, [True, True]),
+        ("occlusion_weight", ops.occlusion_weight, [f1, f2, flow], [True, True, True]),
+        ("pixel_splat", ops.pixel_splat, [f1, flow, r(B, 1, H, W)], [True, True, True]),
+        ("pixel_value", ops.pixel_value, [f1, flow, r(B, 1, H, W)], [True, True, True]),
+        ("pixel_weight", ops.pixel_weight, [flow, r(B, 1, H, W)], [True, True]),
+        ("reliable_weight", ops.reliable_weight, [flow], [True]),
+    ]
+
+
+def test_gate_error_on_the_card_equals_the_cpu_bit_for_bit(rng, dev):
+    """The gated projection's err decides its gate at the threshold, so the
+    card computes it in the CPU's (and the JAX package's) float32 order."""
+    B, H, W = 2, 64, 96
+    flow = flow_field(rng, B, H, W, 6.0)
+    f1, f2 = (torch.from_numpy(rng.rand(B, 3, H, W).astype(np.float32)) for _ in range(2))
+    got = TP.brightness_error(flow.to(dev), f1.to(dev), f2.to(dev)).cpu()
+    assert torch.equal(got, TP.brightness_error(flow, f1, f2))
+
+
+def test_op_library_on_the_card_matches_cpu(rng, dev):
+    """Every op on CUDA tensors against the same op on CPU tensors, forward
+    and a VJP with a seeded cotangent, within 1e-4 of each output's scale
+    (float atomics and index_add in a run-dependent order); N7 and N8 launch
+    one K2 and, with the fill, one K3 per call."""
+    for name, fn, inputs, grads in op_library_calls(rng):
+        outs = {}
+        for where in ("cuda", "cpu"):
+            xs = [x.to(where).requires_grad_(g) for x, g in zip(inputs, grads)]
+            K.reset_counters()
+            out = fn(*xs)
+            out = out if isinstance(out, tuple) else (out,)
+            counts = K.launch_counts()
+            cts = [torch.from_numpy(np.random.RandomState(1).randn(*o.shape).astype(np.float32))
+                   .to(where) for o in out]
+            gs = torch.autograd.grad(out, [x for x, g in zip(xs, grads) if g], cts)
+            outs[where] = ([o.detach().cpu() for o in out], [g.cpu() for g in gs])
+            if where == "cuda" and "project" in name:
+                fills = 0 if name.endswith("nofill") else 1
+                assert counts["base_scatter"] == 1 and counts["fill_holes"] == fills, name
+        for a, b in zip(outs["cuda"][0] + outs["cuda"][1], outs["cpu"][0] + outs["cpu"][1]):
+            tol = ATOL * max(1.0, float(b.abs().max()))
+            assert float((a - b).abs().max()) <= tol, name
 
 
 def test_served_path_launches_every_kernel_and_matches_cpu(rng, dev):
