@@ -86,7 +86,23 @@ Phases (any failed check exits non-zero and prints no result line):
      with the launch counts set to 0 just before and read just after, each
      against the port's CPU result on the same inputs (and a VJP for the
      ops with hand backwards), and each op's device ms from one profiled
-     call.
+     call;
+  8. the parallel layer on the one card: the tile entries of K1, K2 and K3
+     (parallel/tiling.py's tile-local steps) against their plain versions at
+     MEMC_Net_star's 768x1344 in bf16 and float32, on a (data 1, tile 4)
+     and a (1, 2, 2) grid with halo 64, on smooth, +-20 px and all-invalid
+     flows (counts and masks exact), timed beside their bounds; the tiled
+     warp and projection against the global ops on the card, with launches,
+     ms and device operations per call of each; MEMC_Net_star served at 720p
+     under spatial_tiling (tile 4, halo 64) through PaddedInterp, the launch
+     counts set to 0 just before and read just after (2 K1, 1 K2 and 1 K3
+     tile entry and 1 K4 per frame, no global K1-K3), against the untiled
+     forward on the same pairs; one float32 star step at 256x448 on a
+     one-rank NCCL group through DataParallelStep (DDP) and ZeroAdamax
+     against TrainStep and Adamax; and demo_hd720p --multihost as two
+     processes on the one card (a gloo host group) over phase 5's synthetic
+     stream in 4 GOPs: both processes work, the journal holds every GOP
+     once, and the stitched stream is byte-equal to a one-process run.
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.  Long output (the kernels' build
 log, the full results) goes to chiprun_out/chip_smoke/.
@@ -137,6 +153,20 @@ TPU_KERNELS = {
                      "memcnet_tpu/ops/pallas/conv_kernel.py:119"),
     "grid_sample": ("memcnet_tpu_torch/csrc/gather.cu",
                     "memcnet_tpu/ops/pallas/gather_kernel.py:135"),
+}
+
+# the tile entries (phase 8): no launch on any earlier path
+TILE_COUNTERS = {"filter_interp_warp_tile": 0, "base_scatter_tile": 0, "fill_holes_carry": 0}
+TILE_ENTRIES = {
+    "filter_interp_warp_tile": ("memcnet_tpu_torch/csrc/warp.cu",
+                                "memcnet_tpu/ops/pallas/warp_kernel.py:827",
+                                "memcnet_tpu/parallel/tiling.py:51 (_local_filter_interp)"),
+    "base_scatter_tile": ("memcnet_tpu_torch/csrc/project.cu",
+                          "memcnet_tpu/ops/pallas/scatter_kernel.py:156",
+                          "memcnet_tpu/parallel/tiling.py:187-222 (tiled_flow_project's scatter)"),
+    "fill_holes_carry": ("memcnet_tpu_torch/csrc/project.cu",
+                         "memcnet_tpu/ops/pallas/fill_kernel.py:114",
+                         "memcnet_tpu/parallel/tiling.py:236 (_tiled_fill)"),
 }
 
 # the ShapeRecorder rows (phase 5) that hold each kernel of the line; K3
@@ -251,10 +281,12 @@ def record_row(rows, name, dtype, check, k_ms, p_ms, lib_ms, nbytes, flops, op_d
         max_abs_err=err, check=rule, check_value=measure, ok=ok, ms=k_ms, plain_ms=p_ms,
         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
         **(extra or {}))
+    def ms(v):
+        return "-" if v is None else f"{v:.4f} ms"
+
     log(f"  {name:<19} {dtype:<8} max_abs_err {err:.3e} [{rule}: {measure:.3g}] "
-        f"{'ok' if ok else 'FAIL'}  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
-        f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"{'ok' if ok else 'FAIL'}  kernel {ms(k_ms)}  plain {ms(p_ms)}  "
+        f"library {ms(lib_ms)}  bound {b_ms:.4f} ms ({b_by})")
     if not ok:
         raise CheckFailed(f"{name} {dtype}: kernel disagrees with its plain version "
                           f"({rule}: {measure})")
@@ -655,7 +687,7 @@ def phase_serve(torch, name, n_pairs, results):
     counts = K.launch_counts()
     log(f"  {name}: served {n_pairs} pairs: ms/frame {', '.join(f'{m:.3f}' for m in ms)}; "
         f"launches {counts}")
-    for kname, per in EXPECTED_PER_FRAME[name].items():
+    for kname, per in {**TILE_COUNTERS, **EXPECTED_PER_FRAME[name]}.items():
         if counts[kname] != per * n_pairs:
             raise CheckFailed(f"{name}: {kname} launched {counts[kname]} times in {n_pairs} "
                               f"frames, expected {per * n_pairs}")
@@ -722,7 +754,7 @@ def phase_serve_ve(torch, results):
     counts = K.launch_counts()
     log(f"  {name}: served {VE_WINDOWS} windows: ms/window {', '.join(f'{m:.3f}' for m in ms)}; "
         f"launches {counts}")
-    for kname, per in EXPECTED_PER_FRAME[name].items():
+    for kname, per in {**TILE_COUNTERS, **EXPECTED_PER_FRAME[name]}.items():
         if counts[kname] != per * VE_WINDOWS:
             raise CheckFailed(f"{name}: {kname} launched {counts[kname]} times in {VE_WINDOWS} "
                               f"windows, expected {per * VE_WINDOWS}")
@@ -892,7 +924,7 @@ def run_demo(torch, results, path, main, argv, items, expected):
     counts = K.launch_counts()
     with open(os.path.join(OUT_DIR, f"{path}.log"), "w") as f:
         f.write(out.getvalue() + err.getvalue())
-    for kname, per in expected.items():
+    for kname, per in {**TILE_COUNTERS, **expected}.items():
         if counts[kname] != per * items:
             raise CheckFailed(f"{path}: {kname} launched {counts[kname]} times over {items} "
                               f"items, expected {per * items}")
@@ -1398,13 +1430,13 @@ TRAIN_RUNS = (("MEMC_Net_star", "float32", 6), ("MEMC_Net_star", "bfloat16", 6),
 # training turns off; SPyNet has 5 levels at 256x448 (it stops halving at 16x28)
 EXPECTED_PER_STEP = {
     "MEMC_Net_star": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 0,
-                      "conv2d_small": 1, "grid_sample": 0},
+                      "conv2d_small": 1, "grid_sample": 0, **TILE_COUNTERS},
     "MEMC_Net_s": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 0,
-                   "conv2d_small": 25, "grid_sample": 5},
+                   "conv2d_small": 25, "grid_sample": 5, **TILE_COUNTERS},
     "MEMC_Net": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 0,
-                 "conv2d_small": 0, "grid_sample": 0},
+                 "conv2d_small": 0, "grid_sample": 0, **TILE_COUNTERS},
     "MEMC_Net_VE": {"filter_interp_warp": 1, "base_scatter": 0, "fill_holes": 0,
-                    "conv2d_small": 1, "grid_sample": 0},
+                    "conv2d_small": 1, "grid_sample": 0, **TILE_COUNTERS},
 }
 # the autograd Functions whose backward is autograd of a kernel's plain version
 BACKWARD_NODES = {"filter_interp_warp": "_WarpFunctionBackward",
@@ -1802,7 +1834,7 @@ OPLIB_SEPCONV_FS = 11       # separable_conv's 1-D kernel length
 OPLIB_CTX_C = 16            # bilinear_warp_ch's channels
 # the op library's run: launches of each kernel over one call of each op
 EXPECTED_OPLIB = {"filter_interp_warp": 1, "base_scatter": 3, "fill_holes": 3,
-                  "conv2d_small": 0, "grid_sample": 0}
+                  "conv2d_small": 0, "grid_sample": 0, **TILE_COUNTERS}
 # ops whose backward is the reference's hand rule: held backward too
 HAND_BACKWARD = ("depth_flow_project", "occlusion_weight", "pixel_splat", "pixel_value",
                  "pixel_weight", "reliable_weight")
@@ -2073,6 +2105,434 @@ def phase_oplib(torch, results):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the parallel layer on the one card
+
+TILE_HALO = 64               # the served tiles' halo: 336-column tiles at 1344
+TILE_GRIDS = (("tile4", None), ("tile2x2", "tile_h"))  # (data 1, tile 4), (1, 2, 2)
+TILED_PAIRS = 2
+EXPECTED_TILED_FRAME = {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
+                        "conv2d_small": 1, "grid_sample": 0, "filter_interp_warp_tile": 2,
+                        "base_scatter_tile": 1, "fill_holes_carry": 1}
+TILED_SERVE_TOL = 1e-2       # of the output's scale: bf16 flows the two sums may round apart
+TILED_FLOW_PX = 8.0          # star's flows scaled to about this, inside the halo budget
+NCCL_H, NCCL_W = 256, 448    # the one-rank NCCL step (Vimeo-90K's size)
+MH_GOP_LEN = 4               # phase 5's 9-frame stream in 4 GOPs of one pair
+MH_TIMEOUT = 300             # seconds for each demo process
+
+
+def tile_mesh(torch, grid):
+    from memcnet_tpu_torch.parallel import make_mesh, make_mesh_2d
+
+    devs = [torch.device("cuda")] * 4
+    return make_mesh(4, devices=devs) if grid == "tile4" else make_mesh_2d(4, devices=devs)
+
+
+def tile_flows(torch, dev):
+    """phase 8's (2, 2, H, W) float32 flows, within the halo budget:
+    smooth (+-6 px), +-20 px with noise and a band of columns landing left
+    of the frame, and every pixel landing below the frame (fy = 3 H; where H
+    is tiled the vertical clamp brings most of them back)."""
+    ys = torch.arange(H, device=dev, dtype=torch.float32).view(H, 1)
+    xs = torch.arange(W, device=dev, dtype=torch.float32).view(1, W)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    out = {}
+    for name, amp in (("smooth", 6.0), ("pm20", 20.0)):
+        f = torch.stack([amp * torch.sin(2 * np.pi * ys / H) * torch.cos(2 * np.pi * xs / W),
+                         0.6 * amp * torch.cos(2 * np.pi * xs / W).expand(H, W)])
+        f = f.expand(2, 2, H, W).clone()
+        if name == "pm20":
+            f += 0.5 * torch.randn(f.shape, generator=gen, device=dev)
+            f[:, 0, :, :24] = -40.0
+        out[name] = f
+    inv = torch.zeros((2, 2, H, W), device=dev)
+    inv[:, 1] = 3.0 * H
+    out["invalid"] = inv
+    return out
+
+
+def tile_inputs(torch, mesh, axis_h, images, flow, filt):
+    """What the tiled ops hand the tile entries: halo-extended sources, the
+    tiles' flows and filters, and their origins."""
+    from memcnet_tpu_torch.parallel import tiling as T
+
+    B = images[0].shape[0]
+    ring = T._ring(mesh, B, "tile", axis_h)
+    Wl, Hl, hh = T._grid(mesh, images[0].shape, "tile", axis_h, TILE_HALO, None)
+    exts = []
+    for im in images:
+        e = T._exchange_halo(ring.split(im), ring, "tile", TILE_HALO, -1)
+        exts.append(T._exchange_halo(e, ring, axis_h, hh, -2) if axis_h else e)
+    origins = T._origins(ring, "tile", axis_h, Wl, Hl, flow.device)
+    return ring, exts, ring.split(flow), None if filt is None else ring.split(filt), origins, hh
+
+
+def phase_tile_entries(torch, results):
+    """The tile entries against their plain versions, and the tiled ops
+    against the global ones, at star's 768x1344 (see the module docstring)."""
+    from memcnet_tpu_torch import ops
+    from memcnet_tpu_torch.ops import cuda as K
+    from memcnet_tpu_torch.ops.cuda import project_kernel as P
+    from memcnet_tpu_torch.ops.cuda import warp_kernel
+    from memcnet_tpu_torch.parallel import tiling as T
+    from memcnet_tpu_torch.probe import device_ops
+
+    dev = torch.device("cuda")
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    flows = tile_flows(torch, dev)
+    rows, whole = {}, {}
+    for dtype_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        esize = torch.tensor([], dtype=dt).element_size()
+        frame = torch.rand((1, 3, H, W), generator=gen, device=dev).to(dt)
+        ctx = torch.randn((1, 64, H, W), generator=gen, device=dev).to(dt)
+        filt = (torch.rand((1, 16, H, W), generator=gen, device=dev) / 8.0).to(dt)
+        for grid, axis_h in TILE_GRIDS:
+            mesh = tile_mesh(torch, grid)
+            for fname, flow2 in flows.items():
+                tag = f"{grid} {fname}"
+                timed = grid == "tile4" and fname == "pm20"
+                f1 = flow2[:1].contiguous()
+                flow_dt = flow2.to(dt)
+                # --- K1's tile entry
+                ring, exts, fl, fi, org, hh = tile_inputs(torch, mesh, axis_h, (frame, ctx), f1,
+                                                          filt)
+                geom = (TILE_HALO, hh, 4, W, H)
+                got = warp_kernel.launch_tile(exts, fl, fi, org, *geom)
+                ref = warp_kernel.tile_reference(exts, fl, fi, org, *geom)
+                check = compare(list(zip(got, ref)), 1e-4)
+                n, _, He, We = exts[0].shape
+                nvalid = int(warp_kernel.tile_taps(fl, org, TILE_HALO, hh, 4, W, H)[0].sum())
+                k_ms = p_ms = None
+                if timed:
+                    k_ms = timed_ms(torch, lambda: warp_kernel.launch_tile(exts, fl, fi, org,
+                                                                           *geom), flush=flush)
+                    p_ms = timed_ms(torch, lambda: warp_kernel.tile_reference(exts, fl, fi, org,
+                                                                              *geom),
+                                    reps=3, flush=flush)
+                record_row(rows, f"filter_interp_warp_tile[{tag}]", dtype_name, check,
+                           k_ms, p_ms, None,
+                           nbytes=n * (He * We * 67 * esize + H * W // n * (2 * 4 + 16 * esize
+                                                                              + 67 * esize)),
+                           flops=nvalid * 2 * 16 * 67, op_dtype="float32",
+                           extra=dict(valid_pixels=nvalid, tiles=n))
+                # --- K2's tile entry
+                ring, _, fl2, _, org2, hh = tile_inputs(torch, mesh, axis_h, (flow_dt,), flow_dt,
+                                                        None)
+                got = P.launch_tile_sums(fl2, org2, TILE_HALO, hh, W, H)
+                ref = P.tile_sums_reference(fl2, org2, TILE_HALO, hh, W, H)
+                if not torch.equal(got[:, 2], ref[:, 2]):
+                    raise CheckFailed(f"base_scatter_tile {tag} {dtype_name}: counts differ from "
+                                      "the plain version")
+                n2, _, He2, We2 = got.shape
+                lib_ms = k_ms = p_ms = None
+                if timed:
+                    k_ms = timed_ms(torch, lambda: P.launch_tile_sums(fl2, org2, TILE_HALO, hh, W,
+                                                                      H), flush=flush)
+                    p_ms = timed_ms(torch, lambda: P.tile_sums_reference(fl2, org2, TILE_HALO,
+                                                                         hh, W, H),
+                                    reps=3, flush=flush)
+                    lib_ms = tile_scatter_library_ms(torch, P, fl2, org2, hh, flush)
+                # float32 sums of up to ~10 values of |f| <= 20 in a run-dependent order
+                record_row(rows, f"base_scatter_tile[{tag}]", dtype_name,
+                           compare([(got, ref)], 1e-3), k_ms, p_ms, lib_ms,
+                           nbytes=n2 * (H * W // n2 * 2 * esize + 3 * He2 * We2 * 4), flops=0,
+                           op_dtype="float32")
+                # --- K3's carry entry, on the plain pipeline's average, counts and carries
+                avg, cnt, ring = T._tiled_average(mesh, flow_dt, TILE_HALO, "tile", axis_h,
+                                                  None)
+                has = cnt > 0.0
+                left = T._carry(T._edge_message(has, avg, 2, last=True), ring, "tile", 1)
+                right = T._carry(T._edge_message(has, avg, 2, last=False), ring, "tile", -1)
+                up = (T._carry(T._edge_message(has, avg, 1, last=True), ring, axis_h, 1)
+                      if axis_h else None)
+                args = (avg.contiguous(), cnt.contiguous(), left, right, up, dt)
+                got = P.launch_carry_fill(*args)
+                ref = P.carry_fill_reference(*args)
+                holes = int((~has).sum())
+                carried = int(((left[:, 0] > 0) | (right[:, 0] > 0)).sum())
+                if fname == "invalid" and not axis_h and (holes != has.numel() or got.any()):
+                    raise CheckFailed(f"fill_holes_carry {tag} {dtype_name}: an all-invalid "
+                                      f"flow left {has.numel() - holes} projected pixels or a "
+                                      "nonzero fill")
+                k_ms = p_ms = None
+                if timed:
+                    k_ms = timed_ms(torch, lambda: P.launch_carry_fill(*args), flush=flush)
+                    p_ms = timed_ms(torch, lambda: P.carry_fill_reference(*args), reps=3,
+                                    flush=flush)
+                Hl, Wl = avg.shape[2:]
+                carry_bytes = 4 * (left.numel() + right.numel() + (up.numel() if axis_h else 0))
+                record_row(rows, f"fill_holes_carry[{tag}]", dtype_name,
+                           compare([(got, ref)], 1e-5), k_ms, p_ms, None,
+                           nbytes=avg.shape[0] * Hl * Wl * (2 * 4 + 4 + 2 * esize) + carry_bytes,
+                           flops=0, op_dtype="float32",
+                           extra=dict(holes=holes, rows_with_a_carry=carried))
+                # --- the tiled ops against the global ones (within the halo budget)
+                if fname == "invalid" and axis_h:
+                    continue  # the vertical clamp moves these landings by contract
+                kw = dict(halo=TILE_HALO, axis_h=axis_h)
+                w_t = T.tiled_filter_interp_warp_split(mesh, (frame, ctx), f1, filt, **kw)
+                w_g = ops.filter_interp_warp_split((frame, ctx), f1, filt)
+                p_t = T.tiled_flow_project(mesh, flow_dt, fillhole=True, **kw)
+                p_g = ops.flow_project(flow_dt, fillhole=True)
+                wc = compare(list(zip(w_t, w_g)), 1e-4)
+                # the spill bands add in another order than the global fold: float32
+                # sums of values |f| <= 40 that may nearly cancel, then one rounding
+                pc = compare([(p_t, p_g)], 1e-4, long_sums=True)
+                entry = dict(warp_max_abs_err=wc[0], warp_check=wc[1], project_max_abs_err=pc[0],
+                             project_check=pc[1])
+                log(f"  tiled vs global {tag} {dtype_name}: warp max_abs_err {wc[0]:.3e} "
+                    f"[{wc[3]}: {wc[1]:.3g}], flow_project max_abs_err {pc[0]:.3e} "
+                    f"[{pc[3]}: {pc[1]:.3g}]")
+                if not (wc[1] <= wc[2] and pc[1] <= pc[2]):
+                    raise CheckFailed(f"tiled ops {tag} {dtype_name}: differ from the global ops")
+                if fname == "pm20":
+                    calls = {
+                        "warp tiled": lambda: T.tiled_filter_interp_warp_split(
+                            mesh, (frame, ctx), f1, filt, **kw),
+                        "warp global": lambda: ops.filter_interp_warp_split((frame, ctx), f1,
+                                                                            filt),
+                        "flow_project tiled": lambda: T.tiled_flow_project(
+                            mesh, flow_dt, fillhole=True, **kw),
+                        "flow_project global": lambda: ops.flow_project(flow_dt, fillhole=True)}
+                    for cname, fn in calls.items():
+                        K.reset_counters()
+                        fn()
+                        launched = {k: v for k, v in K.launch_counts().items() if v}
+                        n_ops, dev_ms, _ = device_ops(fn)
+                        entry[cname] = dict(launches=launched, device_ops=n_ops,
+                                            device_ms=dev_ms,
+                                            ms=timed_ms(torch, fn, reps=5, flush=flush))
+                        log(f"    {cname:<20} launches {launched}, {n_ops} device operations, "
+                            f"device ms {dev_ms:.4f}, {entry[cname]['ms']:.4f} ms by events")
+                whole[f"{tag} {dtype_name}"] = entry
+    results["tile_entries"] = dict(kernels=rows, tiled_vs_global=whole)
+    torch.cuda.empty_cache()
+
+
+def tile_scatter_library_ms(torch, P, flow, origins, hh, flush):
+    """One PyTorch call for the tile entry's base scatter: scatter_add_ of
+    the (-fx, -fy, 1) payload at the landing cells of the extended buffer."""
+    n, _, Hl, Wl = flow.shape
+    He, We = Hl + 2 * hh, Wl + 2 * TILE_HALO
+    f = flow.float()
+    fx = f[:, 0].clamp(-(TILE_HALO - 1), TILE_HALO - 1)
+    fy = f[:, 1].clamp(-(hh - 1), hh - 1) if hh else f[:, 1]
+    xo = origins[:, 0].long().view(n, 1, 1)
+    yo = origins[:, 1].long().view(n, 1, 1)
+    x2 = (xo + torch.arange(Wl, device=f.device).view(1, 1, Wl)).float() + fx
+    y2 = (yo + torch.arange(Hl, device=f.device).view(1, Hl, 1)).float() + fy
+    valid = (x2 >= 0) & (y2 >= 0) & (x2 <= W - 1) & (y2 <= H - 1)
+    ix = x2.to(torch.int32).clamp(0, W - 1).long() - xo + TILE_HALO
+    iy = y2.to(torch.int32).clamp(0, H - 1).long() - yo + hh
+    lin = torch.where(valid, iy * We + ix, 0).view(n, 1, -1).expand(n, 3, Hl * Wl)
+    payload = torch.where(valid[:, None], torch.stack([-fx, -fy, torch.ones_like(fx)], 1), 0.0)
+    payload = payload.reshape(n, 3, -1).contiguous()
+    return timed_ms(torch, lambda: torch.zeros(n, 3, He * We, device=f.device).scatter_add_(
+        2, lin, payload), flush=flush)
+
+
+def phase_tiled_serve(torch, results):
+    """MEMC_Net_star served at 720p in bf16 under spatial_tiling (tile 4,
+    halo 64) through PaddedInterp, against the untiled forward on the same
+    pairs (see TILED_SERVE_TOL).  Random weights give flows of about 1e-8
+    px, so FlowNetS's last conv (the flow is linear in it) is scaled first to
+    give flows of about TILED_FLOW_PX, which the halos must then carry."""
+    from memcnet_tpu_torch.cli.runner import PaddedInterp, build_model
+    from memcnet_tpu_torch.ops import cuda as K
+    from memcnet_tpu_torch.parallel import spatial_tiling
+
+    model = build_model("MEMC_Net_star", seed=0, dtype=torch.bfloat16, device="cuda")
+    interp = PaddedInterp(model, dtype=torch.bfloat16, device="cuda")
+    mesh = tile_mesh(torch, "tile4")
+    pairs = [synthetic_frames(10 + s) for s in range(TILED_PAIRS)]
+    raw = max(float(np.abs(o).max()) for o in interp(*pairs[0])[1]["offsets"])
+    with torch.no_grad():
+        model.flownets.predict_flow2.weight.mul_(TILED_FLOW_PX / raw)
+    untiled, ms_untiled = [], []
+    for x0, x2 in [pairs[0]] + pairs:  # the first is a warm-up
+        t0 = time.perf_counter()
+        untiled.append(interp(x0, x2))
+        ms_untiled.append((time.perf_counter() - t0) * 1e3)
+    untiled, ms_untiled = untiled[1:], ms_untiled[1:]
+    with spatial_tiling(mesh, halo=TILE_HALO):
+        interp(*pairs[0])  # warm-up, not counted
+        torch.cuda.synchronize()
+        K.reset_counters()
+        outs, ms = [], []
+        for x0, x2 in pairs:
+            t0 = time.perf_counter()
+            outs.append(interp(x0, x2))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = K.launch_counts()
+    expect = {k: v * TILED_PAIRS for k, v in EXPECTED_TILED_FRAME.items()}
+    worst, flow_max = 0.0, 0.0
+    for (out, aux), (ref, ref_aux) in zip(outs, untiled):
+        if out.shape != (3, FRAME_H, FRAME_W) or not np.isfinite(out).all():
+            raise CheckFailed(f"tiled star: output shape {out.shape}, finite "
+                              f"{np.isfinite(out).all()}")
+        worst = max(worst, float(np.abs(out - ref).max()) / max(1.0, float(np.abs(ref).max())))
+        flow_max = max(flow_max, *(float(np.abs(o).max()) for o in ref_aux["offsets"]))
+    log(f"  MEMC_Net_star bf16 720p under spatial_tiling (tile 4, halo {TILE_HALO}): "
+        f"{TILED_PAIRS} pairs, ms/frame {', '.join(f'{m:.3f}' for m in ms)} (untiled "
+        f"{', '.join(f'{m:.3f}' for m in ms_untiled)}); launches {counts}; against the untiled "
+        f"forward: max err {worst:.3e} of the output's scale (tol {TILED_SERVE_TOL}); largest "
+        f"projected flow {flow_max:.3f} px (halo budget {TILE_HALO - 4}; random weights gave "
+        f"{raw:.3e} px before FlowNetS's last conv was scaled)")
+    results["tiled_serve"] = dict(ms_per_frame=ms, untiled_ms_per_frame=ms_untiled,
+                                  launches=counts, rel_err=worst, flow_max=flow_max,
+                                  flow_max_random=raw)
+    if counts != expect:
+        raise CheckFailed(f"tiled star: launches {counts}, expected {expect}")
+    if not worst <= TILED_SERVE_TOL or not 1.0 <= flow_max <= TILE_HALO - 4:
+        raise CheckFailed(f"tiled star: differs from the untiled forward ({worst}) or its flows "
+                          f"leave the halo budget ({flow_max})")
+    del model, interp
+    torch.cuda.empty_cache()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_nccl_step(torch, results):
+    """One float32 MEMC_Net_star step at 256x448 on a one-rank NCCL group
+    through DataParallelStep (DDP) and ZeroAdamax, against TrainStep and
+    Adamax on the same card: the loss within 1e-6 relative, the parameters
+    within 1e-6 on at least 99.9% of their elements and within 2 lr
+    everywhere (the projection's atomics sum in a run-dependent order, and
+    Adamax's first update is about lr * sign(g))."""
+    import torch.distributed as dist
+
+    from memcnet_tpu_torch.cli.runner import build_model
+    from memcnet_tpu_torch.parallel import make_mesh
+    from memcnet_tpu_torch.parallel.step import DataParallelStep
+    from memcnet_tpu_torch.train.trainer import interp_loss_fn
+    from memcnet_tpu_torch.parallel.zero import ZeroAdamax
+    from memcnet_tpu_torch.train.trainer import Adamax, TrainStep
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(3)
+    x = [rng.rand(1, 3, NCCL_H, NCCL_W).astype(np.float32) for _ in range(3)]
+    ref_model = build_model("MEMC_Net_star", seed=0, device="cuda")
+    ref_loss = TrainStep(ref_model, Adamax(ref_model, lr=TRAIN_LR), interp_loss_fn(ref_model),
+                         "cuda")(*x)
+    want = {k: v.detach().clone() for k, v in ref_model.named_parameters()}
+    del ref_model
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(group=dist.group.WORLD)
+        model = build_model("MEMC_Net_star", seed=0, device="cuda")
+        opt = ZeroAdamax(model, mesh.group, lr=TRAIN_LR)
+        step = DataParallelStep(model, opt, interp_loss_fn(model), mesh.axis_group("data"),
+                                "cuda")
+        loss = step(*x)
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    total = close = 0
+    worst = 0.0
+    for k, p in model.named_parameters():
+        d = (p.detach() - want[k]).abs()
+        worst = max(worst, float(d.max()))
+        total += d.numel()
+        close += int((d <= 1e-6).sum())
+    rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    log(f"  one-rank {backend} step, MEMC_Net_star float32 {NCCL_H}x{NCCL_W}: loss "
+        f"{float(loss):.6f} against {float(ref_loss):.6f} (rel {rel:.2e}); parameters within "
+        f"1e-6 on {close / total:.6f} of elements, max {worst:.3e} (2 lr = {2 * TRAIN_LR:.1e})")
+    results["nccl_step"] = dict(backend=backend, loss=float(loss), ref_loss=float(ref_loss),
+                                loss_rel=rel, params_close_share=close / total,
+                                params_max_abs=worst, mesh=dict(mesh.shape))
+    if not (rel <= 1e-6 and close >= 0.999 * total and worst <= 2 * TRAIN_LR * (1 + 1e-3)):
+        raise CheckFailed("one-rank NCCL step: differs from TrainStep with Adamax")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
+def phase_multihost(torch, results, work):
+    """demo_hd720p --multihost as two processes on the one card (a gloo host
+    group from MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK and LOCAL_RANK)
+    over phase 5's synthetic stream in 4 GOPs, against one process."""
+    from memcnet_tpu_torch import probe
+    from memcnet_tpu_torch.cli import demo_hd720p
+    from memcnet_tpu_torch.parallel.gop import split_gops, stitch_parts
+
+    src = probe.write_yuv(os.path.join(work, "mh.yuv"),
+                          probe.moving_frames(0, HD_FRAMES + 1, FRAME_H, FRAME_W))
+
+    def argv(out, journal):
+        return ["--yuv", src, "--height", str(FRAME_H), "--width", str(FRAME_W), "--frames",
+                str(HD_FRAMES), "--out-dir", out, "--gop-len", str(MH_GOP_LEN), "--net-name",
+                "MEMC_Net_star", "--dtype", "bfloat16", "--uid", "mh", "--journal", journal]
+
+    base_out, mh_out = os.path.join(work, "mh_base"), os.path.join(work, "mh_two")
+    pairs = len([p for g in split_gops(HD_FRAMES + 1, MH_GOP_LEN) for p in g.pairs()])
+    run_demo(torch, results, "demo_hd720p_one_process", demo_hd720p.main,
+             argv(base_out, os.path.join(work, "mh_base.journal")), pairs,
+             EXPECTED_PER_FRAME["MEMC_Net_star"])
+    journal = os.path.join(work, "mh_two.journal")
+    port = str(free_port())
+    logs = [open(os.path.join(OUT_DIR, f"multihost_rank{r}.log"), "w") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "memcnet_tpu_torch.cli.demo_hd720p", *argv(mh_out, journal),
+         "--multihost"], cwd=HERE, stdout=logs[r], stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=HERE, MASTER_ADDR="localhost", MASTER_PORT=port,
+                 WORLD_SIZE="2", RANK=str(r), LOCAL_RANK=str(r))) for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=MH_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall_s = time.perf_counter() - t0
+    texts = [open(os.path.join(OUT_DIR, f"multihost_rank{r}.log")).read() for r in range(2)]
+    if rcs != [0, 0]:
+        raise CheckFailed(f"demo_hd720p --multihost: exit codes {rcs}:\n{texts[0][-2000:]}\n"
+                          f"{texts[1][-2000:]}")
+    gen_dir = os.path.join(mh_out, "mh")
+    parts = [os.path.join(gen_dir, f"mh.yuv.part{r}") for r in range(2)]
+    sizes = [os.path.getsize(p) if os.path.exists(p) else 0 for p in parts]
+    gids = sorted(int(x) for x in open(journal).read().split())
+    want_gids = [g.gop_id for g in split_gops(HD_FRAMES + 1, MH_GOP_LEN)]
+    stitched = stitch_parts(parts, os.path.join(gen_dir, "stitched.yuv"),
+                            n_frames=HD_FRAMES + 1, height=FRAME_H, width=FRAME_W,
+                            gop_len=MH_GOP_LEN)
+    base = open(os.path.join(base_out, "mh", "mh.yuv"), "rb").read()
+    equal = open(stitched, "rb").read() == base
+    both = all(f"process {r}/2" in texts[r] for r in range(2))
+    log(f"  demo_hd720p --multihost, 2 processes on one card, {len(want_gids)} GOPs: part bytes "
+        f"{sizes}, journal {gids}, stitched stream byte-equal to one process {equal}; "
+        f"wall {wall_s:.1f} s (logs in chiprun_out/chip_smoke/multihost_rank*.log)")
+    results["multihost"] = dict(part_bytes=sizes, journal=gids, byte_equal=equal, wall_s=wall_s,
+                                gops=len(want_gids))
+    if not (both and all(sizes) and sum(sizes) == len(base) and gids == want_gids and equal):
+        raise CheckFailed("demo_hd720p --multihost: both processes must work, the journal hold "
+                          "every GOP once and the stitched stream equal one process's")
+
+
+def phase_parallel(torch, results):
+    """Phase 8: the tile entries, star tiled, the NCCL step, the multihost demo."""
+    import tempfile
+
+    phase_tile_entries(torch, results)
+    phase_tiled_serve(torch, results)
+    phase_nccl_step(torch, results)
+    with tempfile.TemporaryDirectory() as work:
+        phase_multihost(torch, results, work)
+
+
 def main():
     import torch
 
@@ -2129,6 +2589,9 @@ def main():
         torch.cuda.empty_cache()
         log("phase 7: the op library on the card")
         phase_oplib(torch, results)
+        torch.cuda.empty_cache()
+        log("phase 8: the parallel layer on the one card")
+        phase_parallel(torch, results)
     except Exception:  # every failure ends the run with no result line
         traceback.print_exc()
         with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
@@ -2153,6 +2616,7 @@ def main():
         by_path.update({f"train_{tag}": r["launches"][name]
                         for tag, r in results["train"].items()})
         by_path["oplib"] = results["oplib"]["launches"][name]
+        by_path["serve_tiled"] = results["tiled_serve"]["launches"][name]
 
         def row(key):
             r, o = krows[key][dt], krows[key][other]
@@ -2225,6 +2689,24 @@ def main():
                     "launches_by_path": {"oplib": {"flow_project": down_launches}},
                     **orow("fill_holes[down]"),
                     "whole_op": {"name": "flow_project[down]", **orow("flow_project[down]")}})
+    # phase 8's entries: the tile entries of K1, K2 and K3, launched by star's
+    # tiled 720p serving; their rows at (data 1, tile 4) on the +-20 px flows
+    trows = results["tile_entries"]["kernels"]
+    for name, (source, replaces, computes) in TILE_ENTRIES.items():
+        key = f"{name}[tile4 pm20]"
+        r, o = trows[key]["bfloat16"], trows[key]["float32"]
+        held = {k: max(v[d]["max_abs_err"] for d in v) for k, v in trows.items()
+                if k.startswith(name + "[")}
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "computes": computes,
+                        "launches": results["tiled_serve"]["launches"][name],
+                        "launches_by_path": {"serve_tiled": results["tiled_serve"]["launches"][
+                            name]},
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"], "dtype": "bfloat16",
+                        "other_dtype_max_abs_err": o["max_abs_err"], "other_dtype_ms": o["ms"],
+                        "other_dtype_library_ms": o["library_ms"], "cases_held": held})
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump(results, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -14,8 +14,13 @@ MEMC_Net_s and MEMC_Net (``cli.runner.PaddedInterp``) and MEMC_Net_VE
 checkpoints (``io``) and GOP scheduler (``parallel.gop``); training of all
 four models (``model.train()``, ``train``: losses, Adamax with optax's
 numbers, train steps, ``build_interp_trainer``, ``fit``, resumable); the whole
-op library (``ops``: N1-N11); and the host library (``native``: the C++ YUV
-reader, built with g++ at first use; ``io.t7_import``; ``utils.flowviz``).
+op library (``ops``: N1-N11); the host library (``native``: the C++ YUV
+reader, built with g++ at first use; ``io.t7_import``; ``utils.flowviz``);
+and the parallel layer (``parallel``: ``Mesh``, ``make_mesh``,
+``make_mesh_2d``, ``zero1_partition``, ``spatial_tiling``, ``data_parallel``,
+the tiled warp and projection on tile entries of K1-K3, ``ZeroAdamax``,
+``DataParallelStep``, ``sharded_train_step``, and the HD720p demo's
+``--multihost``).
 Entry points and train steps default to ``device="cuda"`` and raise without
 CUDA unless the caller asks for the CPU.
 """

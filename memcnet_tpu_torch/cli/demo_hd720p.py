@@ -13,8 +13,19 @@ an interrupted run can be resumed.  `--trace-dir` wraps the run in a
 torch.profiler trace, and StageTimers report proc/total per item (the
 reference's AverageMeter protocol, demo_Vimeo_VE.py:97-98).  Frames are read
 by the native C++ prefetching reader (native.NativeYUVReader, stride 2) when
-its library builds, else by data.yuv.YUVRead, as the JAX demo does; the JAX
-demo's multihost launch is not ported.
+its library builds, else by data.yuv.YUVRead, as the JAX demo does.
+
+``--multihost`` joins a process group from torch's own environment contract
+(MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK, as ``torchrun`` sets them):
+the GOPs are split round-robin across the processes (parallel.gop), each
+writes its own ``.partN`` stream segment and the journal is shared, and
+parallel.gop.stitch_parts merges the parts into the one-process stream.  The
+group only coordinates hosts, so its backend is gloo whatever the device;
+each process serves on ``cuda:{LOCAL_RANK % device count}`` unless
+``--device cpu`` is given:
+
+  torchrun --nproc-per-node 2 -m memcnet_tpu_torch.cli.demo_hd720p --multihost \
+      --yuv input.yuv --height 720 --width 1280 --journal run.journal
 """
 
 import argparse
@@ -118,6 +129,22 @@ def run(cfg, yuv_path, height, width, out_dir, frames=100, step=2, *,
     return psnr_m.avg, ssim_m.avg
 
 
+def join_process_group(device):
+    """Initialise the gloo process group from MASTER_ADDR, MASTER_PORT,
+    WORLD_SIZE and RANK; returns the device this process serves on."""
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method="env://")
+    if torch.device(device).type == "cuda" and torch.cuda.is_available():
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        device = f"cuda:{local % torch.cuda.device_count()}"
+        torch.cuda.set_device(device)  # the kernels launch on the current device
+    print(f"process group up: process {dist.get_rank()}/{dist.get_world_size()}, "
+          f"serving on {device}", file=sys.stderr)
+    return device
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     add_config_args(ap)
@@ -133,11 +160,21 @@ def main(argv=None):
     ap.add_argument("--trace-dir", default=None,
                     help="write a torch.profiler trace (trace.json) here")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join a process group from MASTER_ADDR, MASTER_PORT, WORLD_SIZE and "
+                         "RANK (torchrun's environment) and split the GOPs across it")
     args = ap.parse_args(argv)
     cfg = config_from_args(args)
-    return run(cfg, args.yuv, args.height, args.width, args.out_dir,
-               args.frames, gop_len=args.gop_len, journal=args.journal,
-               trace_dir=args.trace_dir, uid=cfg.uid, device=args.device)
+    device = join_process_group(args.device) if args.multihost else args.device
+    try:
+        return run(cfg, args.yuv, args.height, args.width, args.out_dir,
+                   args.frames, gop_len=args.gop_len, journal=args.journal,
+                   trace_dir=args.trace_dir, uid=cfg.uid, device=device)
+    finally:
+        if args.multihost:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

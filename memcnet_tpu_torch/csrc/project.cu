@@ -54,6 +54,24 @@
 // reads for a line of L pixels whatever the holes, so a flow whose every
 // landing is invalid (every pixel a hole) costs no more than any other.
 // Float sums land in a run-dependent order; counts (sums of 1.0) are exact.
+//
+// The tile entries serve parallel/tiling.py's tiled projection (the JAX
+// package's memcnet_tpu/parallel/tiling.py::tiled_flow_project, whose
+// scatter lands in a halo-extended buffer and so never takes the Pallas
+// kernel).  Each sample is one tile of an Hg x Wg frame at its own origin:
+//
+//   K2  memc_project_tile_sums: a memset, project_tile_scatter_kernel (the
+//       flow clamped to +-(halo - 1), and to +-(halo_h - 1) when halo_h > 0;
+//       the gate in the frame's coordinates; (-fx, -fy, 1) atomicAdded at the
+//       landing cell in the extended buffer's coordinates) and
+//       project_raw_fold_kernel (both +1 folds at the extended buffer's own
+//       edges, no divide).  The spill exchange between tiles, the crop and
+//       the divide follow in PyTorch.
+//   K3  memc_project_fill_carry: a memset, project_mask_kernel (the has-value
+//       masks of a cropped tile from its count) and project_fill_kernel with
+//       carries: where a tile's own bit search finds nothing, the nearest
+//       value from the tiles to the left, to the right and (H tiled) above,
+//       per row or column, takes its place.  No down search.
 #include "common.cuh"
 
 namespace memc {
@@ -234,13 +252,32 @@ __device__ __forceinline__ int nearest_above(const uint32_t* __restrict__ words,
   return ww * 32 + __ffs(static_cast<int>(words[ww])) - 1;
 }
 
+// A carry in (B, 3, L) for line i of sample b, added where the search found
+// nothing (the missing direction added 0 before it, so the sum's order is
+// the plain version's).
+__device__ __forceinline__ void carry_in(const float* __restrict__ carry, int b, int i, int L,
+                                         bool missing, float* nx, float* ny, float* den) {
+  const float* c = carry + static_cast<int64_t>(3 * b) * L + i;
+  if (missing && c[0] > 0.f) {
+    *nx += c[L];
+    *ny += c[2 * L];
+    *den += 1.f;
+  }
+}
+
 // Block: 32 x 8 threads, one pixel each; grid (words_for(W), ceil(H / 8), B).
-// kDown adds the nearest value below (fix_down_scan_bug).
-template <typename T, bool kDown>
+// kDown adds the nearest value below (fix_down_scan_bug).  kCarry: where a
+// search finds nothing, the carry of its direction stands in for it: left
+// and right (B, 3, H) per row, up (B, 3, W) per column or null (the tile
+// entry's carries from the other tiles; plane 0 > 0 if there is a value,
+// planes 1 and 2 the value).
+template <typename T, bool kDown, bool kCarry>
 __global__ void __launch_bounds__(256)
 project_fill_kernel(const float* __restrict__ avg, const uint32_t* __restrict__ rows,
                     const uint32_t* __restrict__ row_sums, const uint32_t* __restrict__ cols,
-                    const uint32_t* __restrict__ col_sums, T* __restrict__ out, int H, int W) {
+                    const uint32_t* __restrict__ col_sums, T* __restrict__ out, int H, int W,
+                    const float* __restrict__ left, const float* __restrict__ right,
+                    const float* __restrict__ up) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int b = blockIdx.z;
@@ -267,16 +304,21 @@ project_fill_kernel(const float* __restrict__ avg, const uint32_t* __restrict__ 
   nx += l >= 0 ? ax[row + l] : 0.f;
   ny += l >= 0 ? ay[row + l] : 0.f;
   den += l >= 0 ? 1.f : 0.f;
+  if constexpr (kCarry) carry_in(left, b, y, H, l < 0, &nx, &ny, &den);
   const int r = nearest_above(rw, rs, x, W);
   nx += r < W ? ax[row + r] : 0.f;
   ny += r < W ? ay[row + r] : 0.f;
   den += r < W ? 1.f : 0.f;
+  if constexpr (kCarry) carry_in(right, b, y, H, r >= W, &nx, &ny, &den);
   const int64_t cline = static_cast<int64_t>(b) * W + x;
   const int u = nearest_below(cols + cline * nh, col_sums + cline * words_for(nh), y);
-  const int64_t up = static_cast<int64_t>(u) * W + x;
-  nx += u >= 0 ? ax[up] : 0.f;
-  ny += u >= 0 ? ay[up] : 0.f;
+  const int64_t up_at = static_cast<int64_t>(u) * W + x;
+  nx += u >= 0 ? ax[up_at] : 0.f;
+  ny += u >= 0 ? ay[up_at] : 0.f;
   den += u >= 0 ? 1.f : 0.f;
+  if constexpr (kCarry) {
+    if (up != nullptr) carry_in(up, b, x, W, u < 0, &nx, &ny, &den);
+  }
   if (kDown) {
     const int d = nearest_above(cols + cline * nh, col_sums + cline * words_for(nh), y, H);
     const int64_t down = static_cast<int64_t>(d) * W + x;
@@ -286,6 +328,119 @@ project_fill_kernel(const float* __restrict__ avg, const uint32_t* __restrict__ 
   }
   ox[0] = from_f32<T>(den > 0.f ? nx / den : ax[p]);
   ox[HW] = from_f32<T>(den > 0.f ? ny / den : ay[p]);
+}
+
+// K2's tile entry: one thread per source pixel of a tile (B tiles of H x W,
+// sources of an Hg x Wg frame at origins (x0, y0) per tile), landing in the
+// (He, We) = (H + 2 halo_h, W + 2 halo) extended buffer.  The landing cell
+// is the frame's, moved to the buffer, so tiles land where the global op
+// lands.
+template <typename T>
+__global__ void __launch_bounds__(256)
+project_tile_scatter_kernel(const T* __restrict__ flow, const int* __restrict__ origins,
+                            float* __restrict__ sums, int H, int W, int halo, int halo_h, int Hg,
+                            int Wg, int64_t total) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int64_t HW = static_cast<int64_t>(H) * W;
+  const int64_t b = idx / HW;
+  const int64_t p = idx - b * HW;
+  const int y = static_cast<int>(p / W);
+  const int x = static_cast<int>(p - static_cast<int64_t>(y) * W);
+  const T* f = flow + 2 * b * HW + p;
+  float fx = to_f32(f[0]);
+  float fy = to_f32(f[HW]);
+  const float bx = static_cast<float>(halo - 1);
+  fx = fx < -bx ? -bx : (fx > bx ? bx : fx);  // NaN stays NaN and fails the gate
+  if (halo_h) {
+    const float by = static_cast<float>(halo_h - 1);
+    fy = fy < -by ? -by : (fy > by ? by : fy);
+  }
+  const int x0 = origins[2 * b], y0 = origins[2 * b + 1];
+  const float x2 = static_cast<float>(x0 + x) + fx;
+  const float y2 = static_cast<float>(y0 + y) + fy;
+  if (!(x2 >= 0.f && y2 >= 0.f && x2 <= static_cast<float>(Wg - 1) &&
+        y2 <= static_cast<float>(Hg - 1)))
+    return;
+  const int He = H + 2 * halo_h, We = W + 2 * halo;
+  const int ix = clampi(clampi(__float2int_rz(x2), 0, Wg - 1) - x0 + halo, 0, We - 1);
+  const int iy = clampi(clampi(__float2int_rz(y2), 0, Hg - 1) - y0 + halo_h, 0, He - 1);
+  const int64_t HWe = static_cast<int64_t>(He) * We;
+  float* s = sums + 3 * b * HWe + static_cast<int64_t>(iy) * We + ix;
+  atomicAdd(s, -fx);
+  atomicAdd(s + HWe, -fy);
+  atomicAdd(s + 2 * HWe, 1.f);
+}
+
+// Both +1 folds of the three planes of S at the buffer's own edges, in the
+// plain version's order, no divide: one thread per target pixel.
+__global__ void __launch_bounds__(256)
+project_raw_fold_kernel(const float* __restrict__ sums, float* __restrict__ out, int H, int W,
+                        int64_t total) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= total) return;  // total = B * 3 * H * W, one plane after another
+  const int64_t HW = static_cast<int64_t>(H) * W;
+  const int64_t q = idx / HW;
+  const int64_t p = idx - q * HW;
+  const int y = static_cast<int>(p / W);
+  const int x = static_cast<int>(p - static_cast<int64_t>(y) * W);
+  const float* plane = sums + q * HW;
+  const float t = fold_x(plane, y, x, W);
+  const float tp = y > 0 ? fold_x(plane, y - 1, x, W) : 0.f;
+  out[idx] = t + fold_term(tp, t, y, H);
+}
+
+// The has-value masks (count > 0) of (B, H, W) counts, as project_fold_kernel
+// writes them with the fill: block 32 x 8 over a tile of 32 columns x 32 rows,
+// grid (words_for(W), words_for(H), B).
+__global__ void __launch_bounds__(kTile * kTileWarps)
+project_mask_kernel(const float* __restrict__ cnt, uint32_t* __restrict__ rows,
+                    uint32_t* __restrict__ row_sums, uint32_t* __restrict__ cols,
+                    uint32_t* __restrict__ col_sums, int H, int W) {
+  __shared__ uint32_t tile_rows[kTile];
+  const int lane = threadIdx.x;
+  const int x = blockIdx.x * kTile + lane;
+  const int b = blockIdx.z;
+  const int64_t HW = static_cast<int64_t>(H) * W;
+  for (int r = threadIdx.y; r < kTile; r += kTileWarps) {
+    const int y = blockIdx.y * kTile + r;
+    const bool has = y < H && x < W && cnt[b * HW + static_cast<int64_t>(y) * W + x] > 0.f;
+    const uint32_t word = __ballot_sync(kFullMask, has);
+    if (lane == 0) {
+      tile_rows[r] = word;
+      if (y < H) {
+        const int64_t line = static_cast<int64_t>(b) * H + y;
+        const int nw = words_for(W);
+        rows[line * nw + blockIdx.x] = word;
+        if (word) atomicOr(row_sums + line * words_for(nw) + blockIdx.x / 32, 1u << (blockIdx.x % 32));
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.y != 0 || x >= W) return;
+  uint32_t word = 0;
+  for (int r = 0; r < kTile; ++r) word |= ((tile_rows[r] >> lane) & 1u) << r;
+  const int64_t line = static_cast<int64_t>(b) * W + x;
+  const int nh = words_for(H);
+  cols[line * nh + blockIdx.y] = word;
+  if (word) atomicOr(col_sums + line * words_for(nh) + blockIdx.y / 32, 1u << (blockIdx.y % 32));
+}
+
+template <typename T>
+cudaError_t launch_tile_sums(const T* flow, const int* origins, float* sums, float* out, int B,
+                             int H, int W, int halo, int halo_h, int Hg, int Wg, cudaStream_t st) {
+  const int64_t He = H + 2 * halo_h, We = W + 2 * halo;
+  cudaError_t err = cudaMemsetAsync(sums, 0, sizeof(float) * 3 * B * He * We, st);
+  if (err != cudaSuccess) return err;
+  const int64_t total = static_cast<int64_t>(B) * H * W;
+  project_tile_scatter_kernel<T><<<ceil_div(total, 256), 256, 0, st>>>(
+      flow, origins, sums, H, W, halo, halo_h, Hg, Wg, total);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t planes = 3 * B * He * We;
+  project_raw_fold_kernel<<<ceil_div(planes, 256), 256, 0, st>>>(sums, out, static_cast<int>(He),
+                                                                  static_cast<int>(We), planes);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -450,19 +605,87 @@ MEMC_API int memc_project_fill(const void* avg, const void* rows, const void* ro
   if (dtype == memc::kFloat32) {
     auto* o = static_cast<float*>(out);
     if (down) {
-      memc::project_fill_kernel<float, true><<<grid, block, 0, st>>>(a, r, rs, c, cs, o, H, W);
+      memc::project_fill_kernel<float, true, false><<<grid, block, 0, st>>>(
+          a, r, rs, c, cs, o, H, W, nullptr, nullptr, nullptr);
     } else {
-      memc::project_fill_kernel<float, false><<<grid, block, 0, st>>>(a, r, rs, c, cs, o, H, W);
+      memc::project_fill_kernel<float, false, false><<<grid, block, 0, st>>>(
+          a, r, rs, c, cs, o, H, W, nullptr, nullptr, nullptr);
     }
   } else if (dtype == memc::kBFloat16) {
     auto* o = static_cast<__nv_bfloat16*>(out);
     if (down) {
-      memc::project_fill_kernel<__nv_bfloat16, true><<<grid, block, 0, st>>>(a, r, rs, c, cs, o,
-                                                                              H, W);
+      memc::project_fill_kernel<__nv_bfloat16, true, false><<<grid, block, 0, st>>>(
+          a, r, rs, c, cs, o, H, W, nullptr, nullptr, nullptr);
     } else {
-      memc::project_fill_kernel<__nv_bfloat16, false><<<grid, block, 0, st>>>(a, r, rs, c, cs,
-                                                                               o, H, W);
+      memc::project_fill_kernel<__nv_bfloat16, false, false><<<grid, block, 0, st>>>(
+          a, r, rs, c, cs, o, H, W, nullptr, nullptr, nullptr);
     }
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// K2's tile entry.  flow: (B, 2, H, W) tiles in dtype; origins: (B, 2) int32
+// on the device, each tile's (x, y) origin in the Hg x Wg frame; sums:
+// (B, 3, H + 2 halo_h, W + 2 halo) float32 scratch; out: the same shape,
+// float32: the base sums of (-fx, -fy, 1) with both +1 folds at the
+// extended buffer's edges.  halo_h = 0: H is not tiled.
+MEMC_API int memc_project_tile_sums(const void* flow, const void* origins, void* sums, void* out,
+                                    int B, int H, int W, int halo, int halo_h, int Hg, int Wg,
+                                    int dtype, void* stream) {
+  if (B == 0 || H == 0 || W == 0) return cudaSuccess;
+  if (halo < 1 || halo_h < 0 || origins == nullptr) return cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* o = static_cast<const int*>(origins);
+  auto* s = static_cast<float*>(sums);
+  auto* r = static_cast<float*>(out);
+  if (dtype == memc::kFloat32) {
+    return memc::launch_tile_sums(static_cast<const float*>(flow), o, s, r, B, H, W, halo, halo_h,
+                                  Hg, Wg, st);
+  }
+  if (dtype == memc::kBFloat16) {
+    return memc::launch_tile_sums(static_cast<const __nv_bfloat16*>(flow), o, s, r, B, H, W, halo,
+                                  halo_h, Hg, Wg, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// K3's carry entry.  avg: (B, 2, H, W) float32, the cropped tiles'
+// average; cnt: (B, H, W) float32, their counts; masks: int32 scratch of
+// row_sums, col_sums, rows, cols in that order (the layouts of
+// memc_project_sums); left, right: (B, 3, H) float32 carries per row; up:
+// (B, 3, W) per column, or null where H is not tiled; out: (B, 2, H, W) in
+// dtype.
+MEMC_API int memc_project_fill_carry(const void* avg, const void* cnt, void* masks,
+                                     const void* left, const void* right, const void* up,
+                                     void* out, int B, int H, int W, int dtype, void* stream) {
+  if (B == 0 || H == 0 || W == 0) return cudaSuccess;
+  if (left == nullptr || right == nullptr) return cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int nw = memc::words_for(W), nh = memc::words_for(H);
+  auto* rs = static_cast<uint32_t*>(masks);
+  uint32_t* cs = rs + static_cast<int64_t>(B) * H * memc::words_for(nw);
+  uint32_t* r = cs + static_cast<int64_t>(B) * W * memc::words_for(nh);
+  uint32_t* c = r + static_cast<int64_t>(B) * H * nw;
+  // the summaries are ORed into; every mask word is written
+  cudaError_t err = cudaMemsetAsync(rs, 0, sizeof(uint32_t) * (r - rs), st);
+  if (err != cudaSuccess) return err;
+  memc::project_mask_kernel<<<dim3(nw, nh, B), dim3(memc::kTile, memc::kTileWarps), 0, st>>>(
+      static_cast<const float*>(cnt), r, rs, c, cs, H, W);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nw, memc::ceil_div(H, 8), B), block(32, 8);
+  const auto* a = static_cast<const float*>(avg);
+  const auto* lf = static_cast<const float*>(left);
+  const auto* rt = static_cast<const float*>(right);
+  const auto* u = static_cast<const float*>(up);
+  if (dtype == memc::kFloat32) {
+    memc::project_fill_kernel<float, false, true><<<grid, block, 0, st>>>(
+        a, r, rs, c, cs, static_cast<float*>(out), H, W, lf, rt, u);
+  } else if (dtype == memc::kBFloat16) {
+    memc::project_fill_kernel<__nv_bfloat16, false, true><<<grid, block, 0, st>>>(
+        a, r, rs, c, cs, static_cast<__nv_bfloat16*>(out), H, W, lf, rt, u);
   } else {
     return cudaErrorInvalidValue;
   }

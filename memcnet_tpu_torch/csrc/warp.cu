@@ -37,6 +37,19 @@
 // MEMC_Net and MEMC_Net_s), where staging does not pay, gather straight from global memory as
 // before.  Tap sums run in the same (j, i) order on both paths, so the two
 // agree bit for bit.
+//
+// The tile entry (memc_filter_interp_warp_tile) is the same kernel with
+// the TILE flag, for parallel/tiling.py's tiled warp (the JAX package's
+// memcnet_tpu/parallel/tiling.py::_local_filter_interp, which runs no Pallas
+// kernel): each sample is one tile of a larger frame, its sources extended
+// by a halo of `halo` columns (and `halo_h` rows) on each side, its flow and
+// filter and its output at the tile's own size.  Per pixel it clamps the
+// flow to the halo budget (+-(halo - fs), and +-(halo_h - fs) when halo_h >
+// 0), gates in the whole frame's coordinates (the tile's origin, per
+// sample, plus the pixel; |f| < frame/2 on the clamped flow), takes the taps
+// in the extended tile's coordinates clamped to its edges, and passes the
+// extended tile's centre through where the gate fails.  The flag is a
+// template parameter, so the global warp's instances are unchanged.
 #include "common.cuh"
 
 #include <climits>
@@ -58,9 +71,24 @@ struct WarpSources {
   int n;
 };
 
+// The geometry of a tile launch (memc_filter_interp_warp_tile): the sources
+// are (B, C, H + 2 halo_h, W + 2 halo) around (B, ., H, W) tiles of an
+// Hg x Wg frame.
+struct TileGeom {
+  const int* origins;  // (B, 2) int32: each sample's tile origin (x, y) in the frame
+  int halo, halo_h;
+  int Hg, Wg;
+};
+
+// clamp to [-b, b]; NaN stays NaN (and fails the gate), as torch.clamp
+__device__ __forceinline__ float clamp_flow(float f, float b) {
+  return f < -b ? -b : (f > b ? b : f);
+}
+
 // The per-pixel part shared by both paths: gate, tap rows and columns
-// (edge-clamped) and tap weights rounded to the source type.
-template <typename T, int FS>
+// (edge-clamped, in the source's coordinates) and tap weights rounded to the
+// source type.
+template <typename T, int FS, bool TILE>
 struct PixelTaps {
   bool valid;
   int row[FS];  // clamped tap rows
@@ -68,27 +96,43 @@ struct PixelTaps {
   float wt[FS * FS];
 
   __device__ __forceinline__ void init(const float* __restrict__ flow, const T* __restrict__ filt,
-                                       int b, int x, int y, int H, int W) {
+                                       int b, int x, int y, int H, int W, const TileGeom& g) {
     const int plane = H * W;
     const int pix = y * W + x;
     const float* fl = flow + static_cast<int64_t>(2 * b) * plane;
-    const float fx = fl[pix];
-    const float fy = fl[plane + pix];
-    const float x2 = static_cast<float>(x) + fx;
-    const float y2 = static_cast<float>(y) + fy;
-    valid = x2 >= 0.f && y2 >= 0.f && x2 <= static_cast<float>(W - 1) &&
-            y2 <= static_cast<float>(H - 1) && fabsf(fx) < 0.5f * W && fabsf(fy) < 0.5f * H;
+    float fx = fl[pix];
+    float fy = fl[plane + pix];
+    // the whole frame (Hg x Wg), this pixel's place in it, and the source
+    // (sH x sW) the taps read, with the frame's (x0, y0) at (ox, oy)
+    int Hg = H, Wg = W, sH = H, sW = W, gx = x, gy = y, ox = 0, oy = 0;
+    if constexpr (TILE) {
+      fx = clamp_flow(fx, static_cast<float>(g.halo - FS));
+      if (g.halo_h) fy = clamp_flow(fy, static_cast<float>(g.halo_h - FS));
+      Hg = g.Hg;
+      Wg = g.Wg;
+      sH = H + 2 * g.halo_h;
+      sW = W + 2 * g.halo;
+      const int x0 = g.origins[2 * b], y0 = g.origins[2 * b + 1];
+      gx = x0 + x;
+      gy = y0 + y;
+      ox = g.halo - x0;
+      oy = g.halo_h - y0;
+    }
+    const float x2 = static_cast<float>(gx) + fx;
+    const float y2 = static_cast<float>(gy) + fy;
+    valid = x2 >= 0.f && y2 >= 0.f && x2 <= static_cast<float>(Wg - 1) &&
+            y2 <= static_cast<float>(Hg - 1) && fabsf(fx) < 0.5f * Wg && fabsf(fy) < 0.5f * Hg;
     if (!valid) return;
     // int() truncation == floor on the valid domain (x2, y2 >= 0)
-    const int ix = clampi(static_cast<int>(x2), 0, W - 1);
-    const int iy = clampi(static_cast<int>(y2), 0, H - 1);
+    const int ix = clampi(static_cast<int>(x2), 0, Wg - 1);
+    const int iy = clampi(static_cast<int>(y2), 0, Hg - 1);
     const float alpha = x2 - static_cast<float>(ix);
     const float beta = y2 - static_cast<float>(iy);
     constexpr int half = FS / 2;
 #pragma unroll
-    for (int j = 0; j < FS; ++j) row[j] = clampi(iy + 1 - half + j, 0, H - 1);
+    for (int j = 0; j < FS; ++j) row[j] = clampi(iy + oy + 1 - half + j, 0, sH - 1);
 #pragma unroll
-    for (int i = 0; i < FS; ++i) col[i] = clampi(ix + 1 - half + i, 0, W - 1);
+    for (int i = 0; i < FS; ++i) col[i] = clampi(ix + ox + 1 - half + i, 0, sW - 1);
     const T* fp = filt + static_cast<int64_t>(b) * FS * FS * plane + pix;
 #pragma unroll
     for (int j = 0; j < FS; ++j) {
@@ -104,15 +148,16 @@ struct PixelTaps {
 };
 
 // The plane of flat channel f (sources in order) of batch item b, and its
-// output plane.
+// output plane (planes of src_plane and out_plane elements).
 template <typename T>
-__device__ __forceinline__ void channel_planes(const WarpSources& s, int f, int b, int64_t plane,
+__device__ __forceinline__ void channel_planes(const WarpSources& s, int f, int b,
+                                               int64_t src_plane, int64_t out_plane,
                                                const T** src, T** out) {
   int k = 0;
   while (f >= s.channels[k]) f -= s.channels[k++];
-  const int64_t off = (static_cast<int64_t>(b) * s.channels[k] + f) * plane;
-  *src = static_cast<const T*>(s.src[k]) + off;
-  *out = static_cast<T*>(s.out[k]) + off;
+  const int64_t bc = static_cast<int64_t>(b) * s.channels[k] + f;
+  *src = static_cast<const T*>(s.src[k]) + bc * src_plane;
+  *out = static_cast<T*>(s.out[k]) + bc * out_plane;
 }
 
 // Two channels' values of one box element, interleaved in shared memory.
@@ -121,10 +166,12 @@ struct __align__(2 * sizeof(T)) Pair {
   T a, b;
 };
 
-template <typename T, int FS, bool BOX>
+// H x W: the output (and flow and filter) planes; TILE reads sources of
+// (H + 2 g.halo_h) x (W + 2 g.halo).
+template <typename T, int FS, bool BOX, bool TILE>
 __global__ void __launch_bounds__(kWarpBX * kWarpBY, 4)
 filter_interp_warp_kernel(WarpSources s, const float* __restrict__ flow,
-                          const T* __restrict__ filt, int H, int W) {
+                          const T* __restrict__ filt, int H, int W, TileGeom g) {
   __shared__ Pair<T> box_s[BOX ? 2 : 1][BOX ? kBoxMax : 1];
   __shared__ int red_s[4][BOX ? kWarpBY : 1];
   const int x = blockIdx.x * kWarpBX + threadIdx.x;
@@ -134,10 +181,14 @@ filter_interp_warp_kernel(WarpSources s, const float* __restrict__ flow,
   const bool inside = x < W && y < H;
   const int plane = H * W;
   const int pix = y * W + x;
+  // the source's row length, plane and the pixel's own place in it
+  const int sW = TILE ? W + 2 * g.halo : W;
+  const int src_plane = TILE ? (H + 2 * g.halo_h) * sW : plane;
+  const int centre = TILE ? (y + g.halo_h) * sW + x + g.halo : pix;
 
-  PixelTaps<T, FS> p;
+  PixelTaps<T, FS, TILE> p;
   p.valid = false;
-  if (inside) p.init(flow, filt, b, x, y, H, W);
+  if (inside) p.init(flow, filt, b, x, y, H, W, g);
 
   int total = 0;
   for (int k = 0; k < s.n; ++k) total += s.channels[k];
@@ -184,20 +235,19 @@ filter_interp_warp_kernel(WarpSources s, const float* __restrict__ flow,
     if (!inside) return;
     for (int k = 0; k < s.n; ++k) {
       const int C = s.channels[k];
-      const int64_t off = static_cast<int64_t>(b) * C * plane;
-      const T* src = static_cast<const T*>(s.src[k]) + off;
-      T* out = static_cast<T*>(s.out[k]) + off + pix;
+      const T* src = static_cast<const T*>(s.src[k]) + static_cast<int64_t>(b) * C * src_plane;
+      T* out = static_cast<T*>(s.out[k]) + static_cast<int64_t>(b) * C * plane + pix;
       for (int c = 0; c < C; ++c) {
-        const T* sp = src + c * plane;
+        const T* sp = src + c * src_plane;
         if (!p.valid) {
-          out[c * plane] = sp[pix];
+          out[c * plane] = sp[centre];
           continue;
         }
         float acc = 0.f;
 #pragma unroll
         for (int j = 0; j < FS; ++j) {
 #pragma unroll
-          for (int i = 0; i < FS; ++i) acc = fmaf(p.wt[j * FS + i], to_f32(sp[p.row[j] * W + p.col[i]]), acc);
+          for (int i = 0; i < FS; ++i) acc = fmaf(p.wt[j * FS + i], to_f32(sp[p.row[j] * sW + p.col[i]]), acc);
         }
         out[c * plane] = from_f32<T>(acc);
       }
@@ -215,7 +265,7 @@ filter_interp_warp_kernel(WarpSources s, const float* __restrict__ flow,
   for (int r = 0; r < kBoxLoads; ++r) {
     const int i = tid + r * kThreads;
     const int br = i / bw;
-    ld_off[r] = i < bw * bh ? (lo_y + br) * W + lo_x + (i - br * bw) : -1;
+    ld_off[r] = i < bw * bh ? (lo_y + br) * sW + lo_x + (i - br * bw) : -1;
   }
   int tap_off[FS * FS];
   if (p.valid) {
@@ -232,7 +282,7 @@ filter_interp_warp_kernel(WarpSources s, const float* __restrict__ flow,
       if (f0 + u < total) {
         const T* sp;
         T* op;
-        channel_planes<T>(s, f0 + u, b, plane, &sp, &op);
+        channel_planes<T>(s, f0 + u, b, src_plane, plane, &sp, &op);
 #pragma unroll
         for (int r = 0; r < kBoxLoads; ++r) {
           if (ld_off[r] >= 0) v[u][r] = sp[ld_off[r]];
@@ -264,17 +314,18 @@ filter_interp_warp_kernel(WarpSources s, const float* __restrict__ flow,
       if (f0 + u < total) {
         const T* sp;
         T* op;
-        channel_planes<T>(s, f0 + u, b, plane, &sp, &op);
-        op[pix] = p.valid ? from_f32<T>(acc[u]) : sp[pix];
+        channel_planes<T>(s, f0 + u, b, src_plane, plane, &sp, &op);
+        op[pix] = p.valid ? from_f32<T>(acc[u]) : sp[centre];
       }
     }
   }
 }
 
-template <typename T>
+template <typename T, bool TILE>
 cudaError_t launch_warp(const WarpSources& s, const float* flow, const T* filt, int B, int H, int W,
-                        int fs, cudaStream_t stream) {
-  if (static_cast<int64_t>(H) * W >= (int64_t{1} << 31)) return cudaErrorInvalidValue;
+                        int fs, const TileGeom& g, cudaStream_t stream) {
+  if (static_cast<int64_t>(H + 2 * g.halo_h) * (W + 2 * g.halo) >= (int64_t{1} << 31))
+    return cudaErrorInvalidValue;
   const dim3 block(kWarpBX, kWarpBY);
   const dim3 grid(ceil_div(W, kWarpBX), ceil_div(H, kWarpBY), B);
   int total = 0;
@@ -282,15 +333,35 @@ cudaError_t launch_warp(const WarpSources& s, const float* flow, const T* filt, 
   // a few channels do not repay staging the box: gather them directly
   const bool box = total > kGatherChannels;
   if (fs == 4) {
-    if (box) filter_interp_warp_kernel<T, 4, true><<<grid, block, 0, stream>>>(s, flow, filt, H, W);
-    else filter_interp_warp_kernel<T, 4, false><<<grid, block, 0, stream>>>(s, flow, filt, H, W);
+    if (box) filter_interp_warp_kernel<T, 4, true, TILE><<<grid, block, 0, stream>>>(s, flow, filt, H, W, g);
+    else filter_interp_warp_kernel<T, 4, false, TILE><<<grid, block, 0, stream>>>(s, flow, filt, H, W, g);
   } else if (fs == 2) {
-    if (box) filter_interp_warp_kernel<T, 2, true><<<grid, block, 0, stream>>>(s, flow, filt, H, W);
-    else filter_interp_warp_kernel<T, 2, false><<<grid, block, 0, stream>>>(s, flow, filt, H, W);
+    if (box) filter_interp_warp_kernel<T, 2, true, TILE><<<grid, block, 0, stream>>>(s, flow, filt, H, W, g);
+    else filter_interp_warp_kernel<T, 2, false, TILE><<<grid, block, 0, stream>>>(s, flow, filt, H, W, g);
   } else {
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+template <bool TILE>
+cudaError_t warp_entry(const WarpSources* sources, const void* flow, const void* filt, int B,
+                       int H, int W, int fs, int dtype, const TileGeom& g, void* stream) {
+  if (sources->n < 1 || sources->n > kMaxSources) return cudaErrorInvalidValue;
+  for (int k = 0; k < sources->n; ++k) {
+    if (sources->channels[k] < 1) return cudaErrorInvalidValue;
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* fl = static_cast<const float*>(flow);
+  if (dtype == kFloat32) {
+    return launch_warp<float, TILE>(*sources, fl, static_cast<const float*>(filt), B, H, W, fs, g,
+                                    st);
+  }
+  if (dtype == kBFloat16) {
+    return launch_warp<__nv_bfloat16, TILE>(*sources, fl, static_cast<const __nv_bfloat16*>(filt),
+                                            B, H, W, fs, g, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace memc
@@ -300,17 +371,19 @@ cudaError_t launch_warp(const WarpSources& s, const float* flow, const T* filt, 
 MEMC_API int memc_filter_interp_warp(const memc::WarpSources* sources, const void* flow,
                                      const void* filt, int B, int H, int W, int fs, int dtype,
                                      void* stream) {
-  if (sources->n < 1 || sources->n > memc::kMaxSources) return cudaErrorInvalidValue;
-  for (int k = 0; k < sources->n; ++k) {
-    if (sources->channels[k] < 1) return cudaErrorInvalidValue;
-  }
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* fl = static_cast<const float*>(flow);
-  if (dtype == memc::kFloat32) {
-    return memc::launch_warp(*sources, fl, static_cast<const float*>(filt), B, H, W, fs, st);
-  }
-  if (dtype == memc::kBFloat16) {
-    return memc::launch_warp(*sources, fl, static_cast<const __nv_bfloat16*>(filt), B, H, W, fs, st);
-  }
-  return cudaErrorInvalidValue;
+  const memc::TileGeom none{nullptr, 0, 0, H, W};
+  return memc::warp_entry<false>(sources, flow, filt, B, H, W, fs, dtype, none, stream);
+}
+
+// The tile entry.  sources: (B, C_k, H + 2 halo_h, W + 2 halo) halo-extended
+// tiles; flow: (B, 2, H, W) float32; filt: (B, fs*fs, H, W) in the sources'
+// type; origins: (B, 2) int32 on the device, each tile's (x, y) origin in the
+// Hg x Wg frame; outputs (B, C_k, H, W).  halo_h = 0: H is not tiled.
+MEMC_API int memc_filter_interp_warp_tile(const memc::WarpSources* sources, const void* flow,
+                                          const void* filt, const void* origins, int B, int H,
+                                          int W, int halo, int halo_h, int Hg, int Wg, int fs,
+                                          int dtype, void* stream) {
+  if (halo < fs || (halo_h != 0 && halo_h < fs) || origins == nullptr) return cudaErrorInvalidValue;
+  const memc::TileGeom g{static_cast<const int*>(origins), halo, halo_h, Hg, Wg};
+  return memc::warp_entry<true>(sources, flow, filt, B, H, W, fs, dtype, g, stream);
 }

@@ -82,17 +82,42 @@ def batch_norm_eval(x, gamma, beta, running_mean, running_var, eps=1e-5):
     return x * scale.to(x.dtype).view(1, -1, 1, 1) + shift.to(x.dtype).view(1, -1, 1, 1)
 
 
+def _synced_moments(x32, group):
+    """The batch mean and biased variance per channel over every rank of
+    ``group`` (a per-channel sum, then a centred sum of squares, each
+    all-reduced, differentiably), and the whole batch's count."""
+    from memcnet_tpu_torch.parallel.ring import all_reduce_sum
+
+    n_local = x32.shape[0] * x32.shape[2] * x32.shape[3]
+    sums = all_reduce_sum(torch.cat([x32.sum(dim=(0, 2, 3)), x32.new_tensor([n_local])]), group)
+    n = float(sums.detach()[-1])
+    mean = sums[:-1] / n
+    var = all_reduce_sum((x32 - mean.view(1, -1, 1, 1)).square().sum(dim=(0, 2, 3)), group) / n
+    return mean, var, int(n)
+
+
 def batch_norm_train(x, gamma, beta, running_mean, running_var, momentum=0.1, eps=1e-5):
     """BatchNorm2d in train mode (layers.py:208-232, torch's semantics):
     normalise by the biased batch variance, in float32 whatever x's type, and
     return the running statistics updated with the unbiased variance at
     ``momentum``: running = (1 - momentum) * running + momentum * batch.
     Returns (y in x's type, new running mean, new running var); the new
-    statistics keep the running statistics' type and carry no gradient."""
+    statistics keep the running statistics' type and carry no gradient.
+
+    Inside ``parallel.data_parallel(group)`` the batch is the whole batch
+    over the group's ranks, as GSPMD gives a batch-sharded BatchNorm in the
+    JAX package: the per-channel sum and centred sum are all-reduced, and the
+    unbiased count is the whole batch's."""
+    from memcnet_tpu_torch.parallel.context import active_data_group
+
     x32 = x.float()
-    mean = x32.mean(dim=(0, 2, 3))
-    var = (x32 - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
-    n = x.shape[0] * x.shape[2] * x.shape[3]
+    group = active_data_group()
+    if group is not None:
+        mean, var, n = _synced_moments(x32, group)
+    else:
+        mean = x32.mean(dim=(0, 2, 3))
+        var = (x32 - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+        n = x.shape[0] * x.shape[2] * x.shape[3]
     with torch.no_grad():
         unbiased = var * (n / max(n - 1, 1))
         new_mean = ((1.0 - momentum) * running_mean.float() + momentum * mean)

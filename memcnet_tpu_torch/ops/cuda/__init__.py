@@ -14,6 +14,10 @@ tensors.
   conv_kernel     K4  small-C conv: bf16 on tensor cores, float32 direct  (csrc/conv.cu)
   gather_kernel   K5  bilinear grid sample, and SPyNet's level input around it
                       in one launch               (csrc/gather.cu)
+
+and the tile entries of the tiled warp and projection (parallel/tiling.py):
+K1's (``warp_kernel.warp_tile``), K2's (``project_kernel.tile_sums``) and
+K3's carry entry (``project_kernel.carry_fill``), each with its own counter.
 """
 
 from memcnet_tpu_torch.ops.cuda import (
@@ -24,7 +28,8 @@ from memcnet_tpu_torch.ops.cuda import (
 )
 
 COUNTERS = (warp_kernel.counter, project_kernel.scatter_counter, project_kernel.fill_counter,
-            conv_kernel.counter, gather_kernel.counter)
+            conv_kernel.counter, gather_kernel.counter, warp_kernel.tile_counter,
+            project_kernel.tile_scatter_counter, project_kernel.carry_counter)
 
 
 def reset_counters():

@@ -132,6 +132,8 @@ def _declare(lib):
     lib.memc_error_string.restype = ctypes.c_char_p
     lib.memc_filter_interp_warp.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
     lib.memc_filter_interp_warp.restype = i
+    lib.memc_filter_interp_warp_tile.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp]
+    lib.memc_filter_interp_warp_tile.restype = i
     lib.memc_project_sums.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
     lib.memc_project_sums.restype = i
     lib.memc_project_payload.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
@@ -139,6 +141,10 @@ def _declare(lib):
     lib.memc_project_payload.restype = i
     lib.memc_project_fill.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
     lib.memc_project_fill.restype = i
+    lib.memc_project_tile_sums.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
+    lib.memc_project_tile_sums.restype = i
+    lib.memc_project_fill_carry.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
+    lib.memc_project_fill_carry.restype = i
     lib.memc_conv2d_small.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
     lib.memc_conv2d_small.restype = i
     lib.memc_conv2d_igemm.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp]

@@ -43,6 +43,19 @@ The TPU scatter's band plans turned the scatter into shifted vector adds, and
 the TPU fill carried the up search from band to band in ``carry_ref``, which
 needs grid steps that run in order; CUDA blocks do not.  Float sums land in a
 run-dependent order; counts (sums of 1.0) are exact.
+
+The tile entries serve ``parallel/tiling.py::tiled_flow_project`` (the JAX
+package's tiled projection, which runs no Pallas kernel: its scatter lands in
+a halo-extended buffer).  K2's (``tile_sums``; ``memc_project_tile_sums``:
+a memset, ``project_tile_scatter_kernel``, ``project_raw_fold_kernel``,
+counted by ``tile_scatter_counter``) scatters each tile's (-fx, -fy, 1),
+the flow clamped to the halo budget and gated in whole-frame coordinates,
+into its extended buffer and folds the +1 neighbours at that buffer's edges,
+with no divide: the spill exchange comes first.  K3's (``carry_fill``;
+``memc_project_fill_carry``: a memset, ``project_mask_kernel``,
+``project_fill_kernel`` with carries, counted by ``carry_counter``) fills a
+cropped tile, taking the carry from the other tiles wherever the tile's own
+search finds nothing: the nearest tile wins.
 """
 
 import functools
@@ -55,6 +68,8 @@ from memcnet_tpu_torch.ops.cuda import _lib
 
 scatter_counter = _lib.LaunchCounter("base_scatter")  # K2
 fill_counter = _lib.LaunchCounter("fill_holes")       # K3
+tile_scatter_counter = _lib.LaunchCounter("base_scatter_tile")  # K2's tile entry
+carry_counter = _lib.LaunchCounter("fill_holes_carry")         # K3's carry entry
 
 # int32 words; bit k of word j = pixel 32 j + k of the line, bit k of a
 # summary word j = mask word 32 j + k is not empty; bits past a line are 0.
@@ -114,20 +129,21 @@ def landing_cells(flow):
     return valid, ixL, iyT
 
 
-def scatter_reference(payload, lin):
+def scatter_reference(payload, lin, size=None):
     """K2's TPU function, plain: ``out[b, k, c]`` = sum of ``payload[b, k, p]``
     over the source pixels p with ``lin[b, p] == c`` (``index_add_`` over the
-    flattened batch); pixels with ``lin < 0`` add nothing."""
+    flattened batch); pixels with ``lin < 0`` add nothing.  The target is
+    ``size`` (H, W), the payload's own by default."""
     B, P, H, W = payload.shape
-    HW = H * W
+    Ht, Wt = size or (H, W)
     valid = lin >= 0
     cell = torch.where(valid, lin, torch.zeros_like(lin)).long()
-    cell = cell + (torch.arange(B, device=lin.device) * HW).view(B, 1, 1)
+    cell = cell + (torch.arange(B, device=lin.device) * (Ht * Wt)).view(B, 1, 1)
     src = torch.where(valid[:, None], payload.float(), 0.0)
-    src = src.permute(0, 2, 3, 1).reshape(B * HW, P)
-    out = torch.zeros(B * HW, P, dtype=torch.float32, device=payload.device)
+    src = src.permute(0, 2, 3, 1).reshape(B * H * W, P)
+    out = torch.zeros(B * Ht * Wt, P, dtype=torch.float32, device=payload.device)
     out = out.index_add(0, cell.reshape(-1), src)
-    return out.view(B, H, W, P).permute(0, 3, 1, 2).contiguous()
+    return out.view(B, Ht, Wt, P).permute(0, 3, 1, 2).contiguous()
 
 
 def base_sums(flow):
@@ -447,3 +463,161 @@ def payload_project(flow, payload, fillhole=False):
     if fillhole:
         out = _fill(out, mask_ptrs, flow.dtype)
     return out, extra
+
+
+# -- the tile entries ----------------------------------------------------------
+
+
+def tile_sums_reference(flow, origins, halo, halo_h, W, H):
+    """Plain version of K2's tile entry (the scatter of
+    memcnet_tpu/parallel/tiling.py::tiled_flow_project's body): flow (n, 2,
+    Hl, Wl) tiles at ``origins`` (n, 2) int32 (x, y) in the H x W frame,
+    clamped to +-(halo - 1) (and +-(halo_h - 1) with halo_h > 0), gated in
+    frame coordinates; (-fx, -fy, 1) scattered at the frame's landing cell
+    moved into the extended (Hl + 2 halo_h, Wl + 2 halo) buffer, then both
+    +1 folds at that buffer's edges.  Returns (n, 3, He, We) float32."""
+    n, _, Hl, Wl = flow.shape
+    He, We = Hl + 2 * halo_h, Wl + 2 * halo
+    f = flow.float()
+    fx = f[:, 0].clamp(-(halo - 1), halo - 1)
+    fy = f[:, 1]
+    if halo_h:
+        fy = fy.clamp(-(halo_h - 1), halo_h - 1)
+    xo = origins[:, 0].long().view(n, 1, 1)
+    yo = origins[:, 1].long().view(n, 1, 1)
+    x2 = (xo + torch.arange(Wl, device=f.device).view(1, 1, Wl)).float() + fx
+    y2 = (yo + torch.arange(Hl, device=f.device).view(1, Hl, 1)).float() + fy
+    valid = (x2 >= 0.0) & (y2 >= 0.0) & (x2 <= W - 1.0) & (y2 <= H - 1.0)
+    ix = (x2.to(torch.int32).clamp(0, W - 1).long() - xo + halo).clamp(0, We - 1)
+    iy = (y2.to(torch.int32).clamp(0, H - 1).long() - yo + halo_h).clamp(0, He - 1)
+    payload = torch.stack([-fx, -fy, torch.ones_like(fx)], dim=1)
+    lin = torch.where(valid, iy * We + ix, torch.full_like(ix, -1))
+    return fold(scatter_reference(payload, lin, (He, We)))
+
+
+def launch_tile_sums(flow, origins, halo, halo_h, W, H):
+    """K2's tile entry on CUDA tensors: the memset, the scatter and the
+    folds.  Returns (n, 3, He, We) float32."""
+    what = "project_tile_sums"
+    code = _lib.dtype_code(flow.dtype)
+    n, two, Hl, Wl = flow.shape
+    org = origins.to(torch.int32).contiguous()
+    if two != 2 or tuple(org.shape) != (n, 2):
+        raise ValueError(f"{what}: takes flow (n, 2, H, W) and origins (n, 2), got "
+                         f"{tuple(flow.shape)} and {tuple(origins.shape)}")
+    flow = flow.contiguous()
+    _lib.check_cuda_args(what, flow, org)
+    shape = (n, 3, Hl + 2 * halo_h, Wl + 2 * halo)
+    sums = torch.empty(shape, dtype=torch.float32, device=flow.device)
+    out = torch.empty_like(sums)
+    err = _lib.lib().memc_project_tile_sums(
+        flow.data_ptr(), org.data_ptr(), sums.data_ptr(), out.data_ptr(), n, Hl, Wl, halo, halo_h,
+        H, W, code, _lib.stream_ptr(flow))
+    _lib.check(err, what)
+    tile_scatter_counter.count += 1
+    return out
+
+
+class _TileSumsFunction(torch.autograd.Function):
+    """K2's tile entry; backward is autograd of ``tile_sums_reference``."""
+
+    @staticmethod
+    def forward(ctx, flow, origins, geom):
+        ctx.geom = geom
+        ctx.save_for_backward(flow, origins)
+        return launch_tile_sums(flow, origins, *geom)
+
+    @staticmethod
+    def backward(ctx, g):
+        flow, origins = ctx.saved_tensors
+        (gf,) = _lib.reference_grads(lambda f: tile_sums_reference(f, origins, *ctx.geom),
+                                     [flow], [True], [g])
+        return gf, None, None
+
+
+def tile_sums(flow, origins, halo, halo_h, W, H):
+    """K2's tile entry on CUDA tensors, its plain version on CPU tensors."""
+    if _lib.on_cuda(flow, origins):
+        return _TileSumsFunction.apply(flow, origins, (halo, halo_h, W, H))
+    return tile_sums_reference(flow, origins, halo, halo_h, W, H)
+
+
+def carry_fill_reference(avg, cnt, left, right, up, dtype):
+    """Plain version of K3's carry entry (memcnet_tpu/parallel/tiling.py::
+    _tiled_fill on one tile): each count-0 pixel of avg (n, 2, Hl, Wl)
+    float32 takes the mean of the nearest projected value to its left, to
+    its right and above, each from the tile itself or, where the tile has
+    none, from its carry: left and right (n, 3, Hl) per row, up (n, 3, Wl)
+    per column or None (plane 0 > 0: there is a value; planes 1-2: it).  The
+    result in ``dtype``."""
+    has = cnt > 0.0
+    a32 = avg.float()
+    num = torch.zeros_like(a32)
+    den = torch.zeros_like(a32[:, 0])
+    for axis, rev, carry in ((3, False, left), (3, True, right), (2, False, up)):
+        idx = _last_valid_index(has, axis - 1, rev)
+        found = idx >= 0
+        got = torch.gather(a32, axis, idx.clamp(min=0)[:, None].expand_as(a32))
+        if carry is not None:
+            c = carry.unsqueeze(axis)  # (n, 3, L, 1) per row, (n, 3, 1, L) per column
+            got = torch.where(found[:, None], got, c[:, 1:])
+            found = found | (c[:, 0] > 0.0)
+        num = num + torch.where(found[:, None], got, 0.0)
+        den = den + found.float()
+    hole = (~has) & (den > 0.0)
+    filled = num / torch.where(den > 0.0, den, 1.0)[:, None]
+    return torch.where(hole[:, None], filled, a32).to(dtype)
+
+
+def launch_carry_fill(avg, cnt, left, right, up, dtype):
+    """K3's carry entry on CUDA tensors: the memset, the masks and the fill
+    with carries.  Returns (n, 2, Hl, Wl) in ``dtype``."""
+    what = "project_fill_carry"
+    code = _lib.dtype_code(dtype)
+    n, K, Hl, Wl = avg.shape
+    ins = [t.float().contiguous() for t in (avg, cnt, left, right)]
+    ups = [] if up is None else [up.float().contiguous()]
+    want = [(n, 2, Hl, Wl), (n, Hl, Wl), (n, 3, Hl), (n, 3, Hl)] + [(n, 3, Wl)] * len(ups)
+    got = [tuple(t.shape) for t in ins + ups]
+    if got != want:
+        raise ValueError(f"{what}: shapes {got}, want {want}")
+    _lib.check_cuda_args(what, *ins, *ups)
+    shapes = mask_shapes(n, Hl, Wl)
+    masks = torch.empty(sum(math.prod(s) for s in shapes), dtype=torch.int32, device=avg.device)
+    out = torch.empty((n, 2, Hl, Wl), dtype=dtype, device=avg.device)
+    err = _lib.lib().memc_project_fill_carry(
+        ins[0].data_ptr(), ins[1].data_ptr(), masks.data_ptr(), ins[2].data_ptr(),
+        ins[3].data_ptr(), ups[0].data_ptr() if ups else None, out.data_ptr(), n, Hl, Wl, code,
+        _lib.stream_ptr(avg))
+    _lib.check(err, what)
+    carry_counter.count += 1
+    return out
+
+
+class _CarryFillFunction(torch.autograd.Function):
+    """K3's carry entry; backward is autograd of ``carry_fill_reference``."""
+
+    @staticmethod
+    def forward(ctx, avg, cnt, left, right, up, dtype):
+        ctx.dtype, ctx.has_up = dtype, up is not None
+        ctx.save_for_backward(avg, cnt, left, right, *([up] if up is not None else []))
+        return launch_carry_fill(avg, cnt, left, right, up, dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        avg, cnt, left, right, *up = ctx.saved_tensors
+        needs = [ctx.needs_input_grad[0], False, ctx.needs_input_grad[2],
+                 ctx.needs_input_grad[3]] + ([ctx.needs_input_grad[4]] if up else [])
+        grads = _lib.reference_grads(
+            lambda a, c, lf, rt, *u: carry_fill_reference(a, c, lf, rt, u[0] if u else None,
+                                                          ctx.dtype),
+            [avg, cnt, left, right, *up], needs, [g])
+        return grads[0], None, grads[2], grads[3], grads[4] if up else None, None
+
+
+def carry_fill(avg, cnt, left, right, up, dtype):
+    """K3's carry entry on CUDA tensors, its plain version on CPU tensors."""
+    ts = [avg, cnt, left, right] + ([up] if up is not None else [])
+    if _lib.on_cuda(*ts):
+        return _CarryFillFunction.apply(avg, cnt, left, right, up, dtype)
+    return carry_fill_reference(avg, cnt, left, right, up, dtype)

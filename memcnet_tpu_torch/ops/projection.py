@@ -25,6 +25,12 @@ projections scatter other payloads through the same machinery: K2's payload
 entry and, with the fill, K3 without the down search, on CUDA tensors; their
 plain compositions on CPU tensors.  Each payload is built in float32 by
 PyTorch in front of the kernel, as the JAX package builds it in XLA.
+
+Under an active ``parallel.spatial_tiling`` context ``flow_project``
+dispatches to the tiled projection (``parallel/tiling.py``), whose tile-local
+steps are K2's tile entry and K3's carry entry on CUDA tensors; with
+``fix_down_scan_bug`` it raises there, as the JAX package does.  The depth
+and gated projections are not tiled, in the JAX package either.
 """
 
 import torch
@@ -45,6 +51,17 @@ def reference(flow, *, fillhole=False, fix_down_scan_bug=False):
 def flow_project(flow, *, fillhole=False, fix_down_scan_bug=False):
     """Project forward flow F_{t->t+1} (B, 2, H, W) to time t (negated
     average scatter).  Returns (B, 2, H, W) in the flow's type."""
+    from memcnet_tpu_torch.parallel.context import active_tiling
+
+    t = active_tiling()
+    if t is not None:
+        if fix_down_scan_bug:
+            raise NotImplementedError(
+                "fix_down_scan_bug is not supported on the tiled projection path")
+        from memcnet_tpu_torch.parallel.tiling import tiled_flow_project
+
+        return tiled_flow_project(t.mesh, flow, halo=t.halo, fillhole=fillhole, axis=t.axis,
+                                  batch_axis=t.batch_axis, axis_h=t.axis_h, halo_h=t.halo_h)
     return project_kernel.flow_project(flow, fillhole, fix_down_scan_bug)
 
 

@@ -12,6 +12,10 @@ On CUDA tensors the forward is the hand-written kernel K1
 (ops/cuda/warp_kernel.py); on CPU tensors it is the plain PyTorch version
 beside it.  Gradients are autograd of the plain version in both cases.
 Landing coordinates are computed in float32 even for bf16 activations.
+Under an active ``parallel.spatial_tiling`` context both warps dispatch to
+the tiled warp (``parallel/tiling.py``: halo exchange, flow clamped to the
+halo budget), whose tile-local step is K1's tile entry on CUDA tensors; the
+split warp keeps its sources apart there too.
 
 ``bilinear_warp`` (N3, InterpolationLayer; N4, InterpolationChLayer, any
 channel count; my_lib_kernel.cu:507-686) is the classic backward warp, valid
@@ -37,12 +41,21 @@ def filter_interp_warp_split(images, flow, filt, *, filter_size=4):
     Returns:
       tuple of (B, C_k, H, W) warped tensors, one per source.
     """
+    from memcnet_tpu_torch.parallel.context import active_tiling
+
+    t = active_tiling()
+    if t is not None:
+        from memcnet_tpu_torch.parallel.tiling import tiled_filter_interp_warp_split
+
+        return tiled_filter_interp_warp_split(
+            t.mesh, images, flow, filt, filter_size=filter_size, halo=t.halo, axis=t.axis,
+            batch_axis=t.batch_axis, axis_h=t.axis_h, halo_h=t.halo_h)
     return warp_kernel.warp(tuple(images), flow, filt, filter_size)
 
 
 def filter_interp_warp(image, flow, filt, *, filter_size=4):
     """Warp one (B, C, H, W) source; see filter_interp_warp_split."""
-    return warp_kernel.warp((image,), flow, filt, filter_size)[0]
+    return filter_interp_warp_split((image,), flow, filt, filter_size=filter_size)[0]
 
 
 def gather_hw(image, iy, ix):

@@ -1,0 +1,77 @@
+"""Dispatch contexts of the parallel layer (port of memcnet_tpu/parallel/
+context.py, and the data-parallel context the port's BatchNorm reads).
+
+``spatial_tiling(mesh)`` makes ``filter_interp_warp``,
+``filter_interp_warp_split`` and ``flow_project`` dispatch to the halo-
+exchange implementations in ``parallel.tiling``: the warp and the
+projection are the ops whose data-dependent gathers and scatters the tiles
+must exchange by hand.  The JAX package consults the context while it traces
+a jitted step; the port's ops read it each time they are called, so the same
+model code serves the whole frame and the tiled one.
+
+``data_parallel(group)`` makes the train-mode BatchNorm
+(``nn.layers.batch_norm_train``) reduce its batch statistics over the ranks
+of ``group``, as GSPMD does for a batch-sharded BatchNorm in the JAX
+package's sharded step.
+
+Both contexts are thread-local.
+
+    mesh = make_mesh(4, devices=[torch.device("cuda")] * 4)   # (data 1, tile 4)
+    with spatial_tiling(mesh, halo=64):
+        out = model(x0, x2)
+"""
+
+import threading
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Any, Optional
+
+
+@dataclass(frozen=True)
+class TilingContext:
+    mesh: Any                   # parallel.mesh.Mesh
+    axis: str = "tile"          # mesh axis tiling the W pixel dimension
+    batch_axis: str = "data"    # mesh axis of the batch (accepted; the ops are per sample)
+    halo: int = 64              # columns exchanged with ring neighbours
+    axis_h: Optional[str] = None  # optional mesh axis tiling the H dimension
+    halo_h: Optional[int] = None  # rows exchanged (defaults to ``halo``)
+
+
+_state = threading.local()
+
+
+def active_tiling():
+    """The innermost active TilingContext, or None."""
+    return getattr(_state, "ctx", None)
+
+
+@contextmanager
+def spatial_tiling(mesh, *, axis="tile", batch_axis="data", halo=64, axis_h=None,
+                   halo_h=None):
+    """Dispatch the warp and the projection to the tiled implementations
+    while this context is active.  Pass ``axis_h`` for a 2-D (tile_h, tile)
+    grid."""
+    prev = active_tiling()
+    _state.ctx = TilingContext(mesh, axis, batch_axis, halo, axis_h, halo_h)
+    try:
+        yield _state.ctx
+    finally:
+        _state.ctx = prev
+
+
+def active_data_group():
+    """The process group of the innermost ``data_parallel`` context, or None."""
+    return getattr(_state, "data_group", None)
+
+
+@contextmanager
+def data_parallel(group):
+    """Train-mode BatchNorm reduces its batch statistics over ``group`` (a
+    torch.distributed process group) while this context is active; None
+    turns the reduction off."""
+    prev = active_data_group()
+    _state.data_group = group
+    try:
+        yield group
+    finally:
+        _state.data_group = prev

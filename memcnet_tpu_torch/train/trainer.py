@@ -110,14 +110,25 @@ class Adamax:
         """One update from the parameters' gradients (a missing one counts
         as zero); ``loss`` (this step's, a float or a 0-d tensor) feeds the
         plateau and is required with it."""
+        self._update(self.params, self._gradients(), loss)
+
+    def _gradients(self):
+        """This step's gradients, a missing one as zeros, clipped by their
+        global norm."""
         u = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         if self.clip_norm:
             norm = float(torch.linalg.vector_norm(torch.stack(
                 [n.float() for n in torch._foreach_norm(u)])))
             if not norm < self.clip_norm:
                 u = torch._foreach_mul(torch._foreach_div(u, norm), self.clip_norm)
+        return u
+
+    def _update(self, params, u, loss):
+        """Weight decay, adamax, the subnet scales and the plateau, applied
+        in place to ``params`` with the gradients ``u`` (``self.mu`` and
+        ``self.nu`` hold the same shapes)."""
         if self.weight_decay:
-            u = torch._foreach_add(u, self.params, alpha=self.weight_decay)
+            u = torch._foreach_add(u, params, alpha=self.weight_decay)
         # scale_by_adamax: mu = b1 mu + (1 - b1) g; nu = max(|g| + eps, b2 nu);
         # update = mu / (1 - b1^count) / nu, bias correction in float32
         self.count += 1
@@ -138,13 +149,24 @@ class Adamax:
                 raise ValueError("Adamax with the plateau needs this step's loss")
             self._plateau_update(float(loss))
             torch._foreach_mul_(upd, float(self.scale))
-        torch._foreach_add_(self.params, upd)
+        torch._foreach_add_(params, upd)
+
+    def _whole(self, state, i):
+        """Parameter i's whole optimizer state tensor (this optimizer holds it
+        all)."""
+        return state
+
+    def _local(self, state, i):
+        """The part of parameter i's whole state tensor this optimizer holds."""
+        return state
 
     def state_dict(self):
         """The optimizer state by parameter name (checkpoints)."""
         return {"count": self.count,
-                "mu": dict(zip(self.names, (m.detach().cpu() for m in self.mu))),
-                "nu": dict(zip(self.names, (v.detach().cpu() for v in self.nu))),
+                "mu": {n: self._whole(m, i).detach().cpu()
+                       for i, (n, m) in enumerate(zip(self.names, self.mu))},
+                "nu": {n: self._whole(v, i).detach().cpu()
+                       for i, (n, v) in enumerate(zip(self.names, self.nu))},
                 "plateau": {"best": float(self.best), "plateau_count": self.plateau_count,
                             "scale": float(self.scale)}}
 
@@ -158,13 +180,15 @@ class Adamax:
             if names != want:
                 raise KeyError(f"Adamax.load_state_dict: {key} lacks {sorted(want - names)}, "
                                f"has extra {sorted(names - want)}")
-            for n, cur in zip(self.names, getattr(self, key)):
-                if tuple(sd[key][n].shape) != tuple(cur.shape):
+            for n, p in zip(self.names, self.params):
+                if tuple(sd[key][n].shape) != tuple(p.shape):
                     raise ValueError(f"Adamax.load_state_dict: {key}[{n!r}] has shape "
-                                     f"{tuple(sd[key][n].shape)}, the parameter {tuple(cur.shape)}")
+                                     f"{tuple(sd[key][n].shape)}, the parameter {tuple(p.shape)}")
         for key in ("mu", "nu"):
-            setattr(self, key, [sd[key][n].to(device=cur.device, dtype=cur.dtype).clone()
-                                for n, cur in zip(self.names, getattr(self, key))])
+            setattr(self, key, [self._local(sd[key][n], i).to(device=cur.device,
+                                                               dtype=cur.dtype).clone()
+                                for i, (n, cur) in enumerate(zip(self.names,
+                                                                 getattr(self, key)))])
         self.count = int(sd["count"])
         plateau = sd["plateau"]
         self.best = np.float32(plateau["best"])
@@ -216,16 +240,22 @@ class TrainStep:
         return loss.detach()
 
 
-def make_interp_train_step(model, optimizer, alpha=(1.0, 1.0), eps=1e-6, *, device="cuda"):
-    """Train step ``step(x0, x1, x2)`` of the interpolation models (triplet
-    supervision, x1 the middle frame); alpha weights the [interpolated,
-    rectified] Charbonnier residuals."""
+def interp_loss_fn(model, alpha=(1.0, 1.0), eps=1e-6):
+    """``loss(x0, x1, x2)`` of the interpolation models (triplet supervision,
+    x1 the middle frame); alpha weights the [interpolated, rectified]
+    Charbonnier residuals."""
 
     def loss_fn(x0, x1, x2):
         residuals, _offs, _filt, _occ = model.train_residuals(x0, x1, x2)
         return residual_loss(residuals, list(alpha), eps)
 
-    return TrainStep(model, optimizer, loss_fn, device)
+    return loss_fn
+
+
+def make_interp_train_step(model, optimizer, alpha=(1.0, 1.0), eps=1e-6, *, device="cuda"):
+    """Train step ``step(x0, x1, x2)`` of the interpolation models
+    (``interp_loss_fn``)."""
+    return TrainStep(model, optimizer, interp_loss_fn(model, alpha, eps), device)
 
 
 def make_ve_train_step(model, optimizer, eps=1e-6, *, device="cuda"):

@@ -36,6 +36,8 @@ from memcnet_tpu_torch.probe import device_ops
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
+# the tile entries of parallel/tiling.py launch on no untiled path
+NO_TILE_ENTRIES = {"filter_interp_warp_tile": 0, "base_scatter_tile": 0, "fill_holes_carry": 0}
 
 
 @pytest.fixture
@@ -528,7 +530,8 @@ def test_served_path_launches_every_kernel_and_matches_cpu(rng, dev):
     K.reset_counters()
     got, _ = PaddedInterp(build_model(seed=1, device=dev), device=dev)(a, b)
     assert K.launch_counts() == {"filter_interp_warp": 2, "base_scatter": 1,
-                                 "fill_holes": 1, "conv2d_small": 1, "grid_sample": 0}
+                                 "fill_holes": 1, "conv2d_small": 1, "grid_sample": 0,
+                                 **NO_TILE_ENTRIES}
     assert float(np.abs(got - ref).max()) <= 1e-3
 
 
@@ -554,7 +557,8 @@ def test_memc_s_served_path_launches_its_kernels_and_matches_cpu(rng, dev):
     K.reset_counters()
     got, _ = PaddedInterp(models[1], device=dev)(a, b)
     assert K.launch_counts() == {"filter_interp_warp": 2, "base_scatter": 1,
-                                 "fill_holes": 1, "conv2d_small": 15, "grid_sample": 3}
+                                 "fill_holes": 1, "conv2d_small": 15, "grid_sample": 3,
+                                 **NO_TILE_ENTRIES}
     assert np.isfinite(got).all() and got.shape == (3, 60, 90)
     assert float(np.abs(got - ref).max()) <= 1e-3
 
@@ -570,7 +574,8 @@ def test_ve_served_path_launches_its_kernels_and_matches_cpu(rng, dev):
     K.reset_counters()
     got = PaddedVE(build_model("MEMC_Net_VE", seed=1, device=dev), device=dev)(frames)
     assert K.launch_counts() == {"filter_interp_warp": 1, "base_scatter": 0,
-                                 "fill_holes": 0, "conv2d_small": 1, "grid_sample": 0}
+                                 "fill_holes": 0, "conv2d_small": 1, "grid_sample": 0,
+                                 **NO_TILE_ENTRIES}
     assert np.isfinite(got).all() and got.shape == (3, 40, 100)
     assert float(np.abs(got - ref).max()) <= 1e-3 * max(1.0, float(np.abs(ref).max()))
 
@@ -601,7 +606,7 @@ def test_hd720p_demo_launches_its_kernels_and_matches_cpu(dev, tmp_path):
             "--out-dir", str(tmp_path / d), "--net-name", "MEMC_Net_star", "--uid", "u"], d)
         streams[d] = np.fromfile(str(tmp_path / d / "u" / "in.yuv"), np.uint8).reshape(4, -1)
     assert counts == {"filter_interp_warp": 4, "base_scatter": 2, "fill_holes": 2,
-                      "conv2d_small": 2, "grid_sample": 0}
+                      "conv2d_small": 2, "grid_sample": 0, **NO_TILE_ENTRIES}
     np.testing.assert_array_equal(streams["cuda"][0::2], streams["cpu"][0::2])
     assert_levels_close(streams["cuda"][1::2], streams["cpu"][1::2])
 
@@ -622,7 +627,7 @@ def test_middlebury_demo_memc_s_launches_its_kernels_and_matches_cpu(dev, tmp_pa
         (uid,) = out.iterdir()
         outs[d] = (results, [imread(str(uid / n / "frame10i11.png")) for n in ("A", "B")])
     assert counts == {"filter_interp_warp": 4, "base_scatter": 2, "fill_holes": 2,
-                      "conv2d_small": 30, "grid_sample": 6}
+                      "conv2d_small": 30, "grid_sample": 6, **NO_TILE_ENTRIES}
     for (_, ie, _), (_, ie_cpu, _) in zip(outs["cuda"][0], outs["cpu"][0]):
         assert abs(ie - ie_cpu) <= 0.01
     for got, want in zip(outs["cuda"][1], outs["cpu"][1]):
@@ -646,7 +651,7 @@ def test_vimeo_ve_demo_launches_its_kernels_and_matches_cpu(dev, tmp_path):
             "--pretrained", pth], d)
         recs[d] = imread(str(tmp_path / d / "00001" / "0001" / "im4.png"))
     assert counts == {"filter_interp_warp": 1, "base_scatter": 0, "fill_holes": 0,
-                      "conv2d_small": 1, "grid_sample": 0}
+                      "conv2d_small": 1, "grid_sample": 0, **NO_TILE_ENTRIES}
     assert_levels_close(recs["cuda"], recs["cpu"])
 
 
@@ -682,13 +687,13 @@ def test_png_native_unfilter_matches_plain(dev, tmp_path, ch):
 
 TRAIN_LAUNCHES = {  # per train step at 64x128: SPyNet has 3 levels there, no hole fill
     "MEMC_Net_star": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 0,
-                      "conv2d_small": 1, "grid_sample": 0},
+                      "conv2d_small": 1, "grid_sample": 0, **NO_TILE_ENTRIES},
     "MEMC_Net_s": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 0,
-                   "conv2d_small": 15, "grid_sample": 3},
+                   "conv2d_small": 15, "grid_sample": 3, **NO_TILE_ENTRIES},
     "MEMC_Net": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 0,
-                 "conv2d_small": 0, "grid_sample": 0},
+                 "conv2d_small": 0, "grid_sample": 0, **NO_TILE_ENTRIES},
     "MEMC_Net_VE": {"filter_interp_warp": 1, "base_scatter": 0, "fill_holes": 0,
-                    "conv2d_small": 1, "grid_sample": 0},
+                    "conv2d_small": 1, "grid_sample": 0, **NO_TILE_ENTRIES},
 }
 
 
@@ -774,3 +779,106 @@ def test_bf16_k4_reads_the_optimizer_update(rng, dev):
         after = conv_kernel.conv2d_small(x, w)
     close(after, conv_kernel.reference(x, w.detach()), long_sums=True)
     assert not torch.equal(after, before)
+
+
+# -- the tile entries of parallel/tiling.py ---------------------------------------------
+
+
+def tile_grid(grid, dev):
+    from memcnet_tpu_torch.parallel import make_mesh, make_mesh_2d
+
+    devs = [torch.device(dev)] * 4
+    return (make_mesh(4, devices=devs), None) if grid == "tile4" else \
+        (make_mesh_2d(4, devices=devs), "tile_h")
+
+
+def tile_flow(rng, kind, B, H, W, halo):
+    """Flows within the halo budget: smooth, noisy up to the budget, or all
+    landing below the frame."""
+    if kind == "invalid":
+        f = np.zeros((B, 2, H, W), np.float32)
+        f[:, 1] = 3.0 * H
+        return torch.from_numpy(f)
+    amp = 6.0 if kind == "smooth" else float(halo - 6)
+    f = flow_field(rng, B, H, W, amp).numpy()
+    f[:, 0, :4, :6] = -(halo - 5)  # a corner landing left of the frame
+    return torch.from_numpy(np.clip(f, -(halo - 5), halo - 5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid", ["tile4", "tile2x2"])
+@pytest.mark.parametrize("halo", [16, 32])
+@pytest.mark.parametrize("kind", ["smooth", "noisy", "invalid"])
+def test_tile_entries_match_their_plain_versions(rng, dev, dtype, grid, halo, kind):
+    """K1's tile entry, K2's (counts exact) and K3's carry entry (masks from
+    exact counts) against their plain versions on the tiles the tiled ops
+    hand them, and the tiled ops against the global ones on the card."""
+    from memcnet_tpu_torch.parallel import tiling as T
+
+    mesh, axis_h = tile_grid(grid, dev)
+    B, H, W = 2, 128, 256
+    flow = tile_flow(rng, kind, B, H, W, halo).to(dev)
+    frame = torch.rand(B, 3, H, W, device=dev).to(dtype)
+    ctx = torch.randn(B, 5, H, W, device=dev).to(dtype)
+    filt = (torch.rand(B, 16, H, W, device=dev) / 8).to(dtype)
+    ring = T._ring(mesh, B, "tile", axis_h)
+    Wl, Hl, hh = T._grid(mesh, frame.shape, "tile", axis_h, halo, None)
+    exts = []
+    for im in (frame, ctx):
+        e = T._exchange_halo(ring.split(im), ring, "tile", halo, -1)
+        exts.append(T._exchange_halo(e, ring, axis_h, hh, -2) if axis_h else e)
+    org = T._origins(ring, "tile", axis_h, Wl, Hl, dev)
+    fl, fi = ring.split(flow), ring.split(filt)
+    geom = (halo, hh, 4, W, H)
+    for g, r in zip(warp_kernel.launch_tile(exts, fl, fi, org, *geom),
+                    warp_kernel.tile_reference(exts, fl, fi, org, *geom)):
+        close(g, r)
+    fd = ring.split(flow.to(dtype))
+    got = P.launch_tile_sums(fd, org, halo, hh, W, H)
+    ref = P.tile_sums_reference(fd, org, halo, hh, W, H)
+    assert torch.equal(got[:, 2], ref[:, 2])
+    assert float((got - ref).abs().max()) <= 1e-3
+    avg, cnt, ring = T._tiled_average(mesh, flow.to(dtype), halo, "tile", axis_h, None)
+    has = cnt > 0
+    carries = [T._carry(T._edge_message(has, avg, 2, last=True), ring, "tile", 1),
+               T._carry(T._edge_message(has, avg, 2, last=False), ring, "tile", -1),
+               T._carry(T._edge_message(has, avg, 1, last=True), ring, axis_h, 1)
+               if axis_h else None]
+    args = (avg.contiguous(), cnt.contiguous(), *carries, dtype)
+    assert torch.equal(P.launch_carry_fill(*args), P.carry_fill_reference(*args))
+    if kind == "invalid" and axis_h:
+        return  # the vertical clamp moves these landings, by contract
+    K.reset_counters()
+    tw = T.tiled_filter_interp_warp_split(mesh, (frame, ctx), flow, filt, halo=halo,
+                                          axis_h=axis_h)
+    tp = T.tiled_flow_project(mesh, flow.to(dtype), halo=halo, fillhole=True, axis_h=axis_h)
+    assert K.launch_counts() == {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
+                                 "conv2d_small": 0, "grid_sample": 0,
+                                 "filter_interp_warp_tile": 1, "base_scatter_tile": 1,
+                                 "fill_holes_carry": 1}
+    for g, r in zip(tw, ops.filter_interp_warp_split((frame, ctx), flow, filt)):
+        close(g, r)
+    close(tp, ops.flow_project(flow.to(dtype), fillhole=True), long_sums=True)
+
+
+def test_tiled_ops_under_spatial_tiling_launch_the_tile_entries(rng, dev):
+    """Under spatial_tiling the three ops dispatch to the tiled ones, which
+    launch the tile entries on CUDA tensors and never the plain versions."""
+    from memcnet_tpu_torch.parallel import spatial_tiling
+
+    mesh, _ = tile_grid("tile4", dev)
+    flow = tile_flow(rng, "noisy", 2, 64, 512, 16).to(dev)
+    img = torch.rand(2, 3, 64, 512, device=dev)
+    filt = torch.rand(2, 16, 64, 512, device=dev) / 8
+    K.reset_counters()
+    with spatial_tiling(mesh, halo=16):
+        ops.filter_interp_warp(img, flow, filt)
+        ops.filter_interp_warp_split((img, img), flow, filt)
+        ops.flow_project(flow, fillhole=True)
+        ops.flow_project(flow)
+        with pytest.raises(NotImplementedError):
+            ops.flow_project(flow, fix_down_scan_bug=True)
+    assert K.launch_counts() == {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
+                                 "conv2d_small": 0, "grid_sample": 0,
+                                 "filter_interp_warp_tile": 2, "base_scatter_tile": 2,
+                                 "fill_holes_carry": 1}

@@ -1,0 +1,177 @@
+"""The ranks of tests/test_torch_multiprocess.py: each scenario runs in
+``world`` processes joined over gloo on the CPU, each rank writing its
+results to ``<out>/rank<r>.pt`` for the test to hold against one process.
+
+    python tests/torch_mp_workers.py <scenario> <rank> <world> <port> <out>
+
+Scenarios: ``four`` (4 ranks: the ring-shift tiled ops, then the sharded
+MEMC_Net_star step) and ``dp`` (2 ranks: the data-parallel MEMC_Net steps).
+
+Imports torch and memcnet_tpu_torch only.
+"""
+
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from memcnet_tpu_torch.parallel import make_mesh, make_mesh_2d, tiling  # noqa: E402
+
+DP_SIZE = (64, 128)   # the data-parallel MEMC_Net step: B 2 (one sample per rank)
+DP_LR = 1e-4
+# the ring scenario's meshes: (name, factory, frame size, H tile axis)
+RING_MESHES = (("tile4", lambda **kw: make_mesh(4, max_tile=4, **kw), (16, 256), None),
+               ("data2_tile2", lambda **kw: make_mesh(4, max_tile=2, **kw), (16, 256), None),
+               ("tile2x2", lambda **kw: make_mesh_2d(4, **kw), (64, 128), "tile_h"))
+SHARDED_LR = 2e-3   # the dryrun's Adamax
+STEP_TOL = 1e-6
+
+
+def ring_inputs(H, W, seed=0):
+    """Whole-frame inputs of the ring scenario (B 2): image, context, flow
+    within the halo budget of 16, filter, and cotangents."""
+    rng = np.random.RandomState(seed)
+    x = {"image": rng.rand(2, 3, H, W), "ctx": rng.rand(2, 4, H, W),
+         "flow": (rng.rand(2, 2, H, W) - 0.5) * 20.0, "filt": rng.rand(2, 16, H, W),
+         "g_image": rng.randn(2, 3, H, W), "g_ctx": rng.randn(2, 4, H, W),
+         "g_flow": rng.randn(2, 2, H, W)}
+    return {k: torch.from_numpy(v.astype(np.float32)) for k, v in x.items()}
+
+
+def ring_run(mesh, axis_h, x, rows=slice(None)):
+    """The tiled warp (split, two sources) and projection (fill off and on)
+    of the inputs' ``rows`` of the batch, with their input gradients."""
+    kw = dict(halo=16, axis_h=axis_h)
+    image, ctx, flow, filt = (x[k][rows].clone().requires_grad_(True)
+                              for k in ("image", "ctx", "flow", "filt"))
+    warped = tiling.tiled_filter_interp_warp_split(mesh, (image, ctx), flow, filt, **kw)
+    out = {"warp_image": warped[0].detach(), "warp_ctx": warped[1].detach()}
+    grads = torch.autograd.grad(warped, (image, ctx, flow, filt),
+                                (x["g_image"][rows], x["g_ctx"][rows]))
+    out.update({f"warp_grad_{k}": g for k, g in zip(("image", "ctx", "flow", "filt"), grads)})
+    for fill in (False, True):
+        f = x["flow"][rows].clone().requires_grad_(True)
+        p = tiling.tiled_flow_project(mesh, f, fillhole=fill, **kw)
+        out[f"project_{fill}"] = p.detach()
+        out[f"project_grad_{fill}"] = torch.autograd.grad(p, f, x["g_flow"][rows])[0]
+    return out
+
+
+def scenario_ring(rank, world):
+    res = {}
+    for name, factory, (H, W), axis_h in RING_MESHES:
+        mesh = factory(group=dist.group.WORLD)
+        d = mesh.shape["data"]
+        r = mesh.coords["data"]
+        rows = slice(r * 2 // d, (r + 1) * 2 // d)
+        res[name] = ring_run(mesh, axis_h, ring_inputs(H, W), rows)
+    return res
+
+
+def step_stats(got, want):
+    """How far a step's state dict ``got`` is from ``want``, over the
+    parameters: (share of elements within STEP_TOL, largest difference)."""
+    total = close = 0
+    worst = 0.0
+    for k, w in want.items():
+        if "running_" in k or "num_batches" in k:
+            continue
+        d = (got[k].float() - w.float()).abs()
+        worst = max(worst, float(d.max()))
+        total += d.numel()
+        close += int((d <= STEP_TOL).sum())
+    return close / total, worst
+
+
+def state_sums(model):
+    """Per-tensor float64 sums of the model's state: equal on every rank."""
+    return torch.stack([v.double().sum() for v in model.state_dict().values()])
+
+
+def dp_batches(seed=0):
+    """Two whole batches (x0, x1, x2) of the data-parallel scenario."""
+    rng = np.random.RandomState(seed)
+    return [tuple(torch.from_numpy(rng.rand(2, 3, *DP_SIZE).astype(np.float32))
+                  for _ in range(3)) for _ in range(2)]
+
+
+def scenario_dp(rank, world, out):
+    """Two data-parallel MEMC_Net steps (BatchNorm synced, DDP, ZeRO-1
+    Adamax) on this rank's sample of batches 0 and 1; rank 0 writes the
+    gathered checkpoint after the first and the model after the second."""
+    from memcnet_tpu_torch.cli.runner import build_model
+    from memcnet_tpu_torch.io import checkpoint
+    from memcnet_tpu_torch.parallel.step import DataParallelStep
+    from memcnet_tpu_torch.train.trainer import interp_loss_fn
+    from memcnet_tpu_torch.parallel.zero import ZeroAdamax
+
+    model = build_model("MEMC_Net", seed=0, device="cpu")
+    opt = ZeroAdamax(model, dist.group.WORLD, lr=DP_LR)
+    step = DataParallelStep(model, opt, interp_loss_fn(model), dist.group.WORLD, device="cpu")
+    batches = [[t[rank:rank + 1] for t in batch] for batch in dp_batches()]
+    loss = step(*batches[0])
+    state = opt.state_dict()  # a collective: every rank gathers
+    if rank == 0:  # the whole model and optimizer state once; the sums from every rank
+        checkpoint.save(os.path.join(out, "zero1.pt"), model, opt_state=state, step=1)
+    again = ZeroAdamax(model, dist.group.WORLD, lr=DP_LR)
+    again.load_state_dict(state)  # the whole state sliced back to this rank's shards
+    res = {"loss": loss, "sums": state_sums(model),
+           "state_numel": sum(m.numel() for m in opt.mu),
+           "whole_numel": sum(p.numel() for p in model.parameters()),
+           "reloaded_equal": again.count == opt.count and all(
+               torch.equal(a, b) for a, b in zip(opt.mu + opt.nu, again.mu + again.nu))}
+    del again
+    res["loss_2"] = step(*batches[1])
+    if rank == 0:
+        torch.save(model.state_dict(), os.path.join(out, "after_two.pt"))
+    return res
+
+
+def scenario_sharded(rank, world):
+    """The dryrun's sharded MEMC_Net_star step on 4 ranks, (1, 2, 2); rank 0
+    then takes the one-process step (TrainStep, Adamax, untiled) on the whole
+    batch and compares."""
+    from memcnet_tpu_torch.cli.runner import build_model
+    from memcnet_tpu_torch.parallel.step import sharded_frames, sharded_mesh, sharded_train_step
+    from memcnet_tpu_torch.train.trainer import Adamax, TrainStep, interp_loss_fn
+
+    mesh, axis_h = sharded_mesh(group=dist.group.WORLD)
+    frames = sharded_frames(mesh)
+    loss, model, opt = sharded_train_step(mesh, axis_h, frames, lr=SHARDED_LR, device="cpu")
+    res = {"loss": loss, "mesh": dict(mesh.shape), "sums": state_sums(model),
+           "state_numel": sum(m.numel() for m in opt.mu),
+           "whole_numel": sum(p.numel() for p in model.parameters())}
+    if rank == 0:
+        ref = build_model("MEMC_Net_star", seed=0, device="cpu")
+        res["ref_loss"] = TrainStep(ref, Adamax(ref, lr=SHARDED_LR), interp_loss_fn(ref),
+                                    "cpu")(*frames)
+        res["close_share"], res["max_abs"] = step_stats(model.state_dict(), ref.state_dict())
+    return res
+
+
+def main():
+    scenario, rank, world, port, out = sys.argv[1:6]
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)  # the ranks share the host's cores with each other
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        if scenario == "four":  # the ring, then the sharded step, on 4 ranks
+            res = {"ring": scenario_ring(rank, world), "sharded": scenario_sharded(rank, world)}
+        elif scenario == "dp":
+            res = scenario_dp(rank, world, out)
+        else:
+            raise ValueError(scenario)
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
