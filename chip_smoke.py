@@ -102,7 +102,26 @@ Phases (any failed check exits non-zero and prints no result line):
      against TrainStep and Adamax; and demo_hd720p --multihost as two
      processes on the one card (a gloo host group) over phase 5's synthetic
      stream in 4 GOPs: both processes work, the journal holds every GOP
-     once, and the stitched stream is byte-equal to a one-process run.
+     once, and the stitched stream is byte-equal to a one-process run;
+  9. partitioned convolutions: MEMC_Net_star and MEMC_Net served in bf16 on
+     synthetic 720p pairs through PaddedInterp(sharded=True) under
+     spatial_tiling (halo 64) on the (data 1, tile 4) and (1, 2, 2) grids --
+     pad, shard_frames, every layer on its tile with halos, gather, unpad --
+     the launch counts set to 0 just before and read just after (per frame
+     2 K1 tile, 1 K2 tile, 1 K3 carry launch and star's 1 K4 on the
+     halo-extended tiles, no global K1-K3), against the untiled forward on
+     the same pairs (FlowNetS's last conv scaled to 8.25 px flows): every
+     output's largest difference over its scale reported, in float32 the
+     99.9th percentile within 1e-4, in bf16 no further from the float32
+     forward of the same weights than the untiled bf16 forward (1.25x on
+     the mean and the 99.9th percentile; PART_F32_TOL says why); per model
+     and grid the forward's ms by CUDA
+     events (median of 5), its device ms and device operations and the
+     halo gathers' device ms from one profiled forward, and its peak memory,
+     each beside the untiled forward's; and one float32 MEMC_Net_star step
+     at 256x448 on (1, 4), halo 16, its frames sharded, against TrainStep
+     on the whole frames (the loss within 1e-5 relative, the parameters
+     within 1e-6 on at least 99.9% of elements and within 2 lr everywhere).
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.  Long output (the kernels' build
 log, the full results) goes to chiprun_out/chip_smoke/.
@@ -2533,6 +2552,271 @@ def phase_parallel(torch, results):
         phase_multihost(torch, results, work)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: partitioned convolutions (parallel/partition.py)
+
+PART_MODELS = ("MEMC_Net_star", "MEMC_Net")
+PART_PAIRS = 2
+PART_REPS = 5                # forwards timed by CUDA events (median)
+EXPECTED_PART_FRAME = {
+    name: {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
+           "conv2d_small": int(name == "MEMC_Net_star"), "grid_sample": 0,
+           "filter_interp_warp_tile": 2, "base_scatter_tile": 1, "fill_holes_carry": 1}
+    for name in PART_MODELS}
+# the serving checks: float32, the 99.9th percentile of |partitioned - untiled|
+# within PART_F32_TOL of each output's scale (a few landing cells may flip on
+# float32 noise); bf16, no further from the float32 forward of the same weights
+# than the untiled bf16 forward is (PART_BF16_RATIO on the mean and the 99.9th
+# percentile): the convs of a tile round in another order than the whole
+# frame's, which on an H100 moves bf16 outputs by more than 1e-2 of their scale
+# on about 1.6% of star's values (PERF.md, phase 9)
+PART_F32_TOL = 1e-4
+PART_BF16_RATIO = 1.25
+PART_STEP_H, PART_STEP_W = 256, 448   # the sharded step's frames (Vimeo-90K's size)
+PART_STEP_TOL = 1e-5                  # the step's loss, relative
+# the step's parameters: within 1e-6 on at least 99.9% of elements and within 2
+# lr everywhere, phase 8's rule (Adamax's first update is about lr * sign(g): an
+# element whose gradient float32 noise moves across 0 moves by 2 lr); within
+# 1e-5 of each tensor's largest is reported beside it (0.999290 on an H100,
+# near the 0.999 bound, PERF.md)
+PART_PARAM_TOL = 1e-6
+EXPECTED_PART_STEP = {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
+                      "conv2d_small": 1, "grid_sample": 0, "filter_interp_warp_tile": 2,
+                      "base_scatter_tile": 1, "fill_holes_carry": 0}
+
+
+def peak_bytes(torch, fn):
+    """max_memory_allocated over one call (weights and inputs included)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return int(torch.cuda.max_memory_allocated())
+
+
+def profile_partitioned(torch, fn):
+    """(device operations, device ms, halo gathers' device ms, top kernels)
+    of one call after a warm-up: kernels and memsets, and the device time
+    of the kernels under parallel.partition's HALO_RANGE."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from memcnet_tpu_torch.parallel.partition import HALO_RANGE
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.005)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.005)
+    evs = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = [e for e in evs if e.device_type == cuda and e.self_device_time_total > 0
+           and e.key != HALO_RANGE]
+    halo = [e.device_time_total for e in evs if e.key == HALO_RANGE and e.device_type != cuda]
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    return (sum(e.count for e in dev), sum(e.self_device_time_total for e in dev) / 1e3,
+            max(halo, default=0.0) / 1e3,
+            {e.key[:80]: round(e.self_device_time_total / 1e3, 4) for e in top})
+
+
+def out_errs(torch, got, want):
+    """|got - want| over want's scale (its largest |value|, at least 1):
+    the largest, the mean, the 99.9th percentile and the share beyond 1e-2."""
+    d = (got.float() - want.float()).abs().flatten() / max(1.0, float(want.float().abs().max()))
+    k = max(1, int(0.999 * d.numel()))
+    return dict(max=float(d.max()), mean=float(d.mean()), p999=float(d.kthvalue(k).values),
+                share_1e2=float((d > 1e-2).float().mean()))
+
+
+def worst(errs, key):
+    return max(e[key] for e in errs.values())
+
+
+def part_serve(torch, name, pairs, results):
+    """One model: the untiled forward, then the partitioned one on each grid,
+    against it (see the module docstring)."""
+    from memcnet_tpu_torch.cli.runner import PaddedInterp, _padded, build_model
+    from memcnet_tpu_torch.data import pad_plan
+    from memcnet_tpu_torch.ops import cuda as K
+    from memcnet_tpu_torch.parallel import gather_frames, shard_frames, spatial_tiling
+
+    bf16, dev = torch.bfloat16, torch.device("cuda")
+    model = build_model(name, seed=0, dtype=bf16, device="cuda")
+    interp = PaddedInterp(model, dtype=bf16, device="cuda")
+    raw = max(float(np.abs(o).max()) for o in interp(*pairs[0])[1]["offsets"])
+    with torch.no_grad():
+        model.flownets.predict_flow2.weight.mul_(TILED_FLOW_PX / raw)
+    # the float32 forward of the same (bf16) weights: the reference of the bf16 check
+    model32 = build_model(name, seed=0, device="cuda")
+    model32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    interp(*pairs[0])  # warm-up
+    untiled = [interp(x0, x2) for x0, x2 in pairs]
+    plan = pad_plan(FRAME_H, FRAME_W)
+    x0p, x2p = (_padded(x, plan, dev, bf16) for x in pairs[0])
+    x0f, x2f = (_padded(x, plan, dev, torch.float32) for x in pairs[0])
+
+    def outputs(out):
+        (interp_, rectified), offs, filts, occs = out
+        return dict(rectified=rectified, interp=interp_, off0=offs[0], off1=offs[1],
+                    filt0=filts[0], filt1=filts[1], occ0=occs[0], occ1=occs[1])
+
+    def measure(fwd):
+        n_ops, dev_ms, halo_ms, top = profile_partitioned(torch, fwd)
+        return dict(ms=timed_ms(torch, fwd, reps=PART_REPS), device_ops=n_ops,
+                    device_ms=dev_ms, halo_device_ms=halo_ms, peak_bytes=peak_bytes(torch, fwd),
+                    top_kernels=top)
+
+    def forward(a, b):
+        def fwd():
+            with torch.inference_mode():
+                model(a, b)
+        return fwd
+
+    with torch.inference_mode():
+        ref32 = outputs(model32(x0f, x2f))
+        ref_bf = outputs(model(x0p, x2p))
+    base = {k: out_errs(torch, ref_bf[k], ref32[k]) for k in ref32}
+    entry = {"untiled": measure(forward(x0p, x2p)), "flow_max_random": raw,
+             "untiled_bf16_vs_float32": base}
+    flow_max = max(float(np.abs(o).max()) for _, aux in untiled for o in aux["offsets"])
+    entry["flow_max"] = flow_max
+    u = entry["untiled"]
+    log(f"  {name} bf16 720p untiled: forward {u['ms']:.3f} ms by events, {u['device_ops']} "
+        f"device operations, device ms {u['device_ms']:.3f}, peak {u['peak_bytes'] / 2**30:.3f} "
+        f"GiB; largest flow {flow_max:.3f} px (random weights gave {raw:.3e}); against the "
+        f"float32 forward: mean {worst(base, 'mean'):.3e}, p99.9 {worst(base, 'p999'):.3e}, "
+        f"max {worst(base, 'max'):.3e} of the output's scale")
+    if not 1.0 <= flow_max <= TILE_HALO - 4:
+        raise CheckFailed(f"partitioned {name}: flows leave the halo budget ({flow_max})")
+    sharded = PaddedInterp(model, dtype=bf16, device="cuda", sharded=True)
+    for grid, axis_h in TILE_GRIDS:
+        mesh = tile_mesh(torch, grid)
+        with spatial_tiling(mesh, halo=TILE_HALO, axis_h=axis_h):
+            sharded(*pairs[0])  # warm-up, not counted
+            torch.cuda.synchronize()
+            K.reset_counters()
+            outs = [sharded(x0, x2) for x0, x2 in pairs]
+            counts = K.launch_counts()
+            t0, t2 = shard_frames(mesh, x0p, x2p)
+            m = measure(forward(t0, t2))
+            with torch.inference_mode():
+                part_bf = {k: gather_frames(mesh, v) for k, v in outputs(model(t0, t2)).items()}
+                part32 = {k: gather_frames(mesh, v) for k, v in
+                          outputs(model32(*shard_frames(mesh, x0f, x2f))).items()}
+        served = 0.0
+        for (out, aux), (ref, ref_aux) in zip(outs, untiled):
+            if out.shape != (3, FRAME_H, FRAME_W) or not np.isfinite(out).all():
+                raise CheckFailed(f"partitioned {name} {grid}: output shape {out.shape}, "
+                                  f"finite {np.isfinite(out).all()}")
+            served = max(served, *(float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+                                   for a, b in [(out, ref), (aux["interp"], ref_aux["interp"]),
+                                                *zip(aux["offsets"], ref_aux["offsets"])]))
+        direct = {k: out_errs(torch, part_bf[k], ref_bf[k]) for k in ref_bf}
+        f32 = {k: out_errs(torch, part32[k], ref32[k]) for k in ref32}
+        anchored = {k: out_errs(torch, part_bf[k], ref32[k]) for k in ref32}
+        expect = {k: v * PART_PAIRS for k, v in EXPECTED_PART_FRAME[name].items()}
+        m.update(launches=counts, served_max_err=served, bf16_vs_untiled=direct,
+                 float32_vs_untiled=f32, bf16_vs_float32=anchored, tiles=int(t0.shape[0]))
+        entry[grid] = m
+        log(f"  {name} bf16 720p partitioned on {grid} (halo {TILE_HALO}): {PART_PAIRS} pairs, "
+            f"launches {counts}; forward {m['ms']:.3f} ms by events (untiled {u['ms']:.3f}), "
+            f"{m['device_ops']} device operations ({u['device_ops']}), device ms "
+            f"{m['device_ms']:.3f} ({u['device_ms']:.3f}), of which halo gathers "
+            f"{m['halo_device_ms']:.3f}; peak {m['peak_bytes'] / 2**30:.3f} GiB "
+            f"({u['peak_bytes'] / 2**30:.3f})")
+        log(f"    against the untiled forward, of each output's scale: bf16 served max {served:.3e}"
+            f", all outputs max {worst(direct, 'max'):.3e}, mean {worst(direct, 'mean'):.3e}, "
+            f"share beyond 1e-2 {worst(direct, 'share_1e2'):.3e}; float32 max "
+            f"{worst(f32, 'max'):.3e}, p99.9 {worst(f32, 'p999'):.3e} (tol {PART_F32_TOL}); "
+            f"bf16 against the float32 forward mean {worst(anchored, 'mean'):.3e}, p99.9 "
+            f"{worst(anchored, 'p999'):.3e} (untiled {worst(base, 'mean'):.3e}, "
+            f"{worst(base, 'p999'):.3e})")
+        if counts != expect:
+            raise CheckFailed(f"partitioned {name} {grid}: launches {counts}, expected {expect}")
+        for k in ref32:
+            if not f32[k]["p999"] <= PART_F32_TOL:
+                raise CheckFailed(f"partitioned {name} {grid}: float32 {k} differs from the "
+                                  f"untiled forward ({f32[k]})")
+            for key, floor in (("mean", 1e-3), ("p999", 1e-2)):
+                if not anchored[k][key] <= max(PART_BF16_RATIO * base[k][key], floor):
+                    raise CheckFailed(f"partitioned {name} {grid}: bf16 {k} is further from the "
+                                      f"float32 forward than the untiled bf16 forward "
+                                      f"({anchored[k]} against {base[k]})")
+    results["partition"]["serve"][name] = entry
+    del model, model32, interp, sharded
+    torch.cuda.empty_cache()
+
+
+def part_step(torch, results):
+    """One float32 MEMC_Net_star step at 256x448 on (1, 4), halo 16, its
+    frames sharded (sharded_train_step), against TrainStep on the whole
+    frames (see the module docstring)."""
+    from memcnet_tpu_torch.cli.runner import build_model
+    from memcnet_tpu_torch.ops import cuda as K
+    from memcnet_tpu_torch.parallel.step import SHARDED_HALO, sharded_train_step
+    from memcnet_tpu_torch.train.trainer import Adamax, TrainStep, interp_loss_fn
+
+    rng = np.random.RandomState(5)
+    frames = [rng.rand(1, 3, PART_STEP_H, PART_STEP_W).astype(np.float32) for _ in range(3)]
+    ref = build_model("MEMC_Net_star", seed=0, device="cuda")
+    ref_loss = float(TrainStep(ref, Adamax(ref, lr=TRAIN_LR), interp_loss_fn(ref), "cuda")(
+        *frames))
+    want = {k: v.detach().clone() for k, v in ref.named_parameters()}
+    del ref
+    torch.cuda.synchronize()
+    K.reset_counters()
+    loss, model, _ = sharded_train_step(tile_mesh(torch, "tile4"), None, frames, lr=TRAIN_LR,
+                                        device="cuda")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    total = close = close_rel = 0
+    worst = 0.0
+    for k, p in model.named_parameters():
+        d = (p.detach() - want[k]).abs()
+        worst = max(worst, float(d.max()))
+        total += d.numel()
+        close += int((d <= PART_PARAM_TOL).sum())
+        close_rel += int((d <= PART_STEP_TOL * float(want[k].abs().max())).sum())
+    rel = abs(float(loss) - ref_loss) / abs(ref_loss)
+    log(f"  sharded MEMC_Net_star step, float32 {PART_STEP_H}x{PART_STEP_W} on (1, 4), halo "
+        f"{SHARDED_HALO}: loss {float(loss):.6f} against TrainStep's {ref_loss:.6f} (rel "
+        f"{rel:.2e}); parameters within {PART_PARAM_TOL} on {close / total:.6f} of elements "
+        f"(within {PART_STEP_TOL} of each tensor's largest on {close_rel / total:.6f}), max "
+        f"{worst:.3e} (2 lr = {2 * TRAIN_LR:.1e}); launches {counts}")
+    results["partition"]["step"] = dict(loss=float(loss), ref_loss=ref_loss, loss_rel=rel,
+                                        params_close_share=close / total,
+                                        params_close_share_rel=close_rel / total,
+                                        params_max_abs=worst, launches=counts)
+    if counts != EXPECTED_PART_STEP:
+        raise CheckFailed(f"sharded step: launches {counts}, expected {EXPECTED_PART_STEP}")
+    if not (rel <= PART_STEP_TOL and close >= 0.999 * total
+            and worst <= 2 * TRAIN_LR * (1 + 1e-3)):
+        raise CheckFailed("sharded step: differs from TrainStep on the whole frames")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_partition(torch, results):
+    """Phase 9: MEMC_Net_star and MEMC_Net served partitioned, the sharded step."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results["partition"] = {"serve": {}}
+    pairs = [synthetic_frames(10 + s) for s in range(PART_PAIRS)]
+    for name in PART_MODELS:
+        part_serve(torch, name, pairs, results)
+    part_step(torch, results)
+
+
+def part_launches(results, name):
+    """Phase 9's launches of a kernel: the partitioned serving of both models
+    on both grids, and the sharded step."""
+    part = results["partition"]
+    return sum(e[grid]["launches"][name] for e in part["serve"].values()
+               for grid, _ in TILE_GRIDS) + part["step"]["launches"][name]
+
+
 def main():
     import torch
 
@@ -2592,6 +2876,9 @@ def main():
         torch.cuda.empty_cache()
         log("phase 8: the parallel layer on the one card")
         phase_parallel(torch, results)
+        torch.cuda.empty_cache()
+        log("phase 9: partitioned convolutions")
+        phase_partition(torch, results)
     except Exception:  # every failure ends the run with no result line
         traceback.print_exc()
         with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
@@ -2617,6 +2904,7 @@ def main():
                         for tag, r in results["train"].items()})
         by_path["oplib"] = results["oplib"]["launches"][name]
         by_path["serve_tiled"] = results["tiled_serve"]["launches"][name]
+        by_path["serve_partitioned"] = part_launches(results, name)
 
         def row(key):
             r, o = krows[key][dt], krows[key][other]
@@ -2690,18 +2978,19 @@ def main():
                     **orow("fill_holes[down]"),
                     "whole_op": {"name": "flow_project[down]", **orow("flow_project[down]")}})
     # phase 8's entries: the tile entries of K1, K2 and K3, launched by star's
-    # tiled 720p serving; their rows at (data 1, tile 4) on the +-20 px flows
+    # tiled 720p serving and phase 9's partitioned serving and step; their rows
+    # at (data 1, tile 4) on the +-20 px flows
     trows = results["tile_entries"]["kernels"]
     for name, (source, replaces, computes) in TILE_ENTRIES.items():
         key = f"{name}[tile4 pm20]"
         r, o = trows[key]["bfloat16"], trows[key]["float32"]
         held = {k: max(v[d]["max_abs_err"] for d in v) for k, v in trows.items()
                 if k.startswith(name + "[")}
+        by_path = {"serve_tiled": results["tiled_serve"]["launches"][name],
+                   "serve_partitioned": part_launches(results, name)}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "computes": computes,
-                        "launches": results["tiled_serve"]["launches"][name],
-                        "launches_by_path": {"serve_tiled": results["tiled_serve"]["launches"][
-                            name]},
+                        "computes": computes, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "dtype": "bfloat16",

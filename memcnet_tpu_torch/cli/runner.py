@@ -66,13 +66,17 @@ def _padded(x_np, plan, device, dtype):
 
 
 class PaddedInterp:
-    """Pad -> forward -> unpad for the interpolation models."""
+    """Pad -> forward -> unpad for the interpolation models.  With
+    ``sharded=True``, called under ``parallel.spatial_tiling(mesh)``: pad ->
+    ``shard_frames`` -> forward on the tiles -> ``gather_frames`` -> unpad
+    (``parallel.partition``)."""
 
-    def __init__(self, model, save_which=1, dtype=torch.float32, device="cuda"):
+    def __init__(self, model, save_which=1, dtype=torch.float32, device="cuda", sharded=False):
         self.device = resolve_device(device)
         self.model = model
         self.save_which = save_which
         self.dtype = dtype
+        self.sharded = sharded
         self.last_out_dtype = None
 
     def __call__(self, x0_np, x2_np):
@@ -82,11 +86,20 @@ class PaddedInterp:
             raise ValueError(f"frames up to 1280x720, got {W}x{H}")
         plan = pad_plan(H, W)
         x0, x2 = (_padded(x, plan, self.device, self.dtype) for x in (x0_np, x2_np))
+        whole = lambda t: t  # noqa: E731
+        if self.sharded:
+            from memcnet_tpu_torch.parallel import active_tiling, gather_frames, shard_frames
+
+            ctx = active_tiling()
+            if ctx is None:
+                raise RuntimeError("PaddedInterp(sharded=True) runs under spatial_tiling(mesh)")
+            x0, x2 = shard_frames(ctx.mesh, x0, x2)
+            whole = lambda t: gather_frames(ctx.mesh, t)  # noqa: E731
         with torch.inference_mode():
             outs, offs, filts, occs = self.model(x0, x2)
 
             def host(t):
-                return unpad_frame(t[0].float().cpu().numpy(), plan, H, W)
+                return unpad_frame(whole(t)[0].float().cpu().numpy(), plan, H, W)
 
             self.last_out_dtype = outs[self.save_which].dtype
             out = host(outs[self.save_which])

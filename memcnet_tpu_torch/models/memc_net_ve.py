@@ -35,7 +35,7 @@ from memcnet_tpu_torch.models.mononet import (
     mononet5_specs,
 )
 from memcnet_tpu_torch.nn import init as I
-from memcnet_tpu_torch.nn.layers import upsample_bilinear
+from memcnet_tpu_torch.nn.layers import refuse_partition, upsample_bilinear
 from memcnet_tpu_torch.ops import filter_interp_warp_split
 
 NEIGHBOURS = (0, 1, 2, 4, 5, 6)
@@ -76,6 +76,7 @@ class MEMCNetVE(nn.Module):
         filter, sample-major, as the JAX forward does.  In train mode it
         returns (outs, rectified): the six warped neighbours, not detached,
         in temporal order with the center frame at slot 3."""
+        refuse_partition("MEMC_Net_VE")
         if len(frames) != 7:
             raise ValueError(f"MEMC_Net_VE takes 7 frames, got {len(frames)}")
         B = frames[0].shape[0]

@@ -86,7 +86,10 @@ class SPyNet(nn.Module):
                                                         fan_in=fan_in))
 
     def forward(self, first, second):
-        """first, second: (B, 3, H, W) in [0, 1] -> (B, 2, H, W) flow in pixels."""
+        """first, second: (B, 3, H, W) in [0, 1] -> (B, 2, H, W) flow in pixels.
+        Raises on partitioned frames: its pooling and grid sample have no
+        partitioned form (the JAX package's GSPMD gathers them)."""
+        L.refuse_partition("SPyNet (avg_pool2d, grid_sample_bilinear)")
         firsts = [_preprocess(first)]
         seconds = [_preprocess(second)]
         for _ in range(LEVELS - 1):

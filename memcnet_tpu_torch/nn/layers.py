@@ -13,6 +13,16 @@ TPU workaround and is not carried over.
 ops/cuda/gather_kernel.py); the JAX package's same-size-grid gate and its
 lax.cond budget around the Pallas gather (layers.py:329, :418) were TPU
 choices, so every grid shape takes the kernel on CUDA tensors.
+
+Partitioned frames (``parallel.mesh.shard_frames``): where the active
+``spatial_tiling`` context holds a partition, every input is a tile of it.
+The convs, the deconv and the max-pool gather their halos
+(``parallel.partition``) and run with no padding on the tiled axes; the
+upsample lerps on the frame's global coordinates; train-mode BatchNorm
+takes its statistics over the pixels the tiles own, over every rank of the
+mesh.  The elementwise layers and eval-mode BatchNorm need nothing.
+``avg_pool2d``, ``replication_pad2d`` and ``grid_sample_bilinear``
+(SPyNet's) have no partitioned form and raise.
 """
 
 import torch
@@ -21,38 +31,78 @@ import torch.nn.functional as F
 from memcnet_tpu_torch.ops.cuda import gather_kernel
 
 
+def _context():
+    # imported when called: memcnet_tpu_torch.parallel imports the models
+    from memcnet_tpu_torch.parallel import context
+
+    return context
+
+
+def active_partition():
+    return _context().active_partition()
+
+
+def refuse_partition(what):
+    _context().refuse_partition(what)
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
 def _cast(t, dtype):
     return None if t is None else t.to(dtype)
 
 
 def conv2d(x, w, b=None, *, stride=1, padding=0, groups=1):
     """PyTorch Conv2d.  w: (O, I/groups, kH, kW)."""
+    part = active_partition()
+    if part is not None:
+        x, padding = part.conv_input(x, w.shape[-2:], _pair(stride), _pair(padding))
     return F.conv2d(x, _cast(w, x.dtype), _cast(b, x.dtype), stride=stride, padding=padding,
                     groups=groups)
 
 
 def conv_transpose2d(x, w, b=None, *, stride=2, padding=1):
     """PyTorch ConvTranspose2d.  w: (I, O, kH, kW)."""
-    return F.conv_transpose2d(x, _cast(w, x.dtype), _cast(b, x.dtype), stride=stride,
-                              padding=padding)
+    part = active_partition()
+    if part is None:
+        return F.conv_transpose2d(x, _cast(w, x.dtype), _cast(b, x.dtype), stride=stride,
+                                  padding=padding)
+    if w.shape[-1] != w.shape[-2]:
+        raise NotImplementedError("a partitioned conv_transpose2d takes square kernels")
+    x, pads, crop = part.deconv_input(x, w.shape[-1], stride, padding)
+    return crop(F.conv_transpose2d(x, _cast(w, x.dtype), _cast(b, x.dtype), stride=stride,
+                                   padding=pads))
 
 
 def upsample_bilinear(x, scale_factor=2):
     """PyTorch-0.2 nn.Upsample(mode='bilinear') == align_corners=True."""
+    part = active_partition()
+    if part is not None:
+        return part.upsample(x, scale_factor)
     return F.interpolate(x, scale_factor=scale_factor, mode="bilinear", align_corners=True)
 
 
 def max_pool2d(x, k=2, s=None):
-    return F.max_pool2d(x, k, k if s is None else s)
+    s = k if s is None else s
+    part = active_partition()
+    if part is not None:
+        x, pads = part.conv_input(x, _pair(k), _pair(s), (0, 0))
+        if any(pads):
+            raise AssertionError(pads)
+    return F.max_pool2d(x, k, s)
 
 
 def avg_pool2d(x, k=2, s=None):
     """Average pool, 'VALID' windows: odd sizes floor (layers.py:243-246)."""
+    refuse_partition("avg_pool2d")
     return F.avg_pool2d(x, k, k if s is None else s)
 
 
 def replication_pad2d(x, pad):
     """pad = (left, right, top, bottom), PyTorch ReplicationPad2d order."""
+    refuse_partition("replication_pad2d")
     return F.pad(x, tuple(pad), mode="replicate")
 
 
@@ -62,6 +112,7 @@ def grid_sample_bilinear(x, grid):
     x (B, C, H, W); grid (B, Ho, Wo, 2) normalised to [-1, 1], [..., 0] = x.
     Coordinates and tap weights are float32 whatever x's type; the result has
     x's type.  Kernel K5 on CUDA tensors, its plain version on CPU tensors."""
+    refuse_partition("grid_sample_bilinear")
     return gather_kernel.grid_sample(x, grid)
 
 
@@ -82,18 +133,24 @@ def batch_norm_eval(x, gamma, beta, running_mean, running_var, eps=1e-5):
     return x * scale.to(x.dtype).view(1, -1, 1, 1) + shift.to(x.dtype).view(1, -1, 1, 1)
 
 
-def _synced_moments(x32, group):
-    """The batch mean and biased variance per channel over every rank of
-    ``group`` (a per-channel sum, then a centred sum of squares, each
-    all-reduced, differentiably), and the whole batch's count."""
+def _moments(x32, mask, n_local, group):
+    """The batch mean and biased variance per channel of x32 (over the
+    pixels ``mask`` keeps, or all), summed over every rank of ``group``
+    where one is given (a per-channel sum, then a centred sum of squares,
+    each all-reduced, differentiably), and the whole batch's count."""
     from memcnet_tpu_torch.parallel.ring import all_reduce_sum
 
-    n_local = x32.shape[0] * x32.shape[2] * x32.shape[3]
-    sums = all_reduce_sum(torch.cat([x32.sum(dim=(0, 2, 3)), x32.new_tensor([n_local])]), group)
+    xm = x32 if mask is None else x32 * mask
+    sums = torch.cat([xm.sum(dim=(0, 2, 3)), x32.new_tensor([n_local])])
+    if group is not None:
+        sums = all_reduce_sum(sums, group)
     n = float(sums.detach()[-1])
     mean = sums[:-1] / n
-    var = all_reduce_sum((x32 - mean.view(1, -1, 1, 1)).square().sum(dim=(0, 2, 3)), group) / n
-    return mean, var, int(n)
+    d2 = (x32 - mean.view(1, -1, 1, 1)).square()
+    sq = (d2 if mask is None else d2 * mask).sum(dim=(0, 2, 3))
+    if group is not None:
+        sq = all_reduce_sum(sq, group)
+    return mean, sq / n, int(n)
 
 
 def batch_norm_train(x, gamma, beta, running_mean, running_var, momentum=0.1, eps=1e-5):
@@ -107,13 +164,18 @@ def batch_norm_train(x, gamma, beta, running_mean, running_var, momentum=0.1, ep
     Inside ``parallel.data_parallel(group)`` the batch is the whole batch
     over the group's ranks, as GSPMD gives a batch-sharded BatchNorm in the
     JAX package: the per-channel sum and centred sum are all-reduced, and the
-    unbiased count is the whole batch's."""
-    from memcnet_tpu_torch.parallel.context import active_data_group
-
+    unbiased count is the whole batch's.  On partitioned frames the
+    statistics are over the pixels the tiles own (the stacked tiles'
+    padding masked), over every rank of the mesh where the tiles live
+    across ranks."""
     x32 = x.float()
-    group = active_data_group()
-    if group is not None:
-        mean, var, n = _synced_moments(x32, group)
+    part = active_partition()
+    group = _context().active_data_group()
+    if part is not None:
+        mean, var, n = _moments(x32, part.mask(x), part.count(x),
+                                part.mesh.group if part.across else group)
+    elif group is not None:
+        mean, var, n = _moments(x32, None, x.shape[0] * x.shape[2] * x.shape[3], group)
     else:
         mean = x32.mean(dim=(0, 2, 3))
         var = (x32 - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))

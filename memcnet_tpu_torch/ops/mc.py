@@ -176,6 +176,9 @@ def occlusion_weight(frame1, frame2, flow, *, lambda_e=0.02, window=3):
       (B, 1, H, W); 1e-4 where p + f lands outside the frame.  Its backward
       is the reference's hand rule (module docstring).
     """
+    from memcnet_tpu_torch.parallel.context import refuse_partition
+
+    refuse_partition("occlusion_weight")
     if window % 2 != 1:
         raise ValueError(f"window must be odd, got {window}")
     return _OcclusionWeight.apply(frame1, frame2, flow, float(lambda_e), window)
@@ -234,6 +237,9 @@ class _Splat(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mode, sigma_d, *args):
+        from memcnet_tpu_torch.parallel.context import refuse_partition
+
+        refuse_partition(f"the {mode} splat")
         ctx.mode, ctx.sigma_d = mode, sigma_d
         ctx.save_for_backward(*args)
         return splat_reference(mode, sigma_d, *args)

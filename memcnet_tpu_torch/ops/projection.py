@@ -28,9 +28,11 @@ PyTorch in front of the kernel, as the JAX package builds it in XLA.
 
 Under an active ``parallel.spatial_tiling`` context ``flow_project``
 dispatches to the tiled projection (``parallel/tiling.py``), whose tile-local
-steps are K2's tile entry and K3's carry entry on CUDA tensors; with
+steps are K2's tile entry and K3's carry entry on CUDA tensors (on frames
+sharded under the context, ``parallel.partition``, those steps alone); with
 ``fix_down_scan_bug`` it raises there, as the JAX package does.  The depth
-and gated projections are not tiled, in the JAX package either.
+and gated projections are not tiled, in the JAX package either, and raise
+on sharded frames.
 """
 
 import torch
@@ -51,15 +53,20 @@ def reference(flow, *, fillhole=False, fix_down_scan_bug=False):
 def flow_project(flow, *, fillhole=False, fix_down_scan_bug=False):
     """Project forward flow F_{t->t+1} (B, 2, H, W) to time t (negated
     average scatter).  Returns (B, 2, H, W) in the flow's type."""
-    from memcnet_tpu_torch.parallel.context import active_tiling
+    from memcnet_tpu_torch.parallel.context import active_partition, active_tiling
 
     t = active_tiling()
     if t is not None:
         if fix_down_scan_bug:
             raise NotImplementedError(
                 "fix_down_scan_bug is not supported on the tiled projection path")
-        from memcnet_tpu_torch.parallel.tiling import tiled_flow_project
+        from memcnet_tpu_torch.parallel.tiling import project_tiles, tiled_flow_project
 
+        part = active_partition()
+        if part is not None:
+            return project_tiles(part.ring(flow.shape[0]), flow, frame=part.frame, halo=t.halo,
+                                 fillhole=fillhole, axis=t.axis, axis_h=t.axis_h,
+                                 halo_h=t.halo_h)
         return tiled_flow_project(t.mesh, flow, halo=t.halo, fillhole=fillhole, axis=t.axis,
                                   batch_axis=t.batch_axis, axis_h=t.axis_h, halo_h=t.halo_h)
     return project_kernel.flow_project(flow, fillhole, fix_down_scan_bug)
@@ -164,6 +171,9 @@ def depth_flow_project(flow, depth, *, fillhole=False):
     Returns:
       projected flow (B, 2, H, W) in the flow's type.
     """
+    from memcnet_tpu_torch.parallel.context import refuse_partition
+
+    refuse_partition("depth_flow_project")
     if not _lib.on_cuda(flow, depth):
         return depth_reference(flow, depth, fillhole=fillhole)
     return _DepthProjectFunction.apply(flow.contiguous(), depth.contiguous(), fillhole)
@@ -249,6 +259,9 @@ def weighted_flow_project(flow, frame1, frame2, *, threshold=20.0 / 255.0, fillh
       (projected flow (B, 2, H, W), weight plane (B, 1, H, W)), both in the
       flow's type.
     """
+    from memcnet_tpu_torch.parallel.context import refuse_partition
+
+    refuse_partition("weighted_flow_project")
     if not _lib.on_cuda(flow, frame1, frame2):
         return weighted_reference(flow, frame1, frame2, threshold=threshold, fillhole=fillhole)
     return _WeightedProjectFunction.apply(flow.contiguous(), frame1.contiguous(),

@@ -14,12 +14,16 @@ reference's hand backward, my_lib_kernel.cu:339-390), on any device.
 
 import torch
 
+
 FLOW_SENTINEL = -2000.0  # my_lib_kernel.cu:67, "no kernel mass"
 
 
 def separable_conv(image, vert, horiz):
     """image (B, C, H, W), vert and horiz (B, fs, H-fs+1, W-fs+1) ->
     (B, C, H-fs+1, W-fs+1), in the JAX package's order of sums."""
+    from memcnet_tpu_torch.parallel.context import refuse_partition
+
+    refuse_partition("separable_conv")
     B, C, H, W = image.shape
     fs = vert.shape[1]
     oH, oW = H - fs + 1, W - fs + 1

@@ -15,7 +15,9 @@ Landing coordinates are computed in float32 even for bf16 activations.
 Under an active ``parallel.spatial_tiling`` context both warps dispatch to
 the tiled warp (``parallel/tiling.py``: halo exchange, flow clamped to the
 halo budget), whose tile-local step is K1's tile entry on CUDA tensors; the
-split warp keeps its sources apart there too.
+split warp keeps its sources apart there too.  On frames sharded under the
+context (``parallel.partition``) the inputs are tiles, and the warps run
+the tile-local step alone.
 
 ``bilinear_warp`` (N3, InterpolationLayer; N4, InterpolationChLayer, any
 channel count; my_lib_kernel.cu:507-686) is the classic backward warp, valid
@@ -41,12 +43,17 @@ def filter_interp_warp_split(images, flow, filt, *, filter_size=4):
     Returns:
       tuple of (B, C_k, H, W) warped tensors, one per source.
     """
-    from memcnet_tpu_torch.parallel.context import active_tiling
+    from memcnet_tpu_torch.parallel.context import active_partition, active_tiling
 
     t = active_tiling()
     if t is not None:
-        from memcnet_tpu_torch.parallel.tiling import tiled_filter_interp_warp_split
+        from memcnet_tpu_torch.parallel.tiling import tiled_filter_interp_warp_split, warp_tiles
 
+        part = active_partition()
+        if part is not None:
+            return warp_tiles(part.ring(flow.shape[0]), tuple(images), flow, filt,
+                              frame=part.frame, filter_size=filter_size, halo=t.halo,
+                              axis=t.axis, axis_h=t.axis_h, halo_h=t.halo_h)
         return tiled_filter_interp_warp_split(
             t.mesh, images, flow, filt, filter_size=filter_size, halo=t.halo, axis=t.axis,
             batch_axis=t.batch_axis, axis_h=t.axis_h, halo_h=t.halo_h)
@@ -69,6 +76,9 @@ def bilinear_warp(image, flow):
     """Bilinear backward warp of image (B, C, H, W) along flow (B, 2, H, W);
     out of range -> 0.  Coordinates and blend weights in float32; the result
     in the image's type."""
+    from memcnet_tpu_torch.parallel.context import refuse_partition
+
+    refuse_partition("bilinear_warp")
     B, C, H, W = image.shape
     f = flow.float()
     x2 = torch.arange(W, dtype=torch.float32, device=f.device).view(1, 1, W) + f[:, 0]

@@ -9,6 +9,13 @@ must exchange by hand.  The JAX package consults the context while it traces
 a jitted step; the port's ops read it each time they are called, so the same
 model code serves the whole frame and the tiled one.
 
+Frames that come in sharded (``parallel.mesh.shard_frames`` under the
+context) record a ``parallel.partition.Partition`` of their global size in
+it (``active_partition``): then every spatial layer runs on its tile with
+halos (``nn.layers``), and the warp and the projection go straight to their
+tile-local steps.  Frames passed whole keep the behaviour above: the convs
+on the whole frame, the warp and the projection split and merged.
+
 ``data_parallel(group)`` makes the train-mode BatchNorm
 (``nn.layers.batch_norm_train``) reduce its batch statistics over the ranks
 of ``group``, as GSPMD does for a batch-sharded BatchNorm in the JAX
@@ -18,7 +25,9 @@ Both contexts are thread-local.
 
     mesh = make_mesh(4, devices=[torch.device("cuda")] * 4)   # (data 1, tile 4)
     with spatial_tiling(mesh, halo=64):
-        out = model(x0, x2)
+        out = model(x0, x2)                          # whole frames
+        t0, t2 = shard_frames(mesh, x0, x2)          # or sharded ones
+        out = gather_frames(mesh, model(t0, t2)[0][1])
 """
 
 import threading
@@ -51,12 +60,41 @@ def spatial_tiling(mesh, *, axis="tile", batch_axis="data", halo=64, axis_h=None
     """Dispatch the warp and the projection to the tiled implementations
     while this context is active.  Pass ``axis_h`` for a 2-D (tile_h, tile)
     grid."""
-    prev = active_tiling()
+    prev, prev_part = active_tiling(), getattr(_state, "partition", None)
     _state.ctx = TilingContext(mesh, axis, batch_axis, halo, axis_h, halo_h)
+    _state.partition = None
     try:
         yield _state.ctx
     finally:
-        _state.ctx = prev
+        _state.ctx, _state.partition = prev, prev_part
+
+
+def active_partition():
+    """The ``Partition`` of the frames sharded under the innermost
+    ``spatial_tiling``, or None (no context, or whole frames)."""
+    return getattr(_state, "partition", None) if active_tiling() is not None else None
+
+
+def record_partition(partition):
+    """Record the partition of sharded frames in the active context
+    (``parallel.mesh.shard_frames``); one frame size per context."""
+    if active_tiling() is None:
+        raise RuntimeError("shard frames under spatial_tiling(mesh): the layers read the "
+                           "partition from it")
+    prev = getattr(_state, "partition", None)
+    if prev is not None and prev.frame != partition.frame:
+        raise ValueError(f"frames of {partition.frame} sharded where {prev.frame} are")
+    if prev is None:
+        _state.partition = partition
+    return _state.partition
+
+
+def refuse_partition(what):
+    """Raise where ``what`` has no partitioned form and frames are sharded:
+    nothing gathers the whole frame unannounced."""
+    if active_partition() is not None:
+        raise NotImplementedError(f"{what} has no partitioned form: pass whole frames under "
+                                  "spatial_tiling, or none")
 
 
 def active_data_group():

@@ -25,9 +25,15 @@ its positions are:
 With a ``group`` every axis lives across its ranks; without one every axis
 lives in this process.
 
-``frame_sharding``, ``frame_sharding_2d``, ``replicated`` and
-``shard_frames`` place arrays on devices for GSPMD and have no PyTorch
-meaning: the tiled ops take whole frames and split and merge the tiles
+Placing frames.  ``frame_sharding``, ``frame_sharding_2d`` and
+``replicated`` name, as the JAX package's PartitionSpecs do, the mesh axis
+each dim of a (B, C, H, W) frame is split over.  ``shard_frames(mesh,
+*frames)``, under ``spatial_tiling(mesh)``, splits whole frames into this
+process's stacked tiles or this rank's tile (and data slice) over the
+context's axes and records the frame's partition in the context
+(``parallel.partition``), so that every layer runs on its tile;
+``gather_frames`` is the inverse.  Frames passed whole to a model under
+``spatial_tiling`` are replicated: the tiled ops split and merge them
 themselves (``parallel.ring.TileRing.split`` and ``merge``).
 ``zero1_sharding`` becomes ``zero1_partition``, which ``parallel.zero``
 applies to each parameter.
@@ -37,6 +43,9 @@ import math
 
 import torch
 import torch.distributed as dist
+
+from memcnet_tpu_torch.parallel.context import active_partition, active_tiling, record_partition
+from memcnet_tpu_torch.parallel.partition import Partition
 
 
 class Mesh:
@@ -163,3 +172,56 @@ def mesh_barrier(mesh):
     group); nothing when every axis lives in this process."""
     if mesh.group is not None:
         dist.barrier(group=mesh.group)
+
+
+def frame_sharding(mesh):
+    """(B, C, H, W): batch over data, width over tile (a PartitionSpec's
+    axis names, one per dim)."""
+    return ("data", None, None, "tile")
+
+
+def frame_sharding_2d(mesh):
+    """(B, C, H, W): batch over data, height over tile_h, width over tile."""
+    return ("data", None, "tile_h", "tile")
+
+
+def replicated(mesh):
+    return ()
+
+
+def _context_sharding(mesh):
+    ctx = active_tiling()
+    if ctx is None or ctx.mesh is not mesh:
+        raise RuntimeError("shard and gather frames under spatial_tiling(mesh) of this mesh")
+    return ctx, ("data", None, ctx.axis_h, ctx.axis)
+
+
+def shard_frames(mesh, *frames, sharding=None):
+    """Whole frames (B, C, H, W) -> this process's tiles stacked into the
+    batch, or this rank's tile of its data slice, over the active
+    ``spatial_tiling`` context's axes (``sharding`` defaults to them;
+    ``replicated(mesh)`` returns the frames as they are).  Records the
+    partition of the frames' H and W in the context.  Returns one tensor
+    for one frame, else a tuple."""
+    ctx, spec = _context_sharding(mesh)
+    if sharding is not None and tuple(sharding) == replicated(mesh):
+        return frames[0] if len(frames) == 1 else frames
+    if sharding is not None and tuple(sharding) != spec:
+        raise ValueError(f"the spatial_tiling context shards frames as {spec}, not {sharding}")
+    H, W = frames[0].shape[-2:]
+    part = record_partition(Partition(mesh, ctx.axis, ctx.axis_h, H, W))
+    out = tuple(part.split(f) for f in frames)
+    return out[0] if len(out) == 1 else out
+
+
+def gather_frames(mesh, *tiles):
+    """The inverse of ``shard_frames``: whole tensors (at any level of the
+    frame) on every rank, the stacked tiles' padding dropped."""
+    from memcnet_tpu_torch.parallel.context import active_partition
+
+    _context_sharding(mesh)
+    part = active_partition()
+    if part is None:
+        raise RuntimeError("no frames were sharded under this spatial_tiling context")
+    out = tuple(part.merge(t) for t in tiles)
+    return out[0] if len(out) == 1 else out

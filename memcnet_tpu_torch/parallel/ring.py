@@ -179,3 +179,137 @@ class TileRing:
             else:
                 x = torch.cat(x.chunk(t, dim=0), dim=dim)
         return x
+
+
+# -- halo gathers of partitioned frames (parallel/partition.py) ----------------------
+
+
+def stacked_take(x, dim, outer, t, index, width):
+    """Tiles stacked into the batch (``outer`` groups of t tiles, tile index
+    outside the samples) -> each tile's ``width`` positions along ``dim``
+    named by ``index`` (t * width,) over the flattened (t * P + 1)
+    positions of the tiles' axis, the last a zero.  One index gather;
+    autograd's backward scatters the cotangents back to their tiles."""
+    dim = dim % x.dim()
+    n, P = x.shape[0], x.shape[dim]
+    lead, trail = x.shape[1:dim], x.shape[dim + 1:]
+    S = math.prod(trail)
+    y = x.reshape(outer, t, -1, P, S).transpose(1, 2)
+    R = y.shape[1]
+    y = y.reshape(outer, R, t * P, S)
+    y = torch.cat([y, y.new_zeros(outer, R, 1, S)], dim=2)
+    y = y.index_select(2, index).reshape(outer, R, t, width, S).transpose(1, 2)
+    return y.reshape((n,) + tuple(lead) + (width,) + tuple(trail))
+
+
+def ranks_plan(cols, bounds, c, device):
+    """What rank c of a tile line sends and receives for the halo gather of
+    ``cols`` (each tile's global positions, -1 for a zero) over tiles that
+    own ``bounds``: (to_prev, to_next) local indices of its own positions
+    that its neighbours read, the counts it receives from them, and the
+    index of its positions in cat(from_prev, own, from_next, zero)."""
+    t = len(bounds)
+    a, b = bounds[c]
+
+    def owned_by(j, gs):
+        if not 0 <= j < t:
+            return []
+        lo, hi = bounds[j]
+        return sorted({g for g in gs if lo <= g < hi})
+
+    from_prev, from_next = owned_by(c - 1, cols[c]), owned_by(c + 1, cols[c])
+    to_prev = [g - a for g in owned_by(c, cols[c - 1])] if c > 0 else []
+    to_next = [g - a for g in owned_by(c, cols[c + 1])] if c < t - 1 else []
+    n_p, n_n, own = len(from_prev), len(from_next), b - a
+    pos = {g: i for i, g in enumerate(from_prev)}
+    pos.update({g: n_p + g - a for g in range(a, b)})
+    pos.update({g: n_p + own + i for i, g in enumerate(from_next)})
+    index = [pos[g] if g >= 0 else n_p + own + n_n for g in cols[c]]
+
+    def as_tensor(v):
+        return torch.tensor(v, dtype=torch.int64, device=device)
+
+    return as_tensor(to_prev), as_tensor(to_next), n_p, n_n, as_tensor(index)
+
+
+def _swap(sends, recvs, group):
+    """Post every (peer, tensor) send and (peer, buffer) receive of one
+    exchange, skipping empty ones (both sides agree on the sizes)."""
+    ops = [dist.P2POp(dist.isend, x.contiguous(), peer, group)
+           for peer, x in sends if x.numel()]
+    ops += [dist.P2POp(dist.irecv, buf, peer, group) for peer, buf in recvs if buf.numel()]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def _like(x, dim, n):
+    shape = list(x.shape)
+    shape[dim] = n
+    return x.new_empty(shape)
+
+
+class _Bands(torch.autograd.Function):
+    """Send bands to the previous and next rank of a line, receive theirs;
+    the backward sends the cotangents back (no wraparound)."""
+
+    @staticmethod
+    def forward(ctx, to_prev, to_next, link):
+        prev, nxt, group, n_p, n_n, dim = link
+        ctx.link = link
+        ctx.sizes = (to_prev.shape[dim], to_next.shape[dim])
+        from_prev, from_next = _like(to_prev, dim, n_p), _like(to_next, dim, n_n)
+        sends = [(prev, to_prev)] if prev is not None else []
+        sends += [(nxt, to_next)] if nxt is not None else []
+        recvs = [(prev, from_prev)] if prev is not None else []
+        recvs += [(nxt, from_next)] if nxt is not None else []
+        _swap(sends, recvs, group)
+        return from_prev, from_next
+
+    @staticmethod
+    def backward(ctx, g_prev, g_next):
+        prev, nxt, group, _, _, dim = ctx.link
+        to_prev, to_next = _like(g_prev, dim, ctx.sizes[0]), _like(g_next, dim, ctx.sizes[1])
+        sends = [(prev, g_prev)] if prev is not None else []
+        sends += [(nxt, g_next)] if nxt is not None else []
+        recvs = [(prev, to_prev)] if prev is not None else []
+        recvs += [(nxt, to_next)] if nxt is not None else []
+        _swap(sends, recvs, group)
+        return to_prev, to_next, None
+
+
+def ranks_take(x, dim, plan, ranks, coord, group):
+    """This rank's halo gather along ``dim`` (``ranks_plan``): its bands
+    to and from the neighbouring ranks of the line ``ranks``, then one index
+    gather over cat(from_prev, own, from_next, zero)."""
+    to_prev, to_next, n_p, n_n, index = plan
+    dim = dim % x.dim()
+    t = len(ranks)
+    link = (ranks[coord - 1] if coord > 0 else None, ranks[coord + 1] if coord < t - 1 else None,
+            group, n_p, n_n, dim)
+    from_prev, from_next = _Bands.apply(x.index_select(dim, to_prev),
+                                        x.index_select(dim, to_next), link)
+    ext = torch.cat([from_prev, x, from_next, _like(x, dim, 1).zero_()], dim=dim)
+    return ext.index_select(dim, index)
+
+
+class _GatherUneven(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, sizes, coord, group):
+        ctx.dim, ctx.start, ctx.n = dim, sum(sizes[:coord]), sizes[coord]
+        pad = max(sizes) - x.shape[dim]
+        if pad:
+            x = torch.cat([x, _like(x, dim, pad).zero_()], dim=dim)
+        parts = [torch.empty_like(x) for _ in sizes]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat([p.narrow(dim, 0, s) for p, s in zip(parts, sizes)], dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.start, ctx.n).contiguous(), None, None, None, None
+
+
+def gather_uneven(x, dim, sizes, coord, group):
+    """The parts of a line of ranks, ``sizes[i]`` along ``dim`` on rank i,
+    concatenated on every rank; the backward keeps this rank's part."""
+    return _GatherUneven.apply(x, dim % x.dim(), list(sizes), coord, group)

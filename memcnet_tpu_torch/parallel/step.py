@@ -13,12 +13,15 @@ slices the averaged gradients are the whole batch's.
 ``sharded_train_step`` is ``dryrun_multichip``: one MEMC_Net_star train step
 on a (data, tile) mesh, or (data, tile_h, tile) when the mesh has a multiple
 of 4 positions, with 64 px per tile and axis, under ``spatial_tiling(mesh,
-halo=16)``, DDP over the data axis where it lives across ranks, and
-``ZeroAdamax`` over every rank.  The convolutions of a tiled model run on the
-whole frame on each rank of a tile line (PyTorch has no SPMD partitioner);
-the warp and the projection are tiled, as the JAX package tiles them by
-hand.  Where every axis lives in this process the same step runs in one
-process, its tiles stacked into the batch.
+halo=16)``, its frames placed sharded (``shard_frames``) as the dryrun
+places them with ``frame_sharding``: every layer runs on its tile with halos
+(``parallel.partition``), the warp and the projection on their tile-local
+steps.  Where the mesh lives across ranks, DDP averages the gradients over
+every rank of it: each rank's loss is its data slice's, all-reduced over
+its tile lines, whose backward scales the gradient by the tile count, so the
+average is the whole batch's (``train.loss``); ``ZeroAdamax`` shards the
+optimizer over every rank.  Where every axis lives in this process the same
+step runs in one process, its tiles stacked into the batch.
 """
 
 import warnings
@@ -30,7 +33,7 @@ from torch.nn.parallel import DistributedDataParallel
 from torch.profiler import record_function
 
 from memcnet_tpu_torch.parallel.context import data_parallel, spatial_tiling
-from memcnet_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d, mesh_barrier
+from memcnet_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d, mesh_barrier, shard_frames
 from memcnet_tpu_torch.parallel.zero import ZeroAdamax
 from memcnet_tpu_torch.train.trainer import TrainStep, interp_loss_fn
 
@@ -89,17 +92,6 @@ class DataParallelStep(TrainStep):
         return whole
 
 
-def data_slice(mesh, x):
-    """This rank's slice of a whole batch along the data axis (all of it
-    where the data axis lives in this process)."""
-    if not mesh.is_across("data"):
-        return x
-    d = mesh.shape["data"]
-    b = x.shape[0] // d
-    r = mesh.coords["data"]
-    return x[r * b:(r + 1) * b]
-
-
 def sharded_mesh(*, devices=None, group=None):
     """The dryrun's mesh over the positions of ``devices`` (in this process)
     or the ranks of ``group``: (data, tile_h 2, tile 2) when 4 divides their
@@ -123,8 +115,9 @@ def sharded_frames(mesh, seed=0):
 
 def sharded_train_step(mesh, axis_h, frames, *, seed=0, lr=2e-3, device="cuda"):
     """One MEMC_Net_star train step on ``mesh`` (``sharded_mesh``) over the
-    whole batch ``frames`` (x0, x1, x2): this rank's data slice, tiled under
-    ``spatial_tiling(mesh, halo=16)``, DDP over the data axis where it lives
+    whole batch ``frames`` (x0, x1, x2): under ``spatial_tiling(mesh,
+    halo=16)``, the frames sharded into this process's stacked tiles or this
+    rank's tile of its data slice, DDP over every rank where the mesh lives
     across ranks, ZeRO-1 Adamax (optax's ``adamax(lr)``) over every rank.
     Returns (the whole batch's loss, the model, the optimizer)."""
     from memcnet_tpu_torch.cli.runner import build_model
@@ -132,14 +125,13 @@ def sharded_train_step(mesh, axis_h, frames, *, seed=0, lr=2e-3, device="cuda"):
     model = build_model("MEMC_Net_star", seed=seed, device=device)
     opt = ZeroAdamax(model, mesh.group, lr=lr)
     loss_fn = interp_loss_fn(model)
-    if mesh.is_across("data"):
-        step = DataParallelStep(model, opt, loss_fn, mesh.axis_group("data"), device)
+    if mesh.group is not None:
+        step = DataParallelStep(model, opt, loss_fn, mesh.group, device)
     else:
         step = TrainStep(model, opt, loss_fn, device)
-    x0, x1, x2 = (data_slice(mesh, torch.from_numpy(f)) for f in frames)
     mesh_barrier(mesh)
     with spatial_tiling(mesh, halo=SHARDED_HALO, axis_h=axis_h):
-        loss = step(x0, x1, x2)
+        loss = step(*shard_frames(mesh, *(torch.from_numpy(f) for f in frames)))
     if not torch.isfinite(loss):
         raise FloatingPointError(f"the sharded step's loss is not finite: {float(loss)}")
     return loss, model, opt

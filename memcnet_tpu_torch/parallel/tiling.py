@@ -20,11 +20,14 @@ Semantic contract, as in the JAX package:
   * W must be divisible by the tile count (H by the tile_h count); the
     projection needs W / t >= 2 halo (and H / t_h >= 2 halo_h).
 
-Global tensors go in and come out; ``parallel.ring.TileRing`` splits them
-into tiles and merges them back, and carries the ring shifts.  The
-tile-local steps are the tile entries of K1 (``warp_kernel.warp_tile``), K2
-(``project_kernel.tile_sums``) and K3 (``project_kernel.carry_fill``) on CUDA
-tensors and their plain versions on CPU tensors.  Coordinates are float32
+Global tensors go in and come out of the ``tiled_*`` ops;
+``parallel.ring.TileRing`` splits them into tiles and merges them back, and
+carries the ring shifts.  ``warp_tiles`` and ``project_tiles`` are the
+tile-local steps alone, which partitioned frames (``parallel.partition``)
+run with no split and no merge.  Their kernels are the tile entries of K1
+(``warp_kernel.warp_tile``), K2 (``project_kernel.tile_sums``) and K3
+(``project_kernel.carry_fill``) on CUDA tensors and their plain versions on
+CPU tensors.  Coordinates are float32
 whatever the activations' type; the JAX version builds them in
 ``flow.dtype``, up to 4 px off above 256 in bf16.  ``batch_axis`` is
 accepted for the JAX signature: the ops work per sample, so the batch's
@@ -78,26 +81,38 @@ def _exchange_halo(img, ring, axis, halo, dim):
     return torch.cat([from_prev, img, from_next], dim=dim)
 
 
+def warp_tiles(ring, images, flow, filt, *, frame, filter_size=4, halo=64, axis="tile",
+               axis_h=None, halo_h=None):
+    """The tile-local warp: tiles (n, C_k, Hl, Wl) of channel-split sources,
+    their flow and filter tiles, ``ring`` over their batch and the frame's
+    global (H, W) in; the warped tiles out, one per source."""
+    H, W = frame
+    Hl, Wl = images[0].shape[-2:]
+    hh = (halo_h if halo_h is not None else halo) if axis_h else 0
+    if halo > Wl or hh > Hl:
+        raise ValueError(f"halo {halo}x{hh} exceeds the {Hl}x{Wl} tile")
+    exts = []
+    for im in images:
+        ext = _exchange_halo(im, ring, axis, halo, -1)
+        if axis_h:  # rows second: the W-extended tile's corner halos ride along
+            ext = _exchange_halo(ext, ring, axis_h, hh, -2)
+        exts.append(ext)
+    origins = _origins(ring, axis, axis_h, Wl, Hl, flow.device)
+    return warp_kernel.warp_tile(exts, flow, filt, origins, halo, hh, filter_size, W, H)
+
+
 def tiled_filter_interp_warp_split(mesh, images, flow, filt, *, filter_size=4, halo=64,
                                    axis="tile", batch_axis=None, axis_h=None, halo_h=None):
     """The tiled warp of channel-split sources sharing one flow and filter
     (up to 4, as K1 takes them): the sources are never concatenated.
     Returns one whole-frame result per source."""
     images = tuple(images)
-    Wl, Hl, hh = _grid(mesh, images[0].shape, axis, axis_h, halo, halo_h)
-    if halo > Wl or hh > Hl:
-        raise ValueError(f"halo {halo}x{hh} exceeds the {Hl}x{Wl} tile")
+    _grid(mesh, images[0].shape, axis, axis_h, halo, halo_h)
     B, _, H, W = images[0].shape
     ring = _ring(mesh, B, axis, axis_h)
-    exts = []
-    for im in images:
-        ext = _exchange_halo(ring.split(im), ring, axis, halo, -1)
-        if axis_h:  # rows second: the W-extended tile's corner halos ride along
-            ext = _exchange_halo(ext, ring, axis_h, hh, -2)
-        exts.append(ext)
-    origins = _origins(ring, axis, axis_h, Wl, Hl, flow.device)
-    outs = warp_kernel.warp_tile(exts, ring.split(flow), ring.split(filt), origins, halo, hh,
-                                 filter_size, W, H)
+    outs = warp_tiles(ring, [ring.split(im) for im in images], ring.split(flow),
+                      ring.split(filt), frame=(H, W), filter_size=filter_size, halo=halo,
+                      axis=axis, axis_h=axis_h, halo_h=halo_h)
     return tuple(ring.merge(o) for o in outs)
 
 
@@ -185,23 +200,44 @@ def _tiled_fill(avg, cnt, ring, axis, axis_h, dtype):
     return project_kernel.carry_fill(avg, cnt, left, right, up, dtype)
 
 
-def _tiled_average(mesh, flow, halo, axis, axis_h, halo_h):
-    """The tiles' float32 average (n, 2, Hl, Wl) and count (n, Hl, Wl), and
-    their ring: the scatter, the spill exchange, the crop and the divide."""
-    Wl, Hl, hh = _grid(mesh, flow.shape, axis, axis_h, halo, halo_h)
+def _tile_average(ring, flow, frame, halo, axis, axis_h, halo_h):
+    """The tiles' float32 average (n, 2, Hl, Wl) and count (n, Hl, Wl) of
+    flow tiles (n, 2, Hl, Wl): the scatter, the spill exchange, the crop and
+    the divide."""
+    H, W = frame
+    Hl, Wl = flow.shape[-2:]
+    hh = (halo_h if halo_h is not None else halo) if axis_h else 0
     if Wl < 2 * halo or (hh and Hl < 2 * hh):
         raise ValueError(f"the projection needs tiles of at least twice the halo: {Hl}x{Wl} "
                          f"tiles, halo {hh}x{halo}")
-    B, _, H, W = flow.shape
-    ring = _ring(mesh, B, axis, axis_h)
     origins = _origins(ring, axis, axis_h, Wl, Hl, flow.device)
-    pay = project_kernel.tile_sums(ring.split(flow), origins, halo, hh, W, H)
+    pay = project_kernel.tile_sums(flow, origins, halo, hh, W, H)
     pay = _fold_and_exchange_spill(pay, ring, axis, halo, -1)
     if axis_h:
         pay = _fold_and_exchange_spill(pay, ring, axis_h, hh, -2)[:, :, hh:hh + Hl]
     pay = pay[..., halo:halo + Wl]
     cnt = pay[:, 2]
-    return pay[:, :2] / torch.where(cnt > 0.0, cnt, 1.0)[:, None], cnt, ring
+    return pay[:, :2] / torch.where(cnt > 0.0, cnt, 1.0)[:, None], cnt
+
+
+def _tiled_average(mesh, flow, halo, axis, axis_h, halo_h):
+    """``_tile_average`` of whole frames, and their ring."""
+    _grid(mesh, flow.shape, axis, axis_h, halo, halo_h)
+    B, _, H, W = flow.shape
+    ring = _ring(mesh, B, axis, axis_h)
+    avg, cnt = _tile_average(ring, ring.split(flow), (H, W), halo, axis, axis_h, halo_h)
+    return avg, cnt, ring
+
+
+def project_tiles(ring, flow, *, frame, halo=64, fillhole=False, axis="tile", axis_h=None,
+                  halo_h=None):
+    """The tile-local flow projection: flow tiles (n, 2, Hl, Wl), ``ring``
+    over their batch and the frame's global (H, W) in; the projected tiles
+    in the flow's type out."""
+    avg, cnt = _tile_average(ring, flow, frame, halo, axis, axis_h, halo_h)
+    if fillhole:
+        return _tiled_fill(avg, cnt, ring, axis, axis_h, flow.dtype)
+    return avg.to(flow.dtype)
 
 
 def tiled_flow_project(mesh, flow, *, halo=64, fillhole=False, axis="tile", batch_axis=None,
@@ -211,7 +247,8 @@ def tiled_flow_project(mesh, flow, *, halo=64, fillhole=False, axis="tile", batc
     ``axis_h`` the column spills are exchanged first over the whole
     extended rows, so a corner spill reaches its diagonal neighbour in two
     hops."""
-    avg, cnt, ring = _tiled_average(mesh, flow, halo, axis, axis_h, halo_h)
-    out = _tiled_fill(avg, cnt, ring, axis, axis_h, flow.dtype) if fillhole \
-        else avg.to(flow.dtype)
-    return ring.merge(out)
+    _grid(mesh, flow.shape, axis, axis_h, halo, halo_h)
+    B, _, H, W = flow.shape
+    ring = _ring(mesh, B, axis, axis_h)
+    return ring.merge(project_tiles(ring, ring.split(flow), frame=(H, W), halo=halo,
+                                    fillhole=fillhole, axis=axis, axis_h=axis_h, halo_h=halo_h))

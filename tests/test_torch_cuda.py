@@ -882,3 +882,92 @@ def test_tiled_ops_under_spatial_tiling_launch_the_tile_entries(rng, dev):
                                  "conv2d_small": 0, "grid_sample": 0,
                                  "filter_interp_warp_tile": 2, "base_scatter_tile": 2,
                                  "fill_holes_carry": 1}
+
+
+# -- partitioned frames (parallel/partition.py): every layer on its tile -------------------
+
+PART_FRAMES = {"tile4": (64, 320), "tile2x2": (192, 320)}  # each with a level that does not divide
+PART_LAYERS = {
+    "conv k3 s2": lambda L, x, g: L.conv2d(x, g["w3"], g["b8"], stride=2, padding=1),
+    "conv k7 s1": lambda L, x, g: L.conv2d(x, g["w7"], g["b8"], padding=3),
+    "conv groups 2": lambda L, x, g: L.conv2d(x, g["wg"], None, padding=1, groups=2),
+    "deconv": lambda L, x, g: L.conv_transpose2d(x, g["wd"], g["b4"], stride=2, padding=1),
+    "upsample x2": lambda L, x, g: L.upsample_bilinear(x, 2),
+    "max-pool": lambda L, x, g: L.max_pool2d(x, 2),
+    "batch norm": lambda L, x, g: L.batch_norm_train(x, g["b6"], g["b6"] * 0.5, g["b6"] * 0,
+                                                     g["b6"].abs() + 1)[0],
+}
+
+
+@pytest.mark.parametrize("grid", list(PART_FRAMES))
+@pytest.mark.parametrize("layer", list(PART_LAYERS))
+@pytest.mark.parametrize("lvl", [1, 5])
+def test_partitioned_layers_on_the_card_match_the_whole_tensor(dev, grid, layer, lvl):
+    """Each partitioned layer on stacked CUDA tiles against the stock layer
+    on the whole CUDA tensor, float32 (TF32 off)."""
+    from memcnet_tpu_torch.nn import layers as L
+    from memcnet_tpu_torch.parallel import active_partition, shard_frames, spatial_tiling
+
+    mesh, axis_h = tile_grid(grid, dev)
+    H, W = PART_FRAMES[grid]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shapes = {"w3": (8, 6, 3, 3), "w7": (8, 6, 7, 7), "wg": (8, 3, 3, 3), "wd": (6, 4, 4, 4),
+              "b8": (8,), "b4": (4,), "b6": (6,)}
+    g = {k: torch.randn(s, generator=gen, device=dev) for k, s in shapes.items()}
+    x = torch.randn((2, 6, H >> lvl, W >> lvl), generator=gen, device=dev)
+    want = PART_LAYERS[layer](L, x, g)
+    with spatial_tiling(mesh, halo=16, axis_h=axis_h):
+        shard_frames(mesh, torch.zeros(1, 1, H, W, device=dev))
+        p = active_partition()
+        got = p.merge(PART_LAYERS[layer](L, p.split(x), g))
+    close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid", ["tile4", "tile2x2"])
+def test_ctx_conv_runs_k4_once_on_halo_extended_tiles(rng, dev, dtype, grid):
+    """Star's ctx conv on partitioned frames: one K4 launch over every
+    stacked tile extended by 3 columns (and rows) of the normalised input,
+    equal to K4 on the whole frame."""
+    from memcnet_tpu_torch.models.ctx import ContextNet
+    from memcnet_tpu_torch.parallel import gather_frames, shard_frames, spatial_tiling
+
+    mesh, axis_h = tile_grid(grid, dev)
+    net = ContextNet()
+    net.init_params(torch.Generator().manual_seed(0))
+    net = net.to(dev, dtype)
+    x = torch.from_numpy(rng.rand(2, 3, 128, 256).astype(np.float32)).to(dev, dtype)
+    want = net(x)
+    K.reset_counters()
+    with spatial_tiling(mesh, halo=16, axis_h=axis_h):
+        got = gather_frames(mesh, net(shard_frames(mesh, x)))
+    assert K.launch_counts()["conv2d_small"] == 1
+    close(got, want, long_sums=True)
+
+
+@pytest.mark.parametrize("name", ["MEMC_Net_star", "MEMC_Net"])
+def test_partitioned_forward_on_the_card_launches_tile_entries_and_matches(rng, dev, name):
+    """The partitioned float32 forward on (1, 2, 2) at 128x128: 2 K1 tile, 1
+    K2 tile and 1 K3 carry launches (and star's 1 K4), no global K1-K3, and
+    every output within 1e-4 of its scale of the untiled forward on the
+    card."""
+    from memcnet_tpu_torch.parallel import gather_frames, shard_frames, spatial_tiling
+
+    model = build_model(name, seed=0, device=dev)
+    x0 = torch.from_numpy(rng.rand(1, 3, 128, 128).astype(np.float32)).to(dev)
+    x2 = torch.roll(x0, (1, 2), (2, 3))
+    with torch.no_grad():
+        raw = float(model._flow(x0, x2).abs().max())
+        model.flownets.predict_flow2.weight.mul_(3.0 / raw)
+        (wi, wr), woffs, _, _ = model(x0, x2)
+        mesh, axis_h = tile_grid("tile2x2", dev)
+        K.reset_counters()
+        with spatial_tiling(mesh, halo=16, axis_h=axis_h):
+            (gi, gr), goffs, _, _ = model(*shard_frames(mesh, x0, x2))
+            got = [gather_frames(mesh, t) for t in (gi, gr, *goffs)]
+    assert K.launch_counts() == {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
+                                 "conv2d_small": int(name == "MEMC_Net_star"), "grid_sample": 0,
+                                 "filter_interp_warp_tile": 2, "base_scatter_tile": 1,
+                                 "fill_holes_carry": 1}
+    for g, w in zip(got, (wi, wr, *woffs)):
+        assert float((g - w).abs().max()) <= 1e-4 * max(1.0, float(w.abs().max()))

@@ -4,23 +4,34 @@ the CPU (tests/torch_mp_workers.py), each held against one process.
   * the tiled warp and projection with their ring shifts across 4 ranks on
     a (1, 4), a (2, 2) and a (1, 2, 2) mesh, results and input gradients
     equal to the tiles stacked in one process;
+  * MEMC_Net_star's partitioned forward (frames sharded, every layer on its
+    tile) across 4 ranks on a (1, 4) grid at 64x320 and a (1, 2, 2) grid at
+    128x192, each with a level that does not divide, equal to the tiles
+    stacked in one process and to the untiled forward;
   * the dryrun's sharded MEMC_Net_star step on 4 ranks, (1, 2, 2) with 64
-    px tiles, equal to the one-process step;
+    px tiles, its frames partitioned: equal to the same step in one process
+    (the tiles stacked), its loss and gradients to the untiled step's;
   * the HD720p demo's --multihost launch, 2 processes at 64x96 (MEMC_Net):
     the stitched stream byte-equal to one process, as tests/
     test_multiprocess.py holds the JAX demo.
 
 (tests/test_torch_multiprocess_dp.py holds the data-parallel step and the
-ZeRO-1 checkpoint.)  One spawned group per scenario (the ring and the
-sharded step share one 4-rank group), in a module-scoped fixture whose
-results the parametrised cases read.  Every spawn and join has a timeout of
-120 s.
+ZeRO-1 checkpoint.)  One spawned group per scenario (the ring, the
+partitioned forward and the sharded step share one 4-rank group), in a
+module-scoped fixture whose results the parametrised cases read; the
+one-process references run while the ranks do.  Every spawn and join has a
+timeout of 120 s.
 Tolerances: the tiled ops exactly (the same float32 arithmetic in the same
-order); a train step's loss within 1e-5 relative and its parameters within
-1e-6 on at least 99.9% of their elements and within 2 lr everywhere
-(Adamax's first update is about lr * sign(g), so a gradient element that
-float32 noise moves across 0 moves its parameter by 2 lr; the ranks sum the
-gradients in another order than one process).
+order); the partitioned forward within 1e-5 of each output's scale of one
+process (convs of one tile against convs of a batch of tiles) and 1e-4 of
+the untiled forward (tests/test_torch_partition.py's rule); a train step's
+loss within 1e-5 relative and its parameters within 1e-6 on at least 99.9%
+of their elements and within 2 lr everywhere (Adamax's first update is
+about lr * sign(g), so a gradient element that float32 noise moves across 0
+moves its parameter by 2 lr; the ranks sum the gradients in another order
+than one process), and its gradients within 1e-2 of their subnet's largest
+of the untiled step's (tests/test_torch_train_models.py's rule: the convs of
+a tile sum in another order than the whole frame's).
 """
 
 import contextlib
@@ -82,16 +93,26 @@ def load_and_remove(path):
         os.remove(path)
 
 
-def spawn(scenario, world, out):
-    """Run ``scenario`` of torch_mp_workers in ``world`` ranks; returns each
-    rank's results."""
+def start(scenario, world, out):
+    """Start ``scenario`` of torch_mp_workers in ``world`` ranks; ``collect``
+    waits for them."""
     port = str(_free_port())
-    procs = [subprocess.Popen(
+    return [subprocess.Popen(
         [sys.executable, str(REPO / "tests" / "torch_mp_workers.py"), scenario, str(r),
          str(world), port, str(out)], env=_env(), cwd=REPO, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for r in range(world)]
+
+
+def collect(procs, out):
+    """Each rank's results."""
     _wait(procs)
-    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(len(procs))]
+
+
+def spawn(scenario, world, out):
+    """Run ``scenario`` of torch_mp_workers in ``world`` ranks; returns each
+    rank's results."""
+    return collect(start(scenario, world, out), out)
 
 
 @contextlib.contextmanager
@@ -117,16 +138,29 @@ def assert_step_params(got, want, lr):
 
 @pytest.fixture(scope="module")
 def four(tmp_path_factory):
-    """The 4-rank group's results, and the ring's meshes stacked in one
-    process."""
-    ranks = spawn("four", 4, tmp_path_factory.mktemp("four"))
-    want = {}
-    with few_threads():
-        for name, factory, (H, Wd), axis_h in W.RING_MESHES:
-            mesh = factory(devices=[CPU] * 4)
-            want[name] = (mesh, W.ring_run(mesh, axis_h, W.ring_inputs(H, Wd)))
+    """The 4-rank group's results, and the ring's and the partitioned
+    forward's meshes stacked in one process (computed while the ranks run)."""
+    out = tmp_path_factory.mktemp("four")
+    procs = start("four", 4, out)
+    want, part = {}, {}
+    try:
+        with few_threads():
+            for name, factory, (H, Wd), axis_h in W.RING_MESHES:
+                mesh = factory(devices=[CPU] * 4)
+                want[name] = (mesh, W.ring_run(mesh, axis_h, W.ring_inputs(H, Wd)))
+            for name, factory, (H, Wd), axis_h in W.PART_MESHES:
+                model, x0, x2 = W.part_inputs(H, Wd)
+                with torch.no_grad():
+                    (_, rectified), offs, _, _ = model(x0, x2)
+                part[name] = (W.part_run(factory(devices=[CPU] * 4), axis_h, H, Wd),
+                              {"rectified": rectified, "offset0": offs[0]})
+    except BaseException:
+        for p in procs:
+            p.kill()
+        raise
+    ranks = collect(procs, out)
     return dict(ring=[r["ring"] for r in ranks], sharded=[r["sharded"] for r in ranks],
-                ring_want=want)
+                partition=[r["partition"] for r in ranks], ring_want=want, part_want=part)
 
 
 # -- the ring across ranks ----------------------------------------------------------
@@ -145,6 +179,18 @@ def test_tiled_ops_across_ranks_equal_one_process(four, mesh_name, rank):
         assert torch.equal(got[k], w[rows]), k
 
 
+@pytest.mark.parametrize("mesh_name", [m[0] for m in W.PART_MESHES])
+@pytest.mark.parametrize("rank", range(4))
+def test_partitioned_forward_across_ranks_equals_one_process(four, mesh_name, rank):
+    stacked, untiled = four["part_want"][mesh_name]
+    got = four["partition"][rank][mesh_name]
+    assert float(untiled["offset0"].abs().max()) > 0.5 * W.PART_FLOW_PX
+    for k, w in stacked.items():
+        scale = max(1.0, float(w.abs().max()))
+        assert float((got[k] - w).abs().max()) <= 1e-5 * scale, k
+        assert float((got[k] - untiled[k]).abs().max()) <= 1e-4 * scale, k
+
+
 def test_sharded_star_step_mesh_and_loss(four):
     ranks = four["sharded"]
     for r in ranks:
@@ -155,10 +201,21 @@ def test_sharded_star_step_mesh_and_loss(four):
 
 
 def test_sharded_star_step_equals_one_process_step(four):
-    """Rank 0 took the one-process step (TrainStep, Adamax, untiled) on the
-    whole batch after the sharded one and compared the parameters."""
-    r = four["sharded"][0]
+    """Rank 1 took the same sharded step in one process (its tiles stacked
+    into the batch) after the 4-rank one and compared the parameters."""
+    r = four["sharded"][1]
     assert_step_stats(r["close_share"], r["max_abs"], W.SHARDED_LR)
+
+
+def test_sharded_star_step_gradients_match_the_whole_frame_step(four):
+    """The 4-rank step's gradients (DDP's average over every rank, each
+    rank's loss all-reduced over its tiles) against the untiled TrainStep's,
+    per subnet within 1e-2 of the subnet's largest, the rule of
+    tests/test_torch_train_models.py."""
+    errs = four["sharded"][0]["grad_errs"]
+    assert {"flownets", "rectifyNet", "initScaleNets_filter"} <= set(errs)
+    for sub, (err, top) in errs.items():
+        assert err <= 1e-2 * top, (sub, err, top)
 
 
 # -- the HD720p demo's --multihost ---------------------------------------------------------

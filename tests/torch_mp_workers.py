@@ -4,12 +4,14 @@ results to ``<out>/rank<r>.pt`` for the test to hold against one process.
 
     python tests/torch_mp_workers.py <scenario> <rank> <world> <port> <out>
 
-Scenarios: ``four`` (4 ranks: the ring-shift tiled ops, then the sharded
-MEMC_Net_star step) and ``dp`` (2 ranks: the data-parallel MEMC_Net steps).
+Scenarios: ``four`` (4 ranks: the ring-shift tiled ops, the partitioned
+MEMC_Net_star forward, then the sharded MEMC_Net_star step) and ``dp`` (2
+ranks: the data-parallel MEMC_Net steps).
 
 Imports torch and memcnet_tpu_torch only.
 """
 
+import functools
 import os
 import sys
 
@@ -20,7 +22,8 @@ import torch.distributed as dist
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from memcnet_tpu_torch.parallel import make_mesh, make_mesh_2d, tiling  # noqa: E402
+from memcnet_tpu_torch.parallel import (gather_frames, make_mesh, make_mesh_2d,  # noqa: E402
+                                        shard_frames, spatial_tiling, tiling)
 
 DP_SIZE = (64, 128)   # the data-parallel MEMC_Net step: B 2 (one sample per rank)
 DP_LR = 1e-4
@@ -28,6 +31,11 @@ DP_LR = 1e-4
 RING_MESHES = (("tile4", lambda **kw: make_mesh(4, max_tile=4, **kw), (16, 256), None),
                ("data2_tile2", lambda **kw: make_mesh(4, max_tile=2, **kw), (16, 256), None),
                ("tile2x2", lambda **kw: make_mesh_2d(4, **kw), (64, 128), "tile_h"))
+# the partitioned forward's meshes: (name, factory, frame size, H tile axis); at
+# 64x320 the 1/64 level's 5 columns split 2, 1, 1, 1, at 128x192 its 3 split 2, 1
+PART_MESHES = (("tile4", RING_MESHES[0][1], (64, 320), None),
+               ("tile2x2", RING_MESHES[2][1], (128, 192), "tile_h"))
+PART_FLOW_PX = 3.0  # star's flows scaled to about this, inside the halo budget of 16
 SHARDED_LR = 2e-3   # the dryrun's Adamax
 STEP_TOL = 1e-6
 
@@ -71,6 +79,43 @@ def scenario_ring(rank, world):
         rows = slice(r * 2 // d, (r + 1) * 2 // d)
         res[name] = ring_run(mesh, axis_h, ring_inputs(H, W), rows)
     return res
+
+
+@functools.lru_cache(maxsize=1)
+def part_model():
+    from memcnet_tpu_torch.cli.runner import build_model
+
+    model = build_model("MEMC_Net_star", seed=0, device="cpu")
+    return model, model.flownets.predict_flow2.weight.detach().clone()
+
+
+def part_inputs(H, W, seed=4):
+    """The partitioned forward's frames (B 2) and MEMC_Net_star, its
+    FlowNetS last conv scaled to give flows of about PART_FLOW_PX."""
+    rng = np.random.RandomState(seed)
+    x0 = torch.from_numpy(rng.rand(2, 3, H, W).astype(np.float32))
+    x2 = torch.roll(x0, (1, 2), (2, 3)) * 0.9 + 0.05
+    model, weight = part_model()
+    with torch.no_grad():
+        model.flownets.predict_flow2.weight.copy_(weight)
+        raw = float(model._flow(x0, x2).abs().max())
+        model.flownets.predict_flow2.weight.mul_(PART_FLOW_PX / raw)
+    return model, x0, x2
+
+
+def part_run(mesh, axis_h, H, W):
+    """The partitioned star forward: its rectified frame and first offset,
+    gathered whole."""
+    model, x0, x2 = part_inputs(H, W)
+    with torch.no_grad(), spatial_tiling(mesh, halo=16, axis_h=axis_h):
+        (_, rectified), offs, _, _ = model(*shard_frames(mesh, x0, x2))
+        return {"rectified": gather_frames(mesh, rectified),
+                "offset0": gather_frames(mesh, offs[0])}
+
+
+def scenario_partition(rank, world):
+    return {name: part_run(factory(group=dist.group.WORLD), axis_h, H, W)
+            for name, factory, (H, W), axis_h in PART_MESHES}
 
 
 def step_stats(got, want):
@@ -133,9 +178,11 @@ def scenario_dp(rank, world, out):
 
 
 def scenario_sharded(rank, world):
-    """The dryrun's sharded MEMC_Net_star step on 4 ranks, (1, 2, 2); rank 0
-    then takes the one-process step (TrainStep, Adamax, untiled) on the whole
-    batch and compares."""
+    """The dryrun's sharded MEMC_Net_star step on 4 ranks, (1, 2, 2), its
+    frames partitioned; rank 1 then takes the same step in one process (the
+    tiles stacked) and compares the parameters, and rank 0 the untiled step
+    (TrainStep, Adamax) on the whole batch and compares the loss and the
+    gradients (every rank ends the step with the same model)."""
     from memcnet_tpu_torch.cli.runner import build_model
     from memcnet_tpu_torch.parallel.step import sharded_frames, sharded_mesh, sharded_train_step
     from memcnet_tpu_torch.train.trainer import Adamax, TrainStep, interp_loss_fn
@@ -146,12 +193,34 @@ def scenario_sharded(rank, world):
     res = {"loss": loss, "mesh": dict(mesh.shape), "sums": state_sums(model),
            "state_numel": sum(m.numel() for m in opt.mu),
            "whole_numel": sum(p.numel() for p in model.parameters())}
+    if rank == 1:
+        stacked_mesh, stacked_h = sharded_mesh(devices=[torch.device("cpu")] * world)
+        _, stacked, _ = sharded_train_step(stacked_mesh, stacked_h, frames, lr=SHARDED_LR,
+                                           device="cpu")
+        res["close_share"], res["max_abs"] = step_stats(model.state_dict(), stacked.state_dict())
     if rank == 0:
+        grads = subnet_grads(model)
         ref = build_model("MEMC_Net_star", seed=0, device="cpu")
         res["ref_loss"] = TrainStep(ref, Adamax(ref, lr=SHARDED_LR), interp_loss_fn(ref),
                                     "cpu")(*frames)
-        res["close_share"], res["max_abs"] = step_stats(model.state_dict(), ref.state_dict())
+        res["grad_errs"] = subnet_grad_errs(grads, subnet_grads(ref))
     return res
+
+
+def subnet_grads(model):
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def subnet_grad_errs(got, want):
+    """Per subnet (the parameter name's first part): the largest |got -
+    want| and the largest |want|."""
+    out = {}
+    for k, w in want.items():
+        err, top = out.get(k.split(".")[0], (0.0, 0.0))
+        out[k.split(".")[0]] = (max(err, float((got[k] - w).abs().max())),
+                                max(top, float(w.abs().max())))
+    return out
 
 
 def main():
@@ -162,7 +231,9 @@ def main():
                             world_size=world)
     try:
         if scenario == "four":  # the ring, then the sharded step, on 4 ranks
-            res = {"ring": scenario_ring(rank, world), "sharded": scenario_sharded(rank, world)}
+            res = {"ring": scenario_ring(rank, world),
+                   "partition": scenario_partition(rank, world),
+                   "sharded": scenario_sharded(rank, world)}
         elif scenario == "dp":
             res = scenario_dp(rank, world, out)
         else:
