@@ -14,7 +14,12 @@ Phases (any failed check exits non-zero and prints no result line):
      ops it replaces, and K4 at each of the five convs of every SPyNet level,
      768x1344 down to 24x42 (MEMC_Net_s), and K1 and K4 at MEMC_Net_VE's
      320x512 window (K1 over six neighbours and their contexts on the smooth
-     flow and on +-20 px noise, K4 over seven frames); the projection's K2
+     flow and on +-20 px noise, K4 over seven frames); K5's tile entry (the
+     level input on partitioned frames) on the tiles of three levels of
+     768x1344 on the (data 1, tile 4) and (1, 2, 2) grids, +-20 px flows,
+     its fst and up equal to the untiled kernel's bit for bit, timed at the
+     top level on (1, 4) beside F.grid_sample of the same sample; the
+     projection's K2
      and K3 stages each, and the whole op (flow_project) against its plain
      composition on
      smooth, +-200 px and all-invalid flows, with its device operations per
@@ -103,21 +108,25 @@ Phases (any failed check exits non-zero and prints no result line):
      processes on the one card (a gloo host group) over phase 5's synthetic
      stream in 4 GOPs: both processes work, the journal holds every GOP
      once, and the stitched stream is byte-equal to a one-process run;
-  9. partitioned convolutions: MEMC_Net_star and MEMC_Net served in bf16 on
-     synthetic 720p pairs through PaddedInterp(sharded=True) under
-     spatial_tiling (halo 64) on the (data 1, tile 4) and (1, 2, 2) grids --
-     pad, shard_frames, every layer on its tile with halos, gather, unpad --
-     the launch counts set to 0 just before and read just after (per frame
-     2 K1 tile, 1 K2 tile, 1 K3 carry launch and star's 1 K4 on the
-     halo-extended tiles, no global K1-K3), against the untiled forward on
-     the same pairs (FlowNetS's last conv scaled to 8.25 px flows): every
+  9. partitioned convolutions: MEMC_Net_star, MEMC_Net and MEMC_Net_s served
+     in bf16 on synthetic 720p pairs through PaddedInterp(sharded=True), and
+     MEMC_Net_VE on synthetic 256x448 windows (padded to 320x512) through
+     PaddedVE(sharded=True), under spatial_tiling (halo 64) on the (data 1,
+     tile 4) and (1, 2, 2) grids -- pad, shard_frames, every layer on its
+     tile with halos, gather, unpad -- the launch counts set to 0 just
+     before and read just after (per frame 2 K1 tile, 1 K2 tile, 1 K3 carry
+     launch, star's 1 K4 on the halo-extended tiles, MEMC_Net_s's 30 K4 and
+     6 K5 tile entries with one whole-level gather each; per window 1 K1
+     tile and 1 K4; no global K1-K3 or K5), against the untiled forward on
+     the same inputs (the flow net's last conv scaled to about 8 px flows): every
      output's largest difference over its scale reported, in float32 the
      99.9th percentile within 1e-4, in bf16 no further from the float32
      forward of the same weights than the untiled bf16 forward (1.25x on
      the mean and the 99.9th percentile; PART_F32_TOL says why); per model
      and grid the forward's ms by CUDA
      events (median of 5), its device ms and device operations and the
-     halo gathers' device ms from one profiled forward, and its peak memory,
+     halo and whole-level gathers' device ms from one profiled forward, and
+     its peak memory,
      each beside the untiled forward's; and one float32 MEMC_Net_star step
      at 256x448 on (1, 4), halo 16, its frames sharded, against TrainStep
      on the whole frames (the loss within 1e-5 relative, the parameters
@@ -175,7 +184,8 @@ TPU_KERNELS = {
 }
 
 # the tile entries (phase 8): no launch on any earlier path
-TILE_COUNTERS = {"filter_interp_warp_tile": 0, "base_scatter_tile": 0, "fill_holes_carry": 0}
+TILE_COUNTERS = {"filter_interp_warp_tile": 0, "base_scatter_tile": 0, "fill_holes_carry": 0,
+                 "level_input_tile": 0}
 TILE_ENTRIES = {
     "filter_interp_warp_tile": ("memcnet_tpu_torch/csrc/warp.cu",
                                 "memcnet_tpu/ops/pallas/warp_kernel.py:827",
@@ -579,6 +589,7 @@ def phase_kernels(torch, results):
             f"{n_ops[1]:.4f}; parent prologue: {n_old[0]} device ops, device ms {n_old[1]:.4f}, "
             f"{rows['spynet_level_input'][dtype_name]['parent_prologue']['ms']:.4f} ms")
         del fst, snd, cflow
+        level_input_tile_rows(torch, rows, dt, dtype_name, gen, flush)
 
         # --- K4 at each conv of every SPyNet level: B = 2, 7x7, bias, ReLU on
         # the first four; torch-0.2 default weights.  The top level keeps its
@@ -2132,7 +2143,7 @@ TILE_GRIDS = (("tile4", None), ("tile2x2", "tile_h"))  # (data 1, tile 4), (1, 2
 TILED_PAIRS = 2
 EXPECTED_TILED_FRAME = {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
                         "conv2d_small": 1, "grid_sample": 0, "filter_interp_warp_tile": 2,
-                        "base_scatter_tile": 1, "fill_holes_carry": 1}
+                        "base_scatter_tile": 1, "fill_holes_carry": 1, "level_input_tile": 0}
 TILED_SERVE_TOL = 1e-2       # of the output's scale: bf16 flows the two sums may round apart
 TILED_FLOW_PX = 8.0          # star's flows scaled to about this, inside the halo budget
 NCCL_H, NCCL_W = 256, 448    # the one-rank NCCL step (Vimeo-90K's size)
@@ -2184,6 +2195,90 @@ def tile_inputs(torch, mesh, axis_h, images, flow, filt):
         exts.append(T._exchange_halo(e, ring, axis_h, hh, -2) if axis_h else e)
     origins = T._origins(ring, "tile", axis_h, Wl, Hl, flow.device)
     return ring, exts, ring.split(flow), None if filt is None else ring.split(filt), origins, hh
+
+
+def level_input_tile_rows(torch, rows, dt, dtype_name, gen, flush):
+    """K5's tile entry (SPyNet's level input on partitioned frames) on the
+    tiles of 768x1344 at three levels of each grid, B = 2, the coarse flow of
+    probe.level_flow clipped to +-10 px (+-20 px upsampled, sampling tiles
+    away): merged, its fst and up equal the untiled kernel's bit for bit;
+    against its plain version fst exactly and up within phase 2's rules; its
+    warp against the plain grid sample of its own up (the level input's
+    rule).  The row, (1, 4) at the top level, is timed beside its plain
+    version and F.grid_sample of the same sample."""
+    import torch.nn.functional as F
+
+    from memcnet_tpu_torch.ops.cuda import gather_kernel as G
+    from memcnet_tpu_torch.parallel import active_partition, shard_frames, spatial_tiling
+    from memcnet_tpu_torch.probe import device_ops, level_flow
+
+    dev = torch.device("cuda")
+    esize = torch.tensor([], dtype=dt).element_size()
+    cases = []
+    for grid, axis_h in TILE_GRIDS:
+        mesh = tile_mesh(torch, grid)
+        for lvl in (5, 3, 0):
+            h, w_ = H >> lvl, W >> lvl
+            fst, snd = (torch.rand((2, 3, h, w_), generator=gen, device=dev).to(dt)
+                        for _ in range(2))
+            cflow = level_flow(2, lvl, dev).clamp(-10.0, 10.0).to(dt)
+            with spatial_tiling(mesh, halo=TILE_HALO, axis_h=axis_h):
+                shard_frames(mesh, torch.zeros((1, 1, H, W), device=dev))
+                p = active_partition()
+                ft = p.split(fst)
+                window, origins, level = p.level_input_window(p.split(cflow), ft)
+                args = (ft, p.gather(p.split(snd)), window, origins, *level)
+            got = G.launch_level_input_tile(*args)
+            ref = G.level_input_tile_reference(*args)
+            untiled = G.launch_level_input(fst, snd, cflow)
+            merged = p.merge(got)
+            for part, sl in (("fst", slice(0, 3)), ("up", slice(6, 8))):
+                n_bad = int((merged[:, sl] != untiled[:, sl]).sum())
+                if n_bad:
+                    raise CheckFailed(f"level_input_tile {grid} {dtype_name} {h}x{w_}: {n_bad} "
+                                      f"{part} values differ from the untiled kernel's")
+            if not torch.equal(got[:, :3], ref[:, :3]):
+                raise CheckFailed(f"level_input_tile {grid} {dtype_name} {h}x{w_}: fst differs "
+                                  "from the plain version")
+            up_check = compare([(got[:, 6:8], ref[:, 6:8])], 1e-4)
+            want = G.reference(snd, G.warp_grid(merged[:, 6:8]))
+            check = compare([(merged[:, 3:6], want)], 1e-5)
+            warp_equal = bool(torch.equal(merged[:, 3:6], untiled[:, 3:6]))
+            cases.append(dict(grid=grid, shape=f"{h}x{w_}", max_abs_err=check[0],
+                              check_value=check[1], up_max_abs_err=up_check[0],
+                              up_check_value=up_check[1], warp_equals_untiled_kernel=warp_equal))
+            log(f"  level_input_tile    {dtype_name:<8} {grid} {h}x{w_}: fst, up equal to the "
+                f"untiled kernel's, warp {'equal' if warp_equal else 'not equal'}; up against "
+                f"the plain version max_abs_err {up_check[0]:.3e} [{up_check[3]}: "
+                f"{up_check[1]:.3g}]; warp max_abs_err {check[0]:.3e} [{check[3]}: "
+                f"{check[1]:.3g}]")
+            if not (up_check[1] <= up_check[2] and check[1] <= check[2]):
+                raise CheckFailed(f"level_input_tile {grid} {dtype_name} {h}x{w_}: disagrees "
+                                  "with its plain version")
+            if not (grid == "tile4" and lvl == 0):
+                continue
+            n_ops = device_ops(lambda: G.launch_level_input_tile(*args))
+            if n_ops[0] != 1:
+                raise CheckFailed(f"level_input_tile {dtype_name}: {n_ops[0]} device operations "
+                                  "per call, 1 expected")
+            n, S = ft.shape[0], args[1].shape[0]
+            th, tw = ft.shape[2:]
+            src = G.tile_sources(args[1], n)
+            grid_lib = G.tile_grid(got[:, 6:8], origins, *level).to(dt)
+            row = (check, timed_ms(torch, lambda: G.launch_level_input_tile(*args), flush=flush),
+                   timed_ms(torch, lambda: G.level_input_tile_reference(*args), flush=flush),
+                   timed_ms(torch, lambda: F.grid_sample(src, grid_lib, mode="bilinear",
+                                                         padding_mode="zeros",
+                                                         align_corners=True), flush=flush))
+            nbytes = ((n * 3 * th * tw + S * 3 * h * w_ + window.numel() + n * 8 * th * tw)
+                      * esize + origins.numel() * 4)
+            extra = dict(device_ops=n_ops[0], device_ms=n_ops[1], tiles=n, tile=f"{th}x{tw}",
+                         whole_level=f"{S}x3x{h}x{w_}", window=f"{tuple(window.shape)}")
+            del src, grid_lib
+        del fst, snd, cflow, got, ref, untiled, merged, want, args
+    record_row(rows, "level_input_tile", dtype_name, *row, nbytes=nbytes,
+               # per pixel: 2 x 6 for the upsample, 8 for the grid, 3 x 8 for the taps
+               flops=2 * H * W * 44, op_dtype="float32", extra=dict(extra, cases=cases))
 
 
 def phase_tile_entries(torch, results):
@@ -2555,14 +2650,19 @@ def phase_parallel(torch, results):
 # ---------------------------------------------------------------------------
 # phase 9: partitioned convolutions (parallel/partition.py)
 
-PART_MODELS = ("MEMC_Net_star", "MEMC_Net")
-PART_PAIRS = 2
+PART_MODELS = ("MEMC_Net_star", "MEMC_Net", "MEMC_Net_s", "MEMC_Net_VE")
+PART_PAIRS = 2               # pairs (VE: windows) per model and grid
 PART_REPS = 5                # forwards timed by CUDA events (median)
+# per frame (VE: per window); MEMC_Net_s: SPyNet's 6 levels at 720p, 5 K4 and one
+# K5 tile entry each
 EXPECTED_PART_FRAME = {
     name: {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
-           "conv2d_small": int(name == "MEMC_Net_star"), "grid_sample": 0,
-           "filter_interp_warp_tile": 2, "base_scatter_tile": 1, "fill_holes_carry": 1}
+           "conv2d_small": {"MEMC_Net_star": 1, "MEMC_Net_s": 30, "MEMC_Net_VE": 1}.get(name, 0),
+           "grid_sample": 0, "filter_interp_warp_tile": 2, "base_scatter_tile": 1,
+           "fill_holes_carry": 1, "level_input_tile": 6 if name == "MEMC_Net_s" else 0}
     for name in PART_MODELS}
+EXPECTED_PART_FRAME["MEMC_Net_VE"].update(filter_interp_warp_tile=1, base_scatter_tile=0,
+                                          fill_holes_carry=0)
 # the serving checks: float32, the 99.9th percentile of |partitioned - untiled|
 # within PART_F32_TOL of each output's scale (a few landing cells may flip on
 # float32 noise); bf16, no further from the float32 forward of the same weights
@@ -2582,7 +2682,7 @@ PART_STEP_TOL = 1e-5                  # the step's loss, relative
 PART_PARAM_TOL = 1e-6
 EXPECTED_PART_STEP = {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
                       "conv2d_small": 1, "grid_sample": 0, "filter_interp_warp_tile": 2,
-                      "base_scatter_tile": 1, "fill_holes_carry": 0}
+                      "base_scatter_tile": 1, "fill_holes_carry": 0, "level_input_tile": 0}
 
 
 def peak_bytes(torch, fn):
@@ -2596,12 +2696,13 @@ def peak_bytes(torch, fn):
 
 
 def profile_partitioned(torch, fn):
-    """(device operations, device ms, halo gathers' device ms, top kernels)
-    of one call after a warm-up: kernels and memsets, and the device time
-    of the kernels under parallel.partition's HALO_RANGE."""
+    """(device operations, device ms, halo gathers' device ms, whole-level
+    gathers' device ms, top kernels) of one call after a warm-up: kernels
+    and memsets, and the device time of the kernels under
+    parallel.partition's HALO_RANGE and GATHER_RANGE."""
     from torch.profiler import ProfilerActivity, profile
 
-    from memcnet_tpu_torch.parallel.partition import HALO_RANGE
+    from memcnet_tpu_torch.parallel.partition import GATHER_RANGE, HALO_RANGE
 
     fn()
     torch.cuda.synchronize()
@@ -2613,11 +2714,15 @@ def profile_partitioned(torch, fn):
     evs = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
     dev = [e for e in evs if e.device_type == cuda and e.self_device_time_total > 0
-           and e.key != HALO_RANGE]
-    halo = [e.device_time_total for e in evs if e.key == HALO_RANGE and e.device_type != cuda]
+           and e.key not in (HALO_RANGE, GATHER_RANGE)]
+
+    def range_ms(key):
+        return max((e.device_time_total for e in evs if e.key == key and e.device_type != cuda),
+                   default=0.0) / 1e3
+
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
     return (sum(e.count for e in dev), sum(e.self_device_time_total for e in dev) / 1e3,
-            max(halo, default=0.0) / 1e3,
+            range_ms(HALO_RANGE), range_ms(GATHER_RANGE),
             {e.key[:80]: round(e.self_device_time_total / 1e3, 4) for e in top})
 
 
@@ -2634,99 +2739,149 @@ def worst(errs, key):
     return max(e[key] for e in errs.values())
 
 
-def part_serve(torch, name, pairs, results):
+def scale_part_flows(torch, model, flow_max):
+    """Scale the flow net's last conv so that ``flow_max()`` (the largest
+    served flow, px) reaches about TILED_FLOW_PX: FlowNetS's predict_flow2
+    (the flow is linear in it), or SPyNet's coarsest level's last conv, whose
+    residual doubles at every finer level (three rounds: the finer levels'
+    warps move with it).  Returns the flow of the random weights."""
+    raw = flow_max()
+    with torch.no_grad():
+        if hasattr(model.flownets, "moduleBasic"):
+            top = model.flownets.moduleBasic[0].moduleBasic[8]
+            k = TILED_FLOW_PX / raw
+            for _ in range(3):
+                top.weight.mul_(k)
+                top.bias.mul_(k)
+                k = TILED_FLOW_PX / flow_max()
+        else:
+            model.flownets.predict_flow2.weight.mul_(TILED_FLOW_PX / raw)
+    return raw
+
+
+def part_serve(torch, name, items, results):
     """One model: the untiled forward, then the partitioned one on each grid,
-    against it (see the module docstring)."""
-    from memcnet_tpu_torch.cli.runner import PaddedInterp, _padded, build_model
+    against it (see the module docstring).  ``items``: frame pairs, or
+    seven-frame windows for MEMC_Net_VE."""
+    from memcnet_tpu_torch.cli.runner import PaddedInterp, PaddedVE, _padded, build_model
     from memcnet_tpu_torch.data import pad_plan
     from memcnet_tpu_torch.ops import cuda as K
     from memcnet_tpu_torch.parallel import gather_frames, shard_frames, spatial_tiling
+    from memcnet_tpu_torch.parallel import partition
 
+    ve = name == "MEMC_Net_VE"
     bf16, dev = torch.bfloat16, torch.device("cuda")
+    fh, fw = (VE_FRAME_H, VE_FRAME_W) if ve else (FRAME_H, FRAME_W)
     model = build_model(name, seed=0, dtype=bf16, device="cuda")
-    interp = PaddedInterp(model, dtype=bf16, device="cuda")
-    raw = max(float(np.abs(o).max()) for o in interp(*pairs[0])[1]["offsets"])
-    with torch.no_grad():
-        model.flownets.predict_flow2.weight.mul_(TILED_FLOW_PX / raw)
-    # the float32 forward of the same (bf16) weights: the reference of the bf16 check
-    model32 = build_model(name, seed=0, device="cuda")
-    model32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
-    interp(*pairs[0])  # warm-up
-    untiled = [interp(x0, x2) for x0, x2 in pairs]
-    plan = pad_plan(FRAME_H, FRAME_W)
-    x0p, x2p = (_padded(x, plan, dev, bf16) for x in pairs[0])
-    x0f, x2f = (_padded(x, plan, dev, torch.float32) for x in pairs[0])
+    Padded = PaddedVE if ve else PaddedInterp
+    serve = Padded(model, dtype=bf16, device="cuda")
+    plan = pad_plan(fh, fw)
+
+    def inputs(item, dt):
+        return [_padded(x, plan, dev, dt) for x in item]
+
+    def run(m, xs):
+        return m(list(xs), debug=True) if ve else m(*xs)
 
     def outputs(out):
+        if ve:
+            return dict(rectified=out[0], flow=out[1], filt=out[2])
         (interp_, rectified), offs, filts, occs = out
         return dict(rectified=rectified, interp=interp_, off0=offs[0], off1=offs[1],
                     filt0=filts[0], filt1=filts[1], occ0=occs[0], occ1=occs[1])
 
-    def measure(fwd):
-        n_ops, dev_ms, halo_ms, top = profile_partitioned(torch, fwd)
-        return dict(ms=timed_ms(torch, fwd, reps=PART_REPS), device_ops=n_ops,
-                    device_ms=dev_ms, halo_device_ms=halo_ms, peak_bytes=peak_bytes(torch, fwd),
-                    top_kernels=top)
+    def flow_max():
+        with torch.inference_mode():
+            out = outputs(run(model, inputs(items[0], bf16)))
+        return max(float(out[k].float().abs().max()) for k in (("flow",) if ve else
+                                                                ("off0", "off1")))
 
-    def forward(a, b):
+    raw = scale_part_flows(torch, model, flow_max)
+    # the float32 forward of the same (bf16) weights: the reference of the bf16 check
+    model32 = build_model(name, seed=0, device="cuda")
+    model32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+
+    def served(item):
+        got = serve(item) if ve else serve(*item)
+        return (got, {}) if ve else got
+
+    served(items[0])  # warm-up
+    untiled = [served(item) for item in items]
+    xp, xf = inputs(items[0], bf16), inputs(items[0], torch.float32)
+
+    def measure(fwd):
+        n_ops, dev_ms, halo_ms, gather_ms, top = profile_partitioned(torch, fwd)
+        return dict(ms=timed_ms(torch, fwd, reps=PART_REPS), device_ops=n_ops,
+                    device_ms=dev_ms, halo_device_ms=halo_ms, gather_device_ms=gather_ms,
+                    peak_bytes=peak_bytes(torch, fwd), top_kernels=top)
+
+    def forward(xs):
         def fwd():
             with torch.inference_mode():
-                model(a, b)
+                run(model, xs)
         return fwd
 
     with torch.inference_mode():
-        ref32 = outputs(model32(x0f, x2f))
-        ref_bf = outputs(model(x0p, x2p))
+        ref32 = outputs(run(model32, xf))
+        ref_bf = outputs(run(model, xp))
     base = {k: out_errs(torch, ref_bf[k], ref32[k]) for k in ref32}
-    entry = {"untiled": measure(forward(x0p, x2p)), "flow_max_random": raw,
+    entry = {"untiled": measure(forward(xp)), "flow_max_random": raw,
              "untiled_bf16_vs_float32": base}
-    flow_max = max(float(np.abs(o).max()) for _, aux in untiled for o in aux["offsets"])
+    flow_max = flow_max()
     entry["flow_max"] = flow_max
     u = entry["untiled"]
-    log(f"  {name} bf16 720p untiled: forward {u['ms']:.3f} ms by events, {u['device_ops']} "
+    size = f"{VE_H}x{VE_W} window" if ve else "720p"
+    log(f"  {name} bf16 {size} untiled: forward {u['ms']:.3f} ms by events, {u['device_ops']} "
         f"device operations, device ms {u['device_ms']:.3f}, peak {u['peak_bytes'] / 2**30:.3f} "
         f"GiB; largest flow {flow_max:.3f} px (random weights gave {raw:.3e}); against the "
         f"float32 forward: mean {worst(base, 'mean'):.3e}, p99.9 {worst(base, 'p999'):.3e}, "
         f"max {worst(base, 'max'):.3e} of the output's scale")
     if not 1.0 <= flow_max <= TILE_HALO - 4:
         raise CheckFailed(f"partitioned {name}: flows leave the halo budget ({flow_max})")
-    sharded = PaddedInterp(model, dtype=bf16, device="cuda", sharded=True)
+    sharded = Padded(model, dtype=bf16, device="cuda", sharded=True)
     for grid, axis_h in TILE_GRIDS:
         mesh = tile_mesh(torch, grid)
         with spatial_tiling(mesh, halo=TILE_HALO, axis_h=axis_h):
-            sharded(*pairs[0])  # warm-up, not counted
+            sharded(items[0]) if ve else sharded(*items[0])  # warm-up, not counted
             torch.cuda.synchronize()
             K.reset_counters()
-            outs = [sharded(x0, x2) for x0, x2 in pairs]
+            partition.gathers.reset()
+            outs = [(sharded(item), {}) if ve else sharded(*item) for item in items]
             counts = K.launch_counts()
-            t0, t2 = shard_frames(mesh, x0p, x2p)
-            m = measure(forward(t0, t2))
+            gathers = partition.gathers.count
+            tp = shard_frames(mesh, *xp)
+            m = measure(forward(tp))
             with torch.inference_mode():
-                part_bf = {k: gather_frames(mesh, v) for k, v in outputs(model(t0, t2)).items()}
+                part_bf = {k: gather_frames(mesh, v) for k, v in outputs(run(model, tp)).items()}
                 part32 = {k: gather_frames(mesh, v) for k, v in
-                          outputs(model32(*shard_frames(mesh, x0f, x2f))).items()}
-        served = 0.0
+                          outputs(run(model32, shard_frames(mesh, *xf))).items()}
+        err = 0.0
         for (out, aux), (ref, ref_aux) in zip(outs, untiled):
-            if out.shape != (3, FRAME_H, FRAME_W) or not np.isfinite(out).all():
+            if out.shape != (3, fh, fw) or not np.isfinite(out).all():
                 raise CheckFailed(f"partitioned {name} {grid}: output shape {out.shape}, "
                                   f"finite {np.isfinite(out).all()}")
-            served = max(served, *(float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
-                                   for a, b in [(out, ref), (aux["interp"], ref_aux["interp"]),
-                                                *zip(aux["offsets"], ref_aux["offsets"])]))
+            pairs = [(out, ref)]
+            if not ve:
+                pairs += [(aux["interp"], ref_aux["interp"]),
+                          *zip(aux["offsets"], ref_aux["offsets"])]
+            err = max(err, *(float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+                             for a, b in pairs))
         direct = {k: out_errs(torch, part_bf[k], ref_bf[k]) for k in ref_bf}
         f32 = {k: out_errs(torch, part32[k], ref32[k]) for k in ref32}
         anchored = {k: out_errs(torch, part_bf[k], ref32[k]) for k in ref32}
         expect = {k: v * PART_PAIRS for k, v in EXPECTED_PART_FRAME[name].items()}
-        m.update(launches=counts, served_max_err=served, bf16_vs_untiled=direct,
-                 float32_vs_untiled=f32, bf16_vs_float32=anchored, tiles=int(t0.shape[0]))
+        m.update(launches=counts, whole_level_gathers=gathers, served_max_err=err,
+                 bf16_vs_untiled=direct, float32_vs_untiled=f32, bf16_vs_float32=anchored,
+                 tiles=int(tp[0].shape[0]))
         entry[grid] = m
-        log(f"  {name} bf16 720p partitioned on {grid} (halo {TILE_HALO}): {PART_PAIRS} pairs, "
-            f"launches {counts}; forward {m['ms']:.3f} ms by events (untiled {u['ms']:.3f}), "
+        log(f"  {name} bf16 {size} partitioned on {grid} (halo {TILE_HALO}): {PART_PAIRS} "
+            f"{'windows' if ve else 'pairs'}, launches {counts}, whole-level gathers {gathers}; "
+            f"forward {m['ms']:.3f} ms by events (untiled {u['ms']:.3f}), "
             f"{m['device_ops']} device operations ({u['device_ops']}), device ms "
             f"{m['device_ms']:.3f} ({u['device_ms']:.3f}), of which halo gathers "
-            f"{m['halo_device_ms']:.3f}; peak {m['peak_bytes'] / 2**30:.3f} GiB "
-            f"({u['peak_bytes'] / 2**30:.3f})")
-        log(f"    against the untiled forward, of each output's scale: bf16 served max {served:.3e}"
+            f"{m['halo_device_ms']:.3f}, whole-level gathers {m['gather_device_ms']:.3f}; peak "
+            f"{m['peak_bytes'] / 2**30:.3f} GiB ({u['peak_bytes'] / 2**30:.3f})")
+        log(f"    against the untiled forward, of each output's scale: bf16 served max {err:.3e}"
             f", all outputs max {worst(direct, 'max'):.3e}, mean {worst(direct, 'mean'):.3e}, "
             f"share beyond 1e-2 {worst(direct, 'share_1e2'):.3e}; float32 max "
             f"{worst(f32, 'max'):.3e}, p99.9 {worst(f32, 'p999'):.3e} (tol {PART_F32_TOL}); "
@@ -2735,6 +2890,10 @@ def part_serve(torch, name, pairs, results):
             f"{worst(base, 'p999'):.3e})")
         if counts != expect:
             raise CheckFailed(f"partitioned {name} {grid}: launches {counts}, expected {expect}")
+        want_gathers = PART_PAIRS * EXPECTED_PART_FRAME[name]["level_input_tile"]
+        if gathers != want_gathers:
+            raise CheckFailed(f"partitioned {name} {grid}: {gathers} whole-level gathers, "
+                              f"expected {want_gathers} (one per SPyNet level)")
         for k in ref32:
             if not f32[k]["p999"] <= PART_F32_TOL:
                 raise CheckFailed(f"partitioned {name} {grid}: float32 {k} differs from the "
@@ -2745,7 +2904,7 @@ def part_serve(torch, name, pairs, results):
                                       f"float32 forward than the untiled bf16 forward "
                                       f"({anchored[k]} against {base[k]})")
     results["partition"]["serve"][name] = entry
-    del model, model32, interp, sharded
+    del model, model32, serve, sharded
     torch.cuda.empty_cache()
 
 
@@ -2799,13 +2958,14 @@ def part_step(torch, results):
 
 
 def phase_partition(torch, results):
-    """Phase 9: MEMC_Net_star and MEMC_Net served partitioned, the sharded step."""
+    """Phase 9: the four models served partitioned, the sharded step."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     results["partition"] = {"serve": {}}
     pairs = [synthetic_frames(10 + s) for s in range(PART_PAIRS)]
+    windows = [synthetic_window(20 + s) for s in range(PART_PAIRS)]
     for name in PART_MODELS:
-        part_serve(torch, name, pairs, results)
+        part_serve(torch, name, windows if name == "MEMC_Net_VE" else pairs, results)
     part_step(torch, results)
 
 
@@ -2905,6 +3065,8 @@ def main():
         by_path["oplib"] = results["oplib"]["launches"][name]
         by_path["serve_tiled"] = results["tiled_serve"]["launches"][name]
         by_path["serve_partitioned"] = part_launches(results, name)
+        if name == "grid_sample":  # K5's tile entry, on MEMC_Net_s's partitioned path
+            by_path["serve_partitioned_tile_entry"] = part_launches(results, "level_input_tile")
 
         def row(key):
             r, o = krows[key][dt], krows[key][other]
@@ -2996,6 +3158,27 @@ def main():
                         "library_ms": r["library_ms"], "dtype": "bfloat16",
                         "other_dtype_max_abs_err": o["max_abs_err"], "other_dtype_ms": o["ms"],
                         "other_dtype_library_ms": o["library_ms"], "cases_held": held})
+    # K5's tile entry: SPyNet's level input on partitioned frames, launched by
+    # MEMC_Net_s's partitioned serving in phase 9; its row from phase 2, (1, 4)
+    # at the top level
+    r, o = krows["level_input_tile"]["bfloat16"], krows["level_input_tile"]["float32"]
+    by_path = {"serve_partitioned": part_launches(results, "level_input_tile")}
+    kernels.append({"name": "level_input_tile", "route": "cuda",
+                    "source": TPU_KERNELS["grid_sample"][0],
+                    "replaces": TPU_KERNELS["grid_sample"][1],
+                    "computes": "SPyNet's level input on the tiles of a partitioned frame "
+                                "(memcnet_tpu/models/spynet.py:104-109 under frame_sharding)",
+                    "entry": "memc_spynet_level_input_tile",
+                    "launches": sum(by_path.values()), "launches_by_path": by_path,
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"], "dtype": "bfloat16",
+                    "device_ops_per_call": r["device_ops"],
+                    "other_dtype_max_abs_err": o["max_abs_err"], "other_dtype_ms": o["ms"],
+                    "other_dtype_library_ms": o["library_ms"],
+                    "cases_held": {f"{c['grid']} {c['shape']} {d}": c["max_abs_err"]
+                                   for d in ("bfloat16", "float32")
+                                   for c in krows["level_input_tile"][d]["cases"]}})
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump(results, f, indent=1)
     print(json.dumps({"kernels": kernels}))

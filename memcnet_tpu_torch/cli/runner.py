@@ -65,6 +65,24 @@ def _padded(x_np, plan, device, dtype):
     return t.to(device=device, dtype=dtype)
 
 
+def _placement(sharded, who):
+    """(shard, whole): with ``sharded``, under ``parallel.spatial_tiling(mesh)``,
+    ``shard_frames`` and ``gather_frames`` of its mesh; else identities."""
+    if not sharded:
+        return (lambda *frames: frames), (lambda t: t)
+    from memcnet_tpu_torch.parallel import active_tiling, gather_frames, shard_frames
+
+    ctx = active_tiling()
+    if ctx is None:
+        raise RuntimeError(f"{who}(sharded=True) runs under spatial_tiling(mesh)")
+
+    def shard(*frames):
+        tiles = shard_frames(ctx.mesh, *frames)
+        return tiles if len(frames) > 1 else (tiles,)
+
+    return shard, lambda t: gather_frames(ctx.mesh, t)
+
+
 class PaddedInterp:
     """Pad -> forward -> unpad for the interpolation models.  With
     ``sharded=True``, called under ``parallel.spatial_tiling(mesh)``: pad ->
@@ -85,16 +103,8 @@ class PaddedInterp:
         if W > 1280 or H > 720:  # demo_MiddleBury.py:96-97
             raise ValueError(f"frames up to 1280x720, got {W}x{H}")
         plan = pad_plan(H, W)
-        x0, x2 = (_padded(x, plan, self.device, self.dtype) for x in (x0_np, x2_np))
-        whole = lambda t: t  # noqa: E731
-        if self.sharded:
-            from memcnet_tpu_torch.parallel import active_tiling, gather_frames, shard_frames
-
-            ctx = active_tiling()
-            if ctx is None:
-                raise RuntimeError("PaddedInterp(sharded=True) runs under spatial_tiling(mesh)")
-            x0, x2 = shard_frames(ctx.mesh, x0, x2)
-            whole = lambda t: gather_frames(ctx.mesh, t)  # noqa: E731
+        shard, whole = _placement(self.sharded, "PaddedInterp")
+        x0, x2 = shard(*(_padded(x, plan, self.device, self.dtype) for x in (x0_np, x2_np)))
         with torch.inference_mode():
             outs, offs, filts, occs = self.model(x0, x2)
 
@@ -113,12 +123,16 @@ class PaddedInterp:
 
 
 class PaddedVE:
-    """Pad -> forward -> unpad for MEMC_Net_VE (7-frame windows)."""
+    """Pad -> forward -> unpad for MEMC_Net_VE (7-frame windows).  With
+    ``sharded=True``, called under ``parallel.spatial_tiling(mesh)``, as
+    ``PaddedInterp``: pad -> ``shard_frames`` -> forward on the tiles ->
+    ``gather_frames`` -> unpad."""
 
-    def __init__(self, model, dtype=torch.float32, device="cuda"):
+    def __init__(self, model, dtype=torch.float32, device="cuda", sharded=False):
         self.device = resolve_device(device)
         self.model = model
         self.dtype = dtype
+        self.sharded = sharded
         self.last_out_dtype = None
 
     def __call__(self, frames_np):
@@ -126,8 +140,9 @@ class PaddedVE:
         center frame (3, H, W) float32."""
         _, H, W = frames_np[0].shape
         plan = pad_plan(H, W)
-        frames = [_padded(f, plan, self.device, self.dtype) for f in frames_np]
+        shard, whole = _placement(self.sharded, "PaddedVE")
+        frames = list(shard(*(_padded(f, plan, self.device, self.dtype) for f in frames_np)))
         with torch.inference_mode():
             out = self.model(frames)
             self.last_out_dtype = out.dtype
-            return unpad_frame(out[0].float().cpu().numpy(), plan, H, W)
+            return unpad_frame(whole(out)[0].float().cpu().numpy(), plan, H, W)

@@ -26,6 +26,9 @@
 //          same for y), each step rounded as PyTorch's CUDA ops round it;
 //   out  = cat(fst, grid_sample(snd, grid), up), (B, 8, H, W) NCHW.
 //
+// memc_spynet_level_input_tile: the same on the tiles of a partitioned frame,
+// on the frame's global coordinates (described beside its kernel below).
+//
 // Bound on the H100: memory.  The general entry reads x and the float32 grid
 // once and writes the output once.  The level input reads the coarse flow, fst
 // and snd once and writes the 8 channels once: at 768x1344, B = 2, bf16 that
@@ -279,6 +282,90 @@ cudaError_t launch_level_input(const T* fst, const T* snd, const T* flow, T* out
   return cudaGetLastError();
 }
 
+// ---- SPyNet's level input on the tiles of a partitioned frame ----------------
+//
+// The same pixel function on the frame's global coordinates: tile b's local
+// pixel (y, x) is the level's (y0 + y, x0 + x), its coarse flow is a window
+// whose global origin is (cy0, cx0), and it samples the second frame's whole
+// level snd[b % S].  The row and column terms of the lerp, the linspace and
+// the scales are the frame level's (level_args of GH x GW), in the untiled
+// kernel's float32 order, so fst and up equal the untiled kernel's bit for
+// bit.  A stacked tile's positions beyond those it owns get zero warp and up
+// channels.  One thread per pixel: a simple kernel, bound by memory like the
+// untiled one.
+
+struct TileArgs {
+  LevelArgs l;        // the frame level's: H = GH, W = GW, h = GH / 2, w = GW / 2
+  int th, tw, hc, wc;  // tile size, coarse window size
+  int S;               // samples of the whole level
+};
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+spynet_level_input_tile_kernel(const T* __restrict__ fst, const T* __restrict__ snd,
+                               const T* __restrict__ flow, const int* __restrict__ origins,
+                               T* __restrict__ out, TileArgs a, int64_t total) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int64_t plane = static_cast<int64_t>(a.th) * a.tw;
+  const int64_t b = idx / plane;
+  const int64_t pix = idx - b * plane;
+  const int y = static_cast<int>(pix / a.tw);
+  const int x = static_cast<int>(pix - static_cast<int64_t>(y) * a.tw);
+  const int* o = origins + b * 6;  // y0, x0, cy0, cx0, owned h, owned w
+  T* ob = out + b * 8 * plane + pix;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) ob[c * plane] = fst[(b * 3 + c) * plane + pix];
+  if (y >= o[4] || x >= o[5]) {
+#pragma unroll
+    for (int c = 3; c < 8; ++c) ob[c * plane] = from_f32<T>(0.f);
+    return;
+  }
+  const LevelArgs& l = a.l;
+  const int Y = o[0] + y;
+  const int X = o[1] + x;
+  const Lerp ly = up_lerp(min(Y, 2 * l.h - 1), l.h, l.up_scale_y);
+  const Lerp lx = up_lerp(min(X, 2 * l.w - 1), l.w, l.up_scale_x);
+  const int r0 = clampi(ly.i0 - o[2], 0, a.hc - 1), r1 = clampi(ly.i1 - o[2], 0, a.hc - 1);
+  const int c0 = clampi(lx.i0 - o[3], 0, a.wc - 1), c1 = clampi(lx.i1 - o[3], 0, a.wc - 1);
+  const int64_t cplane = static_cast<int64_t>(a.hc) * a.wc;
+  float up[2];
+#pragma unroll
+  for (int ch = 0; ch < 2; ++ch) {
+    const T* f = flow + (b * 2 + ch) * cplane;
+    const float v = lerp2(ly.l0, lerp2(lx.l0, to_f32(f[r0 * a.wc + c0]), lx.l1,
+                                       to_f32(f[r0 * a.wc + c1])),
+                          ly.l1, lerp2(lx.l0, to_f32(f[r1 * a.wc + c0]), lx.l1,
+                                       to_f32(f[r1 * a.wc + c1])));
+    up[ch] = round_to<T>(v) * 2.f;  // exact
+    ob[(6 + ch) * plane] = from_f32<T>(up[ch]);
+  }
+  const float gxn = __fadd_rn(linspace_pm1(X, l.W, l.step_x), __fmul_rn(up[0], l.inv_x));
+  const float gyn = __fadd_rn(linspace_pm1(Y, l.H, l.step_y), __fmul_rn(up[1], l.inv_y));
+  const Taps t = grid_taps(gxn, gyn, l.H, l.W);
+  const T* snd_b = snd + (b % a.S) * 3 * static_cast<int64_t>(l.H) * l.W;
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    ob[(3 + c) * plane] = from_f32<T>(sample(snd_b + c * static_cast<int64_t>(l.H) * l.W, t));
+}
+
+template <typename T>
+cudaError_t launch_level_input_tile(const T* fst, const T* snd, const T* flow,
+                                    const int* origins, T* out, int n, int S, int th, int tw,
+                                    int hc, int wc, int GH, int GW, cudaStream_t stream) {
+  TileArgs a;
+  a.l = level_args(GH, GW, 1);
+  a.th = th;
+  a.tw = tw;
+  a.hc = hc;
+  a.wc = wc;
+  a.S = S;
+  const int64_t total = static_cast<int64_t>(n) * th * tw;
+  spynet_level_input_tile_kernel<T><<<ceil_div(total, 256), 256, 0, stream>>>(
+      fst, snd, flow, origins, out, a, total);
+  return cudaGetLastError();
+}
+
 }  // namespace memc
 
 // x: (B, C, H, W) in dtype; grid: (B, Ho, Wo, 2) float32, [..., 0] = x;
@@ -316,6 +403,33 @@ MEMC_API int memc_spynet_level_input(const void* fst, const void* snd, const voi
     return memc::launch_level_input(static_cast<const bf*>(fst), static_cast<const bf*>(snd),
                                     static_cast<const bf*>(flow), static_cast<bf*>(out), B, H, W,
                                     st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// fst: (n, 3, th, tw) tiles; snd: (S, 3, GH, GW) whole levels, tile b samples
+// snd[b % S]; flow: (n, 2, hc, wc) coarse-flow windows; origins: (n, 6) int32
+// (y0, x0, cy0, cx0, owned h, owned w); all but origins in dtype, contiguous;
+// out: (n, 8, th, tw) in dtype.  GH, GW >= 2, n % S == 0.
+MEMC_API int memc_spynet_level_input_tile(const void* fst, const void* snd, const void* flow,
+                                          const void* origins, void* out, int n, int S, int th,
+                                          int tw, int hc, int wc, int GH, int GW, int dtype,
+                                          void* stream) {
+  if (GH < 2 || GW < 2 || S <= 0 || n % S || hc < 1 || wc < 1) return cudaErrorInvalidValue;
+  if (n == 0 || th == 0 || tw == 0) return cudaSuccess;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* org = static_cast<const int*>(origins);
+  if (dtype == memc::kFloat32) {
+    return memc::launch_level_input_tile(
+        static_cast<const float*>(fst), static_cast<const float*>(snd),
+        static_cast<const float*>(flow), org, static_cast<float*>(out), n, S, th, tw, hc, wc, GH,
+        GW, st);
+  }
+  if (dtype == memc::kBFloat16) {
+    using bf = __nv_bfloat16;
+    return memc::launch_level_input_tile(static_cast<const bf*>(fst), static_cast<const bf*>(snd),
+                                         static_cast<const bf*>(flow), org, static_cast<bf*>(out),
+                                         n, S, th, tw, hc, wc, GH, GW, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -7,8 +7,7 @@ in JAX): mean 0.485 for all three channels and std 0.224 for G and B.  The
 conv is kernel K4 (ops/cuda/conv_kernel.py) on CUDA tensors.  On partitioned
 frames (``parallel.partition``) K4 runs once over every stacked tile, each
 extended by 3 columns (and rows, where H is tiled) of the normalised input
-from its neighbours, zeros beyond the frame's edge; K4's 'same' padding then
-touches only the columns cropped afterwards.
+from its neighbours (``nn.layers.conv2d_k4``).
 Key: ctxNet.conv1.weight.
 """
 
@@ -16,8 +15,7 @@ import torch
 from torch import nn
 
 from memcnet_tpu_torch.nn import init as I
-from memcnet_tpu_torch.nn.layers import active_partition
-from memcnet_tpu_torch.ops.cuda import conv_kernel
+from memcnet_tpu_torch.nn.layers import conv2d_k4
 
 MEAN = (0.485, 0.485, 0.485)
 STD = (0.229, 0.224, 0.224)
@@ -36,14 +34,5 @@ class ContextNet(nn.Module):
         self.conv1.weight.copy_(I.resnet_msra(tuple(self.conv1.weight.shape), generator))
 
     def forward(self, x):
-        y = (x - self.mean.to(x.dtype)) / self.std.to(x.dtype)
-        part = active_partition()
-        if part is None:
-            return conv_kernel.conv2d_small(y, self.conv1.weight, None)
         # the halo of the normalised input: zero padding applies after it
-        ext, pads = part.conv_input(y, (7, 7), (1, 1), (3, 3))
-        out = conv_kernel.conv2d_small(ext, self.conv1.weight, None)
-        for dim, p in ((-2, pads[0]), (-1, pads[1])):
-            if p == 0:  # a tiled axis
-                out = out.narrow(dim, 3, out.shape[dim] - 6)
-        return out
+        return conv2d_k4((x - self.mean.to(x.dtype)) / self.std.to(x.dtype), self.conv1.weight)

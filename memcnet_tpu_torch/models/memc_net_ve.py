@@ -7,8 +7,8 @@ Pipeline, for frames f0..f6 with the center f3:
              full neighbour offset, :292-296), bilinear x4 upsample; no
              projection
   filter:    one BN MonoNet5 trunk -> one fs^2-channel branch
-  context:   ResNet conv1 (3 -> 64, 7x7) of the 6B neighbours and the B
-             centers in one call (K4)
+  context:   ResNet conv1 (3 -> 64, 7x7) of the six neighbours and the
+             center, sample-major (B, 7, ...) -> 7B, in one call (K4)
   warp:      one 6B filter_interp_warp of (neighbours, their contexts) (K1);
              the warped contexts are detached (:474)
   rectify:   center + EDSR(577 ch, 10 resblocks, 128 feats) over the
@@ -18,6 +18,9 @@ Pipeline, for frames f0..f6 with the center f3:
 ``model.train()`` switches to train mode: BatchNorm on batch statistics
 (running statistics updated in its buffers), the forward returns the warped
 neighbours too, and ``train_residuals`` gives the seven loss residuals.
+Every batch of frames is sample-major, so on partitioned frames
+(``parallel.partition``) the tile index stays outermost in it and each
+layer's halos come from the tile's own neighbours.
 Module attribute names make the state-dict keys equal the JAX flat-dict keys.
 """
 
@@ -35,7 +38,7 @@ from memcnet_tpu_torch.models.mononet import (
     mononet5_specs,
 )
 from memcnet_tpu_torch.nn import init as I
-from memcnet_tpu_torch.nn.layers import refuse_partition, upsample_bilinear
+from memcnet_tpu_torch.nn.layers import upsample_bilinear
 from memcnet_tpu_torch.ops import filter_interp_warp_split
 
 NEIGHBOURS = (0, 1, 2, 4, 5, 6)
@@ -76,7 +79,6 @@ class MEMCNetVE(nn.Module):
         filter, sample-major, as the JAX forward does.  In train mode it
         returns (outs, rectified): the six warped neighbours, not detached,
         in temporal order with the center frame at slot 3."""
-        refuse_partition("MEMC_Net_VE")
         if len(frames) != 7:
             raise ValueError(f"MEMC_Net_VE takes 7 frames, got {len(frames)}")
         B = frames[0].shape[0]
@@ -91,8 +93,9 @@ class MEMCNetVE(nn.Module):
         filt = forward_single_path(self.initScaleNets_filter1, self.filter_branch_specs, t)
 
         neigh = torch.stack(neighbours, dim=1).reshape((6 * B,) + center.shape[1:])
-        ctx_all = self.ctxNet(torch.cat([neigh, center], dim=0))
-        ctx_n, ctx_c = ctx_all[:6 * B], ctx_all[6 * B:]
+        ctx_all = self.ctxNet(torch.stack(neighbours + [center], dim=1).reshape(
+            (7 * B,) + center.shape[1:])).reshape((B, 7, 64) + hw)
+        ctx_n, ctx_c = ctx_all[:, :6].reshape((6 * B, 64) + hw), ctx_all[:, 6]
 
         def nb(x, k):  # neighbour k of the sample-major (B, 6, ...) layout
             return x.reshape((B, 6) + x.shape[1:])[:, k]

@@ -14,6 +14,14 @@ pad, the float32 grid, the grid-sample warp and the concat -- is one launch
 of kernel K5 per level on CUDA tensors (ops/cuda/gather_kernel.py::
 level_input), and the residual adds its flow_up channels.
 
+On partitioned frames (``parallel.partition``) every conv runs on its
+halo-extended tile (``nn.layers.conv2d_k4``), the pools gather their 0-1
+halos, the pyramid's sizes are the partition's global level sizes, and each
+level input is one launch of K5's tile entry (``level_input_tile``) on the
+second frame's whole level (``Partition.gather``: the warp samples anywhere)
+and the coarse flow's window (``Partition.level_input_window``), on the
+frame's global coordinates.
+
 Its base grid and flow terms are float32 whatever the activation type: the
 JAX package builds them in x's type (spynet.py:77-81), which in bf16 puts the
 sampled column up to 7 px off at W = 1344 (ROADMAP.md Queue C).
@@ -23,14 +31,12 @@ read as BGR and emitted as normalised RGB.
 Keys: flownets.moduleBasic.{L}.moduleBasic.{0,2,4,6,8}.{weight,bias}.
 """
 
-import math
-
 import torch
 from torch import nn
 
 from memcnet_tpu_torch.nn import init as I
 from memcnet_tpu_torch.nn import layers as L
-from memcnet_tpu_torch.ops.cuda import conv_kernel, gather_kernel
+from memcnet_tpu_torch.ops.cuda import gather_kernel
 from memcnet_tpu_torch.ops.cuda.gather_kernel import warp_grid
 
 BASIC = [(8, 32), (32, 64), (64, 32), (32, 16), (16, 2)]
@@ -53,7 +59,7 @@ class _Basic(nn.Module):
     def forward(self, x):
         h = x
         for j, conv in enumerate(self.convs()):
-            h = conv_kernel.conv2d_small(h, conv.weight, conv.bias, relu=j < len(BASIC) - 1)
+            h = L.conv2d_k4(h, conv.weight, conv.bias, relu=j < len(BASIC) - 1)
         return h
 
 
@@ -86,20 +92,29 @@ class SPyNet(nn.Module):
                                                         fan_in=fan_in))
 
     def forward(self, first, second):
-        """first, second: (B, 3, H, W) in [0, 1] -> (B, 2, H, W) flow in pixels.
-        Raises on partitioned frames: its pooling and grid sample have no
-        partitioned form (the JAX package's GSPMD gathers them)."""
-        L.refuse_partition("SPyNet (avg_pool2d, grid_sample_bilinear)")
+        """first, second: (B, 3, H, W) in [0, 1] -> (B, 2, H, W) flow in
+        pixels; or the tiles of partitioned frames -> the flow's tiles."""
+        part = L.active_partition()
+
+        def size(x):  # the level's (global) H and W
+            return tuple(x.shape[2:]) if part is None else part.level(x)
+
         firsts = [_preprocess(first)]
         seconds = [_preprocess(second)]
         for _ in range(LEVELS - 1):
-            if firsts[0].shape[2] > 32 or firsts[0].shape[3] > 32:
+            if max(size(firsts[0])) > 32:
                 firsts.insert(0, L.avg_pool2d(firsts[0], 2))
                 seconds.insert(0, L.avg_pool2d(seconds[0], 2))
-        h0 = int(math.floor(firsts[0].shape[2] / 2.0))
-        w0 = int(math.floor(firsts[0].shape[3] / 2.0))
+        h0, w0 = (g // 2 for g in size(firsts[0]))
+        if part is not None:
+            h0, w0 = part.tile_size(h0, w0)
         flow = torch.zeros((first.shape[0], 2, h0, w0), dtype=first.dtype, device=first.device)
         for lvl, (fst, snd) in enumerate(zip(firsts, seconds)):
-            inp = gather_kernel.level_input(fst, snd, flow)  # cat(fst, warp(snd, up), up)
+            if part is None:
+                inp = gather_kernel.level_input(fst, snd, flow)  # cat(fst, warp(snd, up), up)
+            else:
+                window, origins, (GH, GW) = part.level_input_window(flow, fst)
+                inp = gather_kernel.level_input_tile(fst, part.gather(snd), window, origins,
+                                                     GH, GW)
             flow = self.moduleBasic[lvl](inp) + inp[:, 6:8]
         return flow

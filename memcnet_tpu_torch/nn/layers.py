@@ -16,19 +16,21 @@ choices, so every grid shape takes the kernel on CUDA tensors.
 
 Partitioned frames (``parallel.mesh.shard_frames``): where the active
 ``spatial_tiling`` context holds a partition, every input is a tile of it.
-The convs, the deconv and the max-pool gather their halos
-(``parallel.partition``) and run with no padding on the tiled axes; the
+The convs, the deconv and the max- and average pools gather their halos
+(``parallel.partition``) and run with no padding on the tiled axes; K4's
+'same' conv (``conv2d_k4``) runs on the halo-extended tile and crops; the
 upsample lerps on the frame's global coordinates; train-mode BatchNorm
 takes its statistics over the pixels the tiles own, over every rank of the
 mesh.  The elementwise layers and eval-mode BatchNorm need nothing.
-``avg_pool2d``, ``replication_pad2d`` and ``grid_sample_bilinear``
-(SPyNet's) have no partitioned form and raise.
+``replication_pad2d`` and ``grid_sample_bilinear`` have no partitioned form
+and raise: no model calls them on tiles, since SPyNet's level input
+(ops/cuda/gather_kernel.py::level_input_tile) does their work there.
 """
 
 import torch
 import torch.nn.functional as F
 
-from memcnet_tpu_torch.ops.cuda import gather_kernel
+from memcnet_tpu_torch.ops.cuda import conv_kernel, gather_kernel
 
 
 def _context():
@@ -84,20 +86,41 @@ def upsample_bilinear(x, scale_factor=2):
     return F.interpolate(x, scale_factor=scale_factor, mode="bilinear", align_corners=True)
 
 
-def max_pool2d(x, k=2, s=None):
+def conv2d_k4(x, w, b=None, *, relu=False):
+    """Kernel K4's stride-1 'same' conv (ops/cuda/conv_kernel.py, bias and
+    ReLU fused).  On partitioned frames K4 runs once over every tile
+    extended by k // 2 columns (and rows, where H is tiled) of x, zeros
+    beyond the frame's edge; K4's own padding then touches only the
+    positions cropped afterwards."""
+    part = active_partition()
+    if part is None:
+        return conv_kernel.conv2d_small(x, w, b, relu=relu)
+    p = w.shape[-1] // 2
+    ext, pads = part.conv_input(x, w.shape[-2:], (1, 1), (p, p))
+    out = conv_kernel.conv2d_small(ext, w, b, relu=relu)
+    for dim, pad in ((-2, pads[0]), (-1, pads[1])):
+        if pad == 0:  # a tiled axis
+            out = out.narrow(dim, p, out.shape[dim] - 2 * p)
+    return out
+
+
+def _pool(fn, x, k, s):
     s = k if s is None else s
     part = active_partition()
     if part is not None:
         x, pads = part.conv_input(x, _pair(k), _pair(s), (0, 0))
         if any(pads):
             raise AssertionError(pads)
-    return F.max_pool2d(x, k, s)
+    return fn(x, k, s)
+
+
+def max_pool2d(x, k=2, s=None):
+    return _pool(F.max_pool2d, x, k, s)
 
 
 def avg_pool2d(x, k=2, s=None):
     """Average pool, 'VALID' windows: odd sizes floor (layers.py:243-246)."""
-    refuse_partition("avg_pool2d")
-    return F.avg_pool2d(x, k, k if s is None else s)
+    return _pool(F.avg_pool2d, x, k, s)
 
 
 def replication_pad2d(x, pad):

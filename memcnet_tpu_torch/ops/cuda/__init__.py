@@ -17,7 +17,9 @@ tensors.
 
 and the tile entries of the tiled warp and projection (parallel/tiling.py):
 K1's (``warp_kernel.warp_tile``), K2's (``project_kernel.tile_sums``) and
-K3's carry entry (``project_kernel.carry_fill``), each with its own counter.
+K3's carry entry (``project_kernel.carry_fill``), and of SPyNet's level input
+on partitioned frames (parallel/partition.py): K5's
+(``gather_kernel.level_input_tile``), each with its own counter.
 """
 
 from memcnet_tpu_torch.ops.cuda import (
@@ -29,7 +31,8 @@ from memcnet_tpu_torch.ops.cuda import (
 
 COUNTERS = (warp_kernel.counter, project_kernel.scatter_counter, project_kernel.fill_counter,
             conv_kernel.counter, gather_kernel.counter, warp_kernel.tile_counter,
-            project_kernel.tile_scatter_counter, project_kernel.carry_counter)
+            project_kernel.tile_scatter_counter, project_kernel.carry_counter,
+            gather_kernel.tile_counter)
 
 
 def reset_counters():

@@ -42,7 +42,8 @@ build_info = {}  # {"seconds": float, "dir": str, "cached": bool} of this proces
 
 class LaunchCounter:
     """Counts the launches of one kernel: its wrapper adds one each time it
-    launches the kernel on the card, and nowhere else."""
+    launches the kernel on the card, and nowhere else.  (parallel/partition.py
+    counts its whole-level gathers with one, on any device.)"""
 
     def __init__(self, name):
         self.name = name
@@ -153,6 +154,9 @@ def _declare(lib):
     lib.memc_grid_sample.restype = i
     lib.memc_spynet_level_input.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
     lib.memc_spynet_level_input.restype = i
+    lib.memc_spynet_level_input_tile.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i,
+                                                 vp]
+    lib.memc_spynet_level_input_tile.restype = i
     lib.memc_png_unfilter.argtypes = [ctypes.c_char_p, vp, i, i, i]
     lib.memc_png_unfilter.restype = i
 

@@ -33,11 +33,23 @@ Where the tiles live (``parallel.mesh``):
 
 Each layer's halo follows from the output positions the tile owns: a
 stride-2 k3 conv needs p or p + 1 columns, a k4 s2 p1 deconv 1-2, a 2x2
-max-pool 0-1, a global align_corners upsample 0-1; beyond the global edge
-it is zeros.  Across ranks a halo must stay within one neighbour (checked
-when its plan is made); stacked tiles read any tile.  Every gather runs in
-the profiler range ``HALO_RANGE``.  Index maps are cached per (axis, level,
-layer geometry, device).
+max- or average pool 0-1 (at an uneven level a pooled output can straddle
+two tiles: at 720p the 84 columns of 1/16 start tiles at 21, 42 and 63), a
+global align_corners upsample 0-1; beyond the global edge it is zeros.
+Across ranks a halo must stay within one neighbour (checked when its plan
+is made); stacked tiles read any tile.  Every gather runs in the profiler
+range ``HALO_RANGE``.  Index maps are cached per (axis, level, layer
+geometry, device).
+
+One op reads beyond any halo: SPyNet's warp samples the second frame's
+level wherever its flow points.  ``gather`` brings that level whole to
+every tile, as GSPMD gathers the operand of a data-dependent gather in the
+JAX package: one index gather over stacked tiles, an all-gather whose
+backward sums the cotangents across ranks.  It runs in its own profiler
+range, ``GATHER_RANGE``, and counts itself in ``gathers``; no layer with a
+halo form calls it.  ``level_input_window`` gives the same op the 0-1
+column halo of the coarse flow that the global upsample reads, and each
+tile's global origin (ops/cuda/gather_kernel.py::level_input_tile).
 """
 
 import math
@@ -46,9 +58,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from memcnet_tpu_torch.ops.cuda._lib import LaunchCounter
 from memcnet_tpu_torch.parallel import ring as R
 
 HALO_RANGE = "partition.halo"  # the profiler range of every halo gather and crop
+GATHER_RANGE = "partition.gather"  # the profiler range of the whole-level gathers
+gathers = LaunchCounter("partition.gather")  # whole-level gathers (Partition.gather)
 
 
 def owned(g, t):
@@ -156,6 +171,11 @@ class Partition:
         its own size."""
         gh = self.h.level(x.shape[-2]) if self.h else x.shape[-2]
         return gh, self.w.level(x.shape[-1])
+
+    def tile_size(self, gh, gw):
+        """The (h, w) of this process's tiles (or this rank's) at the level
+        of global size (gh, gw)."""
+        return (self.h.width(gh) if self.h else gh), self.w.width(gw)
 
     # -- halo gathers ------------------------------------------------------------
 
@@ -344,6 +364,94 @@ class Partition:
             lam = lam.reshape(shape)
             self._plans[ck] = lam
         return lam
+
+    # -- a whole level, for a gather that reads anywhere ----------------------------
+
+    def gather(self, x):
+        """The whole level of the tiles x, (samples, C, gh, gw): sample s is
+        the frame of the stacked tiles j with j % samples == s (the tile
+        index is outermost), or of this rank's data slice.  Counted in
+        ``gathers``, in the profiler range ``GATHER_RANGE``."""
+        gh, gw = self.level(x)
+        gathers.count += 1
+        with record_function(GATHER_RANGE):
+            if self.across:
+                for ax, g in ((self.w, gw), (self.h, gh)):
+                    if ax is not None:
+                        x = R.gather_summed(x, ax.dim, [ax.own(g, i) for i in range(ax.t)],
+                                            ax.coord, self.mesh.axis_group(ax.name))
+                return x
+            n, C, h, w = x.shape
+            T = self.stacked
+            ck = ("gather", gh, gw, h, w, x.device)
+            index = self._plans.get(ck)
+            if index is None:
+                tile, local = [], []
+                for ax, g in ((self.h, gh), (self.w, gw)):
+                    if ax is None:
+                        tile.append(np.zeros(g, np.int64))
+                        local.append(np.arange(g))
+                        continue
+                    b = ax.bounds(g)
+                    owner = np.repeat(np.arange(ax.t), [hi - lo for lo, hi in b])
+                    tile.append(owner)
+                    local.append(np.arange(g) - np.array([lo for lo, _ in b])[owner])
+                t_w = self.w.t
+                flat = ((tile[0][:, None] * t_w + tile[1][None, :]) * (h * w)
+                        + local[0][:, None] * w + local[1][None, :])
+                index = torch.from_numpy(flat.reshape(-1)).to(x.device)
+                self._plans[ck] = index
+            y = x.reshape(T, n // T, C, h * w).permute(1, 2, 0, 3).reshape(n // T, C, T * h * w)
+            return y.index_select(2, index).reshape(n // T, C, gh, gw)
+
+    def level_input_window(self, flow, fst):
+        """What SPyNet's level input on the tiles fst reads of the coarse
+        flow tiles ``flow`` at half fst's level, on the frame's global
+        coordinates: (each tile's window of the coarse flow -- the columns
+        and rows from the first to the last that its owned positions' x2
+        align_corners lerp reads, a 0-1 halo --, (n, 6) int32 per sample: the
+        tile's global origin (y0, x0), its window's global origin (cy0,
+        cx0) and the positions it owns (h, w), and the level's global
+        (GH, GW))."""
+        GH, GW = self.level(fst)
+        if self.level(flow) != (GH // 2, GW // 2):
+            raise ValueError(f"a coarse flow of the level {self.level(flow)} for a level input "
+                             f"of {(GH, GW)}")
+        n = fst.shape[0]
+        per_axis = []
+        for dim, G in ((-2, GH), (-1, GW)):
+            ax, g = self._tiled(dim), G // 2
+            scale = np.float32(g - 1) / np.float32(2 * g - 1)
+
+            def tap(j, g=g, scale=scale):  # (i0, i1) of output j, as the kernel's up_lerp
+                i = int(scale * np.float32(min(j, 2 * g - 1)))
+                return i, i + (i < g - 1)
+
+            if ax is None:
+                per_axis.append(([0], [0], [G]))
+                continue
+            spans = [(tap(c0)[0], tap(c1 - 1)[1]) for c0, c1 in ax.bounds(G)]
+            flow = self.take(flow, ax, g, G, ("level input",),
+                             lambda i, E, spans=spans: list(range(spans[i][0], spans[i][1] + 1)))
+            per_axis.append(([c0 for c0, _ in ax.bounds(G)], [a for a, _ in spans],
+                             [ax.own(G, i) for i in range(ax.t)]))
+        ck = ("level input origins", GH, GW, n, fst.device)
+        origins = self._plans.get(ck)
+        if origins is None:
+            cols = []
+            for ax, (o, c, own) in zip((self.h, self.w), per_axis):
+                rows = torch.tensor([o, c, own], dtype=torch.int32).t()  # (tiles, 3)
+                if ax is None:
+                    cols.append(rows.expand(n, 3))
+                elif ax.across:
+                    cols.append(rows[ax.coord].expand(n, 3))
+                else:
+                    cols.append(rows[self.tile_index(ax, n, torch.device("cpu"))])
+            (y0, cy0, own_h), (x0, cx0, own_w) = (c.unbind(1) for c in cols)
+            origins = torch.stack([y0, x0, cy0, cx0, own_h, own_w], 1).contiguous().to(
+                fst.device)
+            self._plans[ck] = origins
+        return flow, origins, (GH, GW)
 
     # -- reductions over owned pixels -----------------------------------------------
 

@@ -296,7 +296,7 @@ def ranks_take(x, dim, plan, ranks, coord, group):
 class _GatherUneven(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, sizes, coord, group):
-        ctx.dim, ctx.start, ctx.n = dim, sum(sizes[:coord]), sizes[coord]
+        ctx.dim, ctx.start, ctx.n, ctx.group = dim, sum(sizes[:coord]), sizes[coord], group
         pad = max(sizes) - x.shape[dim]
         if pad:
             x = torch.cat([x, _like(x, dim, pad).zero_()], dim=dim)
@@ -313,3 +313,18 @@ def gather_uneven(x, dim, sizes, coord, group):
     """The parts of a line of ranks, ``sizes[i]`` along ``dim`` on rank i,
     concatenated on every rank; the backward keeps this rank's part."""
     return _GatherUneven.apply(x, dim % x.dim(), list(sizes), coord, group)
+
+
+class _GatherSummed(_GatherUneven):
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g.narrow(ctx.dim, ctx.start, ctx.n).contiguous(), None, None, None, None
+
+
+def gather_summed(x, dim, sizes, coord, group):
+    """``gather_uneven`` for a whole that each rank uses in its own way (a
+    whole level that a tile's data-dependent gather reads): the backward
+    sums the cotangents over the line's ranks and keeps this rank's part."""
+    return _GatherSummed.apply(x, dim % x.dim(), list(sizes), coord, group)

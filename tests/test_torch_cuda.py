@@ -37,7 +37,8 @@ from memcnet_tpu_torch.probe import device_ops
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
 # the tile entries of parallel/tiling.py launch on no untiled path
-NO_TILE_ENTRIES = {"filter_interp_warp_tile": 0, "base_scatter_tile": 0, "fill_holes_carry": 0}
+NO_TILE_ENTRIES = {"filter_interp_warp_tile": 0, "base_scatter_tile": 0, "fill_holes_carry": 0,
+                   "level_input_tile": 0}
 
 
 @pytest.fixture
@@ -855,7 +856,7 @@ def test_tile_entries_match_their_plain_versions(rng, dev, dtype, grid, halo, ki
     assert K.launch_counts() == {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
                                  "conv2d_small": 0, "grid_sample": 0,
                                  "filter_interp_warp_tile": 1, "base_scatter_tile": 1,
-                                 "fill_holes_carry": 1}
+                                 "fill_holes_carry": 1, "level_input_tile": 0}
     for g, r in zip(tw, ops.filter_interp_warp_split((frame, ctx), flow, filt)):
         close(g, r)
     close(tp, ops.flow_project(flow.to(dtype), fillhole=True), long_sums=True)
@@ -881,7 +882,7 @@ def test_tiled_ops_under_spatial_tiling_launch_the_tile_entries(rng, dev):
     assert K.launch_counts() == {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
                                  "conv2d_small": 0, "grid_sample": 0,
                                  "filter_interp_warp_tile": 2, "base_scatter_tile": 2,
-                                 "fill_holes_carry": 1}
+                                 "fill_holes_carry": 1, "level_input_tile": 0}
 
 
 # -- partitioned frames (parallel/partition.py): every layer on its tile -------------------
@@ -945,29 +946,134 @@ def test_ctx_conv_runs_k4_once_on_halo_extended_tiles(rng, dev, dtype, grid):
     close(got, want, long_sums=True)
 
 
-@pytest.mark.parametrize("name", ["MEMC_Net_star", "MEMC_Net"])
+def scale_flows(model, flow, px=3.0):
+    """Scale the flow net's last conv (FlowNetS's; SPyNet's coarsest level's,
+    whose residual doubles at every finer level) so that ``flow()`` reaches
+    about px."""
+    with torch.no_grad():
+        if hasattr(model.flownets, "moduleBasic"):
+            top = model.flownets.moduleBasic[0].moduleBasic[8]
+            for _ in range(3):
+                k = px / float(flow().abs().max())
+                top.weight.mul_(k)
+                top.bias.mul_(k)
+        else:
+            model.flownets.predict_flow2.weight.mul_(px / float(flow().abs().max()))
+
+
+@pytest.mark.parametrize("name", ["MEMC_Net_star", "MEMC_Net", "MEMC_Net_s"])
 def test_partitioned_forward_on_the_card_launches_tile_entries_and_matches(rng, dev, name):
     """The partitioned float32 forward on (1, 2, 2) at 128x128: 2 K1 tile, 1
-    K2 tile and 1 K3 carry launches (and star's 1 K4), no global K1-K3, and
-    every output within 1e-4 of its scale of the untiled forward on the
-    card."""
+    K2 tile and 1 K3 carry launches (and star's 1 K4; MEMC_Net_s's SPyNet 3
+    levels of 5 K4 and 1 K5 tile entry), no global K1-K3 or K5, and every
+    output within 1e-4 of its scale of the untiled forward on the card."""
     from memcnet_tpu_torch.parallel import gather_frames, shard_frames, spatial_tiling
 
     model = build_model(name, seed=0, device=dev)
     x0 = torch.from_numpy(rng.rand(1, 3, 128, 128).astype(np.float32)).to(dev)
     x2 = torch.roll(x0, (1, 2), (2, 3))
     with torch.no_grad():
-        raw = float(model._flow(x0, x2).abs().max())
-        model.flownets.predict_flow2.weight.mul_(3.0 / raw)
+        scale_flows(model, lambda: model._flow(x0, x2))
         (wi, wr), woffs, _, _ = model(x0, x2)
         mesh, axis_h = tile_grid("tile2x2", dev)
         K.reset_counters()
         with spatial_tiling(mesh, halo=16, axis_h=axis_h):
             (gi, gr), goffs, _, _ = model(*shard_frames(mesh, x0, x2))
             got = [gather_frames(mesh, t) for t in (gi, gr, *goffs)]
+    spy = name == "MEMC_Net_s"
     assert K.launch_counts() == {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
-                                 "conv2d_small": int(name == "MEMC_Net_star"), "grid_sample": 0,
-                                 "filter_interp_warp_tile": 2, "base_scatter_tile": 1,
-                                 "fill_holes_carry": 1}
+                                 "conv2d_small": 15 if spy else int(name == "MEMC_Net_star"),
+                                 "grid_sample": 0, "filter_interp_warp_tile": 2,
+                                 "base_scatter_tile": 1, "fill_holes_carry": 1,
+                                 "level_input_tile": 3 if spy else 0}
     for g, w in zip(got, (wi, wr, *woffs)):
         assert float((g - w).abs().max()) <= 1e-4 * max(1.0, float(w.abs().max()))
+
+
+def test_partitioned_ve_on_the_card_launches_tile_entries_and_matches(rng, dev):
+    """MEMC_Net_VE's partitioned float32 forward on (1, 2, 2) at 128x128: one
+    K1 tile launch (the 6B split warp) and one K4 (the 7B ctx conv on
+    halo-extended tiles), nothing else, within 1e-4 of the output's scale of
+    the untiled forward on the card."""
+    from memcnet_tpu_torch.parallel import gather_frames, shard_frames, spatial_tiling
+
+    model = build_model("MEMC_Net_VE", seed=0, device=dev)
+    base = torch.from_numpy(rng.rand(1, 3, 128, 128).astype(np.float32)).to(dev)
+    frames = [torch.roll(base, (k - 3, 2 * (k - 3)), (2, 3)) for k in range(7)]
+    with torch.no_grad():
+        scale_flows(model, lambda: model(frames, debug=True)[1])
+        want = model(frames, debug=True)
+        mesh, axis_h = tile_grid("tile2x2", dev)
+        K.reset_counters()
+        with spatial_tiling(mesh, halo=16, axis_h=axis_h):
+            got = [gather_frames(mesh, t)
+                   for t in model(list(shard_frames(mesh, *frames)), debug=True)]
+    assert K.launch_counts() == {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
+                                 "conv2d_small": 1, "grid_sample": 0,
+                                 "filter_interp_warp_tile": 1, "base_scatter_tile": 0,
+                                 "fill_holes_carry": 0, "level_input_tile": 0}
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * max(1.0, float(w.abs().max()))
+
+
+LEVEL_TILE_LEVELS = [(768, 1344), (96, 168), (24, 42)]  # 720p's levels 0, 3 and 5
+
+
+def level_tile_case(rng, dev, dtype, grid, H, W, B=2, amp=20.0):
+    """The partition of 768x1344 on ``grid`` at the level H x W, and the tile
+    entry's arguments for fst, snd (B, 3, H, W) and a coarse flow whose
+    upsample reaches +-amp px."""
+    from memcnet_tpu_torch.parallel import active_partition, shard_frames, spatial_tiling
+
+    fst, snd, _ = level_case(rng, dev, dtype, H, W, B=B)
+    f = np.clip(flow_field(rng, B, H // 2, W // 2, amp / 2).numpy(), -amp / 2, amp / 2)
+    flow = torch.from_numpy(f).to(dev, dtype)
+    mesh, axis_h = tile_grid(grid, dev)
+    with spatial_tiling(mesh, halo=64, axis_h=axis_h):
+        shard_frames(mesh, torch.zeros(1, 1, 768, 1344, device=dev))
+        p = active_partition()
+        ft = p.split(fst)
+        window, origins, level = p.level_input_window(p.split(flow), ft)
+        whole = p.gather(p.split(snd))
+    return p, (fst, snd, flow), (ft, whole, window, origins, *level)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid", ["tile4", "tile2x2"])
+@pytest.mark.parametrize("H,W", LEVEL_TILE_LEVELS)
+def test_level_input_tile_kernel_matches_plain(rng, dev, dtype, grid, H, W):
+    """K5's tile entry at three 720p levels, +-20 px flows: merged, it equals
+    the untiled kernel on the whole level bit for bit (the same float32
+    steps on global coordinates); against its plain version fst exactly, up
+    and the warp of the kernel's own up within 1e-5 (float32) or 2 bf16
+    ulps; one launch per call (its one device operation is counted by
+    chip_smoke.py phase 2: late in this file's run torch.profiler reports
+    no device operation for short calls)."""
+    p, (fst, snd, flow), args = level_tile_case(rng, dev, dtype, grid, H, W)
+    got = gather_kernel.launch_level_input_tile(*args)
+    ref = gather_kernel.level_input_tile_reference(*args)
+    assert got.shape == ref.shape and got.dtype == dtype
+    assert torch.equal(p.merge(got), gather_kernel.launch_level_input(fst, snd, flow))
+    assert torch.equal(got[:, :3], ref[:, :3])
+    up = p.merge(got[:, 6:])
+    want = gather_kernel.reference(snd, gather_kernel.warp_grid(up))
+    if dtype == torch.float32:
+        assert float((got[:, 6:] - ref[:, 6:]).abs().max()) <= 1e-5 * 20
+        assert float((p.merge(got[:, 3:6]) - want).abs().max()) <= 1e-5
+    else:
+        close(got[:, 6:], ref[:, 6:])
+        close(p.merge(got[:, 3:6]), want)
+    K.reset_counters()
+    gather_kernel.level_input_tile(*args)
+    assert K.launch_counts()["level_input_tile"] == 1
+
+
+def test_level_input_tile_gradients_match_plain(rng, dev):
+    _, _, args = level_tile_case(rng, dev, torch.float32, "tile2x2", 48, 84)
+    fst, snd, flow = (a.detach().requires_grad_() for a in args[:3])
+    ct = torch.randn(fst.shape[0], 8, *fst.shape[2:], device=dev)
+    (gather_kernel.level_input_tile(fst, snd, flow, *args[3:]) * ct).sum().backward()
+    xs = [a.detach().requires_grad_() for a in (fst, snd, flow)]
+    (gather_kernel.level_input_tile_reference(*xs, *args[3:]) * ct).sum().backward()
+    for a, c in zip((fst, snd, flow), xs):
+        assert float((a.grad - c.grad).abs().max()) <= ATOL

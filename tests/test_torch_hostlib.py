@@ -3,6 +3,14 @@ library (memcnet_tpu_torch/native, built with g++ at first use), the Torch7
 .t7 import and the flow visualisation, and the HD720p demo reading through
 the native reader.
 
+The JAX package builds its library in place, with no lock, the first time
+a process asks for it, and a process that loads a half-written file reports
+the library unavailable for the rest of its life (ROADMAP.md Queue C).  Under
+xdist several workers race for that build, so where the JAX binding reports
+no library in this worker, ``jax_native`` binds the JAX package's own,
+unmodified source built with the same flags into a private directory
+(written, then renamed) for the module's duration.
+
 Tolerances: the native functions and reader byte-equal to the JAX
 package's native ones (the same C++ built from a copy of the source), and
 within 1 level of the numpy ``data.yuv`` oracle (float64 rounding at a
@@ -10,8 +18,10 @@ truncation, as tests/test_native.py holds the JAX ones); the .t7 import and
 flowviz exactly equal to the JAX package's.
 """
 
+import ctypes
 import os
 import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -31,12 +41,47 @@ from memcnet_tpu_torch.probe import moving_frames
 from memcnet_tpu_torch.utils import flowviz as tviz
 
 
-@pytest.fixture
-def built():
+def private_jax_native(directory):
+    """The JAX package's yuv_native.cpp, unmodified, built with its flags (the
+    port's ``CXX_FLAGS`` are the same) into ``directory`` -- written under a
+    temporary name, then renamed -- loaded and declared as the JAX binding
+    declares it (``native._declare``: the same API)."""
+    lib_path = directory / "libmemcnet_native.so"
+    if not lib_path.exists():
+        tmp = directory / f"libmemcnet_native.so.tmp{os.getpid()}"
+        subprocess.run(["g++", *native.CXX_FLAGS, "-o", str(tmp), jnative._SRC], check=True,
+                       capture_output=True, text=True)
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    native._declare(lib)
+    return lib
+
+
+def bind_jax_native(mp, directory):
+    """Where the JAX binding reports no library in this worker (it lost the
+    build race), bind ``private_jax_native(directory)`` into it through the
+    MonkeyPatch ``mp``.  Returns True if it bound one."""
+    if jnative.available():
+        return False
+    mp.setattr(jnative, "_lib", private_jax_native(directory))
+    return True
+
+
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    """The JAX package's native library in this worker, whatever another
+    worker's in-place build did to it."""
     if shutil.which("g++") is None:
         pytest.skip("no g++: the native libraries are built at first use")
+    with pytest.MonkeyPatch.context() as mp:
+        bind_jax_native(mp, tmp_path_factory.mktemp("jax_native"))
+        yield jnative
+
+
+@pytest.fixture
+def built(jax_native):
     assert native.available(), native.build_error()
-    assert jnative.available()
+    assert jax_native.available()
 
 
 def write_stream(path, frames_yuv):
@@ -110,6 +155,35 @@ def test_native_reader_byte_equal_jax(built, rng, tmp_path, stride, order):
         within_a_level(got, want)
     for r in (rd, jrd, ref):
         r.close()
+
+
+def test_jax_side_survives_a_lost_build_race(rng, tmp_path, monkeypatch):
+    """A worker whose JAX binding loaded a half-written library remembers it
+    as unavailable (``_lib`` None, ``_tried`` True): the repair binds the
+    private build, and the conversions and the reader compare byte-equal to
+    the JAX package's code again."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the native libraries are built at first use")
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_tried", True)
+    assert not jnative.available()
+    assert bind_jax_native(monkeypatch, tmp_path)
+    assert jnative.available() and not bind_jax_native(monkeypatch, tmp_path)
+    h, w = 16, 24
+    y, u, v = rand_frame(rng, h, w)
+    np.testing.assert_array_equal(native.yuv420_to_rgb(y, u, v), jnative.yuv420_to_rgb(y, u, v))
+    img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+    for got, want in zip(native.rgb_to_yuv420(img), jnative.rgb_to_yuv420(img)):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(native.rgb_to_y(img), jnative.rgb_to_y(img))
+    src = write_stream(tmp_path / "s.yuv", [rand_frame(rng, h, w) for _ in range(3)])
+    rd, jrd = native.NativeYUVReader(src, h, w), jnative.NativeYUVReader(src, h, w)
+    for i in (0, 2, 1):
+        (got, ok), (want, jok) = rd.read(i), jrd.read(i)
+        assert ok and jok
+        np.testing.assert_array_equal(got, want)
+    rd.close()
+    jrd.close()
 
 
 def test_native_reader_eof_and_missing_file(built, rng, tmp_path):

@@ -154,6 +154,11 @@ def four(tmp_path_factory):
                     (_, rectified), offs, _, _ = model(x0, x2)
                 part[name] = (W.part_run(factory(devices=[CPU] * 4), axis_h, H, Wd),
                               {"rectified": rectified, "offset0": offs[0]})
+            model, x0, x2 = W.part_s_inputs()
+            with torch.no_grad():
+                (_, rectified), offs, _, _ = model(x0, x2)
+            part["MEMC_Net_s"] = (W.part_s_run(W.make_mesh(4, devices=[CPU] * 4)),
+                                  {"rectified": rectified, "offset0": offs[0]})
     except BaseException:
         for p in procs:
             p.kill()
@@ -184,6 +189,20 @@ def test_tiled_ops_across_ranks_equal_one_process(four, mesh_name, rank):
 def test_partitioned_forward_across_ranks_equals_one_process(four, mesh_name, rank):
     stacked, untiled = four["part_want"][mesh_name]
     got = four["partition"][rank][mesh_name]
+    assert float(untiled["offset0"].abs().max()) > 0.5 * W.PART_FLOW_PX
+    for k, w in stacked.items():
+        scale = max(1.0, float(w.abs().max()))
+        assert float((got[k] - w).abs().max()) <= 1e-5 * scale, k
+        assert float((got[k] - untiled[k]).abs().max()) <= 1e-4 * scale, k
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_partitioned_memc_s_across_ranks_equals_one_process(four, rank):
+    """MEMC_Net_s partitioned on (1, 4) across 4 ranks, SPyNet's second
+    frame all-gathered whole at every level, against the same forward with
+    the tiles stacked in one process and against the untiled forward."""
+    stacked, untiled = four["part_want"]["MEMC_Net_s"]
+    got = four["partition"][rank]["MEMC_Net_s"]
     assert float(untiled["offset0"].abs().max()) > 0.5 * W.PART_FLOW_PX
     for k, w in stacked.items():
         scale = max(1.0, float(w.abs().max()))

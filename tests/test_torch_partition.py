@@ -2,7 +2,8 @@
 spatial layer on its tile with halos, against the stock layer on the whole
 tensor; MEMC_Net_star and MEMC_Net partitioned against their untiled
 forwards and the JAX forward; the sharded train step against ``TrainStep``;
-and what raises.
+and what raises (tests/test_torch_partition_s_ve.py holds MEMC_Net_s and
+MEMC_Net_VE).
 
 The tiles of a mesh are stacked into the batch in one process
 (``make_mesh(4, devices=[cpu] * 4)``); tests/test_torch_multiprocess.py runs
@@ -332,19 +333,17 @@ def test_halo_gather_gradcheck():
 # -- what has no partitioned form raises ------------------------------------------------
 
 
-@pytest.mark.parametrize("call", ["avg_pool2d", "grid_sample_bilinear", "replication_pad2d",
-                                  "bilinear_warp", "MEMC_Net_s", "MEMC_Net_VE"])
+@pytest.mark.parametrize("call", ["grid_sample_bilinear", "replication_pad2d", "bilinear_warp",
+                                  "depth_flow_project"])
 def test_layers_without_a_partitioned_form_raise(call):
     x = torch.rand(1, 3, 64, 256)
     with Sharded("tile4", (64, 256)) as p:
         t = p.split(x)
         calls = {
-            "avg_pool2d": lambda: L.avg_pool2d(t, 2),
             "grid_sample_bilinear": lambda: L.grid_sample_bilinear(t, torch.zeros(4, 64, 64, 2)),
             "replication_pad2d": lambda: L.replication_pad2d(t, (1, 1, 1, 1)),
             "bilinear_warp": lambda: ops.bilinear_warp(t, torch.zeros(4, 2, 64, 64)),
-            "MEMC_Net_s": lambda: build_model("MEMC_Net_s", device="cpu")(t, t),
-            "MEMC_Net_VE": lambda: build_model("MEMC_Net_VE", device="cpu")([t] * 7),
+            "depth_flow_project": lambda: ops.depth_flow_project(t[:, :2], t[:, 2:]),
         }
         with pytest.raises(NotImplementedError, match="no partitioned form"):
             calls[call]()

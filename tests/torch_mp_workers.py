@@ -5,8 +5,8 @@ results to ``<out>/rank<r>.pt`` for the test to hold against one process.
     python tests/torch_mp_workers.py <scenario> <rank> <world> <port> <out>
 
 Scenarios: ``four`` (4 ranks: the ring-shift tiled ops, the partitioned
-MEMC_Net_star forward, then the sharded MEMC_Net_star step) and ``dp`` (2
-ranks: the data-parallel MEMC_Net steps).
+MEMC_Net_star and MEMC_Net_s forwards, then the sharded MEMC_Net_star step)
+and ``dp`` (2 ranks: the data-parallel MEMC_Net steps).
 
 Imports torch and memcnet_tpu_torch only.
 """
@@ -36,6 +36,9 @@ RING_MESHES = (("tile4", lambda **kw: make_mesh(4, max_tile=4, **kw), (16, 256),
 PART_MESHES = (("tile4", RING_MESHES[0][1], (64, 320), None),
                ("tile2x2", RING_MESHES[2][1], (128, 192), "tile_h"))
 PART_FLOW_PX = 3.0  # star's flows scaled to about this, inside the halo budget of 16
+# MEMC_Net_s partitioned on (1, 4) across ranks: SPyNet's 4 levels at 64x256, each
+# with a whole-level all-gather of the second frame
+PART_S_SIZE = (64, 256)
 SHARDED_LR = 2e-3   # the dryrun's Adamax
 STEP_TOL = 1e-6
 
@@ -113,9 +116,40 @@ def part_run(mesh, axis_h, H, W):
                 "offset0": gather_frames(mesh, offs[0])}
 
 
+@functools.lru_cache(maxsize=1)
+def part_s_inputs(seed=7):
+    """MEMC_Net_s, its SPyNet top-level (coarsest) last conv scaled to give
+    flows of about PART_FLOW_PX, and its frames (B 2)."""
+    from memcnet_tpu_torch.cli.runner import build_model
+
+    rng = np.random.RandomState(seed)
+    x0 = torch.from_numpy(rng.rand(2, 3, *PART_S_SIZE).astype(np.float32))
+    x2 = torch.roll(x0, (1, 2), (2, 3)) * 0.9 + 0.05
+    model = build_model("MEMC_Net_s", seed=0, device="cpu")
+    top = model.flownets.moduleBasic[0].moduleBasic[8]
+    with torch.no_grad():
+        for _ in range(3):  # not linear in the scale: the finer levels' warps move
+            raw = float(model._flow(x0, x2).abs().max())
+            top.weight.mul_(PART_FLOW_PX / raw)
+            top.bias.mul_(PART_FLOW_PX / raw)
+    return model, x0, x2
+
+
+def part_s_run(mesh):
+    """The partitioned MEMC_Net_s forward on (1, 4): its rectified frame and
+    first offset, gathered whole."""
+    model, x0, x2 = part_s_inputs()
+    with torch.no_grad(), spatial_tiling(mesh, halo=16):
+        (_, rectified), offs, _, _ = model(*shard_frames(mesh, x0, x2))
+        return {"rectified": gather_frames(mesh, rectified),
+                "offset0": gather_frames(mesh, offs[0])}
+
+
 def scenario_partition(rank, world):
-    return {name: part_run(factory(group=dist.group.WORLD), axis_h, H, W)
-            for name, factory, (H, W), axis_h in PART_MESHES}
+    res = {name: part_run(factory(group=dist.group.WORLD), axis_h, H, W)
+           for name, factory, (H, W), axis_h in PART_MESHES}
+    res["MEMC_Net_s"] = part_s_run(make_mesh(4, group=dist.group.WORLD))
+    return res
 
 
 def step_stats(got, want):
