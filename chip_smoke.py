@@ -18,8 +18,13 @@ Phases (any failed check exits non-zero and prints no result line):
      level input on partitioned frames) on the tiles of three levels of
      768x1344 on the (data 1, tile 4) and (1, 2, 2) grids, +-20 px flows,
      its fst and up equal to the untiled kernel's bit for bit, timed at the
-     top level on (1, 4) beside F.grid_sample of the same sample; the
-     projection's K2
+     top level on (1, 4) beside F.grid_sample of the same sample; K2's
+     payload entry on tile origins (the depth-weighted and gated projections
+     on partitioned frames) on the (1, 4) tiles of 768x1344, B = 2, P = 3
+     and 4, its count plane equal to its plain version's and to the untiled
+     payload entry's, its sums within 1e-5 of their scale, at most 3 device
+     operations per call, timed beside index_add_ of the same planes into a
+     whole-frame buffer; the projection's K2
      and K3 stages each, and the whole op (flow_project) against its plain
      composition on
      smooth, +-200 px and all-invalid flows, with its device operations per
@@ -130,7 +135,21 @@ Phases (any failed check exits non-zero and prints no result line):
      each beside the untiled forward's; and one float32 MEMC_Net_star step
      at 256x448 on (1, 4), halo 16, its frames sharded, against TrainStep
      on the whole frames (the loss within 1e-5 relative, the parameters
-     within 1e-6 on at least 99.9% of elements and within 2 lr everywhere).
+     within 1e-6 on at least 99.9% of elements and within 2 lr everywhere);
+ 10. the op library on partitioned frames: every name of ops.__all__ and the
+     grid sample and replication pad layers, float32, B = 2, 768x1344, on
+     the (data 1, tile 4) and (1, 2, 2) grids, halo 64, on phase 8's +-20 px
+     flow and (the ops with no halo budget) a +-200 px one, each against the
+     same op untiled on the card: where nothing lands or lands outside
+     exactly, the outputs and the VJP of a seeded cotangent within 1e-4 of
+     their scale; launches per call exact (N7 and N8: one K2 payload entry
+     on tile origins and one K3 carry entry, the grid sample one K5 general
+     entry, the filter warps one K1 tile entry, flow_project one K2 tile
+     entry and one K3 carry entry, nothing else), and the whole-level
+     gathers and reductions of the forward and the backward; for the +-20
+     px flow each op's device ms and device operations from one profiled
+     call, the gathers' and reductions' device ms and the peak memory, beside
+     the untiled op's.
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.  Long output (the kernels' build
 log, the full results) goes to chiprun_out/chip_smoke/.
@@ -185,7 +204,8 @@ TPU_KERNELS = {
 
 # the tile entries (phase 8): no launch on any earlier path
 TILE_COUNTERS = {"filter_interp_warp_tile": 0, "base_scatter_tile": 0, "fill_holes_carry": 0,
-                 "level_input_tile": 0}
+                 "level_input_tile": 0,
+                 "base_scatter_payload_tile": 0}
 TILE_ENTRIES = {
     "filter_interp_warp_tile": ("memcnet_tpu_torch/csrc/warp.cu",
                                 "memcnet_tpu/ops/pallas/warp_kernel.py:827",
@@ -590,6 +610,7 @@ def phase_kernels(torch, results):
             f"{rows['spynet_level_input'][dtype_name]['parent_prologue']['ms']:.4f} ms")
         del fst, snd, cflow
         level_input_tile_rows(torch, rows, dt, dtype_name, gen, flush)
+        payload_tile_rows(torch, rows, dt, dtype_name, flush)
 
         # --- K4 at each conv of every SPyNet level: B = 2, 7x7, bias, ReLU on
         # the first four; torch-0.2 default weights.  The top level keeps its
@@ -2143,7 +2164,8 @@ TILE_GRIDS = (("tile4", None), ("tile2x2", "tile_h"))  # (data 1, tile 4), (1, 2
 TILED_PAIRS = 2
 EXPECTED_TILED_FRAME = {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
                         "conv2d_small": 1, "grid_sample": 0, "filter_interp_warp_tile": 2,
-                        "base_scatter_tile": 1, "fill_holes_carry": 1, "level_input_tile": 0}
+                        "base_scatter_tile": 1, "fill_holes_carry": 1, "level_input_tile": 0,
+                        "base_scatter_payload_tile": 0}
 TILED_SERVE_TOL = 1e-2       # of the output's scale: bf16 flows the two sums may round apart
 TILED_FLOW_PX = 8.0          # star's flows scaled to about this, inside the halo budget
 NCCL_H, NCCL_W = 256, 448    # the one-rank NCCL step (Vimeo-90K's size)
@@ -2279,6 +2301,90 @@ def level_input_tile_rows(torch, rows, dt, dtype_name, gen, flush):
     record_row(rows, "level_input_tile", dtype_name, *row, nbytes=nbytes,
                # per pixel: 2 x 6 for the upsample, 8 for the grid, 3 x 8 for the taps
                flops=2 * H * W * 44, op_dtype="float32", extra=dict(extra, cases=cases))
+
+
+def payload_tile_rows(torch, rows, dt, dtype_name, flush):
+    """K2's payload entry on tile origins (the depth-weighted and gated
+    projections on partitioned frames) on the tiles of (data 1, tile 4) at
+    768x1344, B = 2, phase 2's +-20 px flows in ``dt`` with their
+    out-of-frame blocks: the depth payload (P = 3, depths in quarters) and
+    the gated one (P = 4).  Against its plain version the count plane
+    exactly and the sums within 1e-5 of their scale, and the count plane
+    against the untiled payload entry's folded counts exactly; at most 3
+    device operations per call; timed beside its plain version and
+    index_add_ of the same planes into a whole-frame buffer."""
+    from memcnet_tpu_torch.ops import projection
+    from memcnet_tpu_torch.ops.cuda import project_kernel as P
+    from memcnet_tpu_torch.parallel import active_partition, shard_frames, spatial_tiling
+    from memcnet_tpu_torch.probe import device_ops, synthetic_flow
+
+    dev = torch.device("cuda")
+    esize = torch.tensor([], dtype=dt).element_size()
+    gen = torch.Generator().manual_seed(13)
+    flow = synthetic_flow(2, dev).to(dt)
+    depth = (torch.randint(0, 5, (2, 1, H, W), generator=gen) * 0.25 + 0.5).to(dev)
+    f1 = torch.rand((2, 3, H, W), generator=gen).to(dev)
+    f2 = (f1 + 0.05 * torch.randn((2, 3, H, W), generator=gen).to(dev)).clamp(0.0, 1.0)
+    payloads = {3: projection.depth_payload(flow, depth),
+                4: projection.weighted_payload(flow, f1, f2, 20.0 / 255.0)}
+    mesh = tile_mesh(torch, "tile4")
+    with spatial_tiling(mesh, halo=TILE_HALO):
+        shard_frames(mesh, torch.zeros((1, 1, H, W), device=dev))
+        p = active_partition()
+        ft = p.split(flow)
+        n = ft.shape[0]
+        S, (th, tw) = p.samples(n), ft.shape[2:]
+        org = p.origins((H, W), n, dev)
+        keep = p.mask(ft)
+    # the library call's cells: each owned tile pixel's landing in the frame
+    o = org.long()
+    x2 = (o[:, 1].view(n, 1, 1) + torch.arange(tw, device=dev).view(1, 1, tw)).float() \
+        + ft[:, 0].float()
+    y2 = (o[:, 0].view(n, 1, 1) + torch.arange(th, device=dev).view(1, th, 1)).float() \
+        + ft[:, 1].float()
+    valid = (x2 >= 0.0) & (y2 >= 0.0) & (x2 <= W - 1.0) & (y2 <= H - 1.0)
+    if keep is not None:
+        valid &= keep[:, 0] > 0
+    cell = ((torch.arange(n, device=dev) % S).view(n, 1, 1) * (H * W)
+            + y2.to(torch.int32).clamp(0, H - 1).long() * W
+            + x2.to(torch.int32).clamp(0, W - 1).long())
+    cell = torch.where(valid, cell, 0).reshape(-1)
+    for planes, payload in payloads.items():
+        name = f"base_scatter_payload_tile[P={planes}]"
+        pt = p.split(payload)
+        got = P.launch_payload_tile(ft, pt, org, S, H, W)
+        ref = P.payload_tile_sums_reference(ft, pt, org, S, H, W)
+        untiled = P.fold(P.launch_payload(flow, payload, False)[0])
+        if not torch.equal(got[:, -1], ref[:, -1]):
+            raise CheckFailed(f"{name} {dtype_name}: counts differ from the plain version")
+        if not torch.equal(got[:, -1], untiled[:, -1]):
+            raise CheckFailed(f"{name} {dtype_name}: counts differ from the untiled entry's")
+        scale = max(1.0, float(ref.abs().max()))
+        check = compare([(got, ref)], 1e-5 * scale)
+        n_ops, dev_ms, by_kernel = device_ops(lambda: P.launch_payload_tile(ft, pt, org, S, H, W))
+        if not 1 <= n_ops <= 3:
+            raise CheckFailed(f"{name} {dtype_name}: {n_ops} device operations per call, at "
+                              "most 3 expected")
+        src = torch.where(valid[:, None], pt, 0.0).permute(0, 2, 3, 1).reshape(-1, planes)
+
+        def lib_scatter():  # the same planes into a whole-frame buffer, one PyTorch call
+            return torch.zeros(S * H * W, planes, device=dev).index_add_(0, cell, src)
+
+        log(f"  {name} {dtype_name}: device ops per call {n_ops}, device ms {dev_ms:.4f}: "
+            + ", ".join(f"{k[:40]} {v:.4f}" for k, v in by_kernel.items()))
+        # reads the flow and payload tiles, writes the samples' whole-frame sums
+        record_row(rows, name, dtype_name, check,
+                   timed_ms(torch, lambda: P.launch_payload_tile(ft, pt, org, S, H, W),
+                            flush=flush),
+                   timed_ms(torch, lambda: P.payload_tile_sums_reference(ft, pt, org, S, H, W),
+                            flush=flush),
+                   timed_ms(torch, lib_scatter, flush=flush),
+                   nbytes=n * th * tw * (2 * esize + planes * 4) + S * planes * H * W * 4
+                   + org.numel() * 4, flops=0, op_dtype="float32",
+                   extra=dict(device_ops=n_ops, device_ms=dev_ms, tiles=n, tile=f"{th}x{tw}",
+                              scale=scale, valid_pixels=int(valid.sum())))
+        del got, ref, untiled, src, pt
+    del payloads, flow, ft, cell
 
 
 def phase_tile_entries(torch, results):
@@ -2659,7 +2765,8 @@ EXPECTED_PART_FRAME = {
     name: {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
            "conv2d_small": {"MEMC_Net_star": 1, "MEMC_Net_s": 30, "MEMC_Net_VE": 1}.get(name, 0),
            "grid_sample": 0, "filter_interp_warp_tile": 2, "base_scatter_tile": 1,
-           "fill_holes_carry": 1, "level_input_tile": 6 if name == "MEMC_Net_s" else 0}
+           "fill_holes_carry": 1, "level_input_tile": 6 if name == "MEMC_Net_s" else 0,
+           "base_scatter_payload_tile": 0}
     for name in PART_MODELS}
 EXPECTED_PART_FRAME["MEMC_Net_VE"].update(filter_interp_warp_tile=1, base_scatter_tile=0,
                                           fill_holes_carry=0)
@@ -2682,7 +2789,8 @@ PART_STEP_TOL = 1e-5                  # the step's loss, relative
 PART_PARAM_TOL = 1e-6
 EXPECTED_PART_STEP = {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
                       "conv2d_small": 1, "grid_sample": 0, "filter_interp_warp_tile": 2,
-                      "base_scatter_tile": 1, "fill_holes_carry": 0, "level_input_tile": 0}
+                      "base_scatter_tile": 1, "fill_holes_carry": 0, "level_input_tile": 0,
+                      "base_scatter_payload_tile": 0}
 
 
 def peak_bytes(torch, fn):
@@ -2697,12 +2805,13 @@ def peak_bytes(torch, fn):
 
 def profile_partitioned(torch, fn):
     """(device operations, device ms, halo gathers' device ms, whole-level
-    gathers' device ms, top kernels) of one call after a warm-up: kernels
-    and memsets, and the device time of the kernels under
-    parallel.partition's HALO_RANGE and GATHER_RANGE."""
+    gathers' device ms, top kernels, whole-level reductions' device ms) of
+    one call after a warm-up: kernels and memsets, and the device time of
+    the kernels under parallel.partition's HALO_RANGE, GATHER_RANGE and
+    REDUCE_RANGE."""
     from torch.profiler import ProfilerActivity, profile
 
-    from memcnet_tpu_torch.parallel.partition import GATHER_RANGE, HALO_RANGE
+    from memcnet_tpu_torch.parallel.partition import GATHER_RANGE, HALO_RANGE, REDUCE_RANGE
 
     fn()
     torch.cuda.synchronize()
@@ -2714,7 +2823,7 @@ def profile_partitioned(torch, fn):
     evs = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
     dev = [e for e in evs if e.device_type == cuda and e.self_device_time_total > 0
-           and e.key not in (HALO_RANGE, GATHER_RANGE)]
+           and e.key not in (HALO_RANGE, GATHER_RANGE, REDUCE_RANGE)]
 
     def range_ms(key):
         return max((e.device_time_total for e in evs if e.key == key and e.device_type != cuda),
@@ -2723,7 +2832,8 @@ def profile_partitioned(torch, fn):
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
     return (sum(e.count for e in dev), sum(e.self_device_time_total for e in dev) / 1e3,
             range_ms(HALO_RANGE), range_ms(GATHER_RANGE),
-            {e.key[:80]: round(e.self_device_time_total / 1e3, 4) for e in top})
+            {e.key[:80]: round(e.self_device_time_total / 1e3, 4) for e in top},
+            range_ms(REDUCE_RANGE))
 
 
 def out_errs(torch, got, want):
@@ -2810,7 +2920,7 @@ def part_serve(torch, name, items, results):
     xp, xf = inputs(items[0], bf16), inputs(items[0], torch.float32)
 
     def measure(fwd):
-        n_ops, dev_ms, halo_ms, gather_ms, top = profile_partitioned(torch, fwd)
+        n_ops, dev_ms, halo_ms, gather_ms, top, _ = profile_partitioned(torch, fwd)
         return dict(ms=timed_ms(torch, fwd, reps=PART_REPS), device_ops=n_ops,
                     device_ms=dev_ms, halo_device_ms=halo_ms, gather_device_ms=gather_ms,
                     peak_bytes=peak_bytes(torch, fwd), top_kernels=top)
@@ -2969,12 +3079,289 @@ def phase_partition(torch, results):
     part_step(torch, results)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the op library on partitioned frames
+
+PART_OPS_B = 2
+PART_OPS_PAD = (2, 3, 1, 2)           # replication_pad2d's (left, right, top, bottom)
+PART_OPS_GRID_CUT = (16, 32)          # the sample grid: (H - 16, W - 32), a derived extent
+PART_OPS_TOL = 1e-4                   # of each output's (and gradient's) scale
+# the ops whose flows have a halo budget (parallel/tiling.py): +-20 px only
+HALO_BUDGET_OPS = ("filter_interp_warp", "filter_interp_warp_split", "flow_project")
+# launches per call (the rest zero): N7 and N8 on K2's payload entry on tile
+# origins and K3's carry entry, the grid sample on K5's general entry, the
+# filter warps and flow_project on their tile entries
+PART_OPS_LAUNCHES = {
+    "filter_interp_warp": {"filter_interp_warp_tile": 1},
+    "filter_interp_warp_split": {"filter_interp_warp_tile": 1},
+    "flow_project": {"base_scatter_tile": 1, "fill_holes_carry": 1},
+    "depth_flow_project": {"base_scatter_payload_tile": 1, "fill_holes_carry": 1},
+    "weighted_flow_project": {"base_scatter_payload_tile": 1, "fill_holes_carry": 1},
+    "grid_sample_bilinear": {"grid_sample": 1},
+}
+# whole-level (gathers, reductions) per call, forward and backward
+PART_OPS_WHOLE = {
+    "bilinear_warp": ((1, 0), (0, 0)), "bilinear_warp_ch": ((1, 0), (0, 0)),
+    "depth_flow_project": ((0, 1), (1, 0)), "weighted_flow_project": ((1, 1), (1, 0)),
+    "occlusion_weight": ((1, 0), (0, 0)), "pixel_splat": ((0, 1), (1, 0)),
+    "pixel_value": ((0, 1), (1, 0)), "pixel_weight": ((0, 1), (1, 0)),
+    "reliable_weight": ((0, 1), (1, 0)), "grid_sample_bilinear": ((1, 0), (0, 0)),
+}
+# what falls exactly: zeros where nothing lands or the landing is out of the
+# frame, 1e-4 where occlusion_weight's landing is
+PART_OPS_MASKS = {"bilinear_warp": 0.0, "bilinear_warp_ch": 0.0, "pixel_splat": 0.0,
+                  "pixel_value": 0.0, "pixel_weight": 0.0, "reliable_weight": 0.0,
+                  "occlusion_weight": 1e-4, "grid_sample_bilinear": 0.0}
+
+
+def profile_best(torch, fn, tries=3):
+    """``profile_partitioned`` of the profiled call, of up to ``tries``, that
+    kept the most device operations (the profiler drops the records of short
+    calls late in a run, PERF.md §7; a lost record only lowers a count), or
+    None where none kept any."""
+    best = None
+    for _ in range(tries):
+        got = profile_partitioned(torch, fn)
+        if best is None or got[0] > best[0]:
+            best = got
+    return best if best[0] else None
+
+
+class WholeLevelCalls:
+    """Records each ``Partition.gather`` and ``reduce`` of the calls made
+    inside it, to time them alone by CUDA events afterwards (``calls``:
+    functions that repeat each one)."""
+
+    def __enter__(self):
+        from memcnet_tpu_torch.parallel.partition import Partition
+
+        self.orig = (Partition.gather, Partition.reduce)
+        self.calls = {"gather": [], "reduce": []}
+        gather, reduce = self.orig
+
+        def rec_gather(part, x, size=None):
+            self.calls["gather"].append(lambda: gather(part, x.detach(), size))
+            return gather(part, x, size)
+
+        def rec_reduce(part, s):
+            self.calls["reduce"].append(lambda: reduce(part, s.detach()))
+            return reduce(part, s)
+
+        Partition.gather, Partition.reduce = rec_gather, rec_reduce
+        return self
+
+    def __exit__(self, *exc):
+        from memcnet_tpu_torch.parallel.partition import Partition
+
+        Partition.gather, Partition.reduce = self.orig
+
+
+def part_ops_calls():
+    """(name, fn, input keys) of every name of ops.__all__ and the grid
+    sample and replication pad layers; the projections with the fill."""
+    from memcnet_tpu_torch import ops
+    from memcnet_tpu_torch.nn import layers as L
+
+    calls = {
+        "filter_interp_warp": (ops.filter_interp_warp, ("frame1", "flow", "filt")),
+        "filter_interp_warp_split": (
+            lambda a, c, f, k: ops.filter_interp_warp_split((a, c), f, k),
+            ("frame1", "ctx", "flow", "filt")),
+        "bilinear_warp": (ops.bilinear_warp, ("frame1", "flow")),
+        "bilinear_warp_ch": (ops.bilinear_warp_ch, ("ctx", "flow")),
+        "flow_project": (lambda f: ops.flow_project(f, fillhole=True), ("flow",)),
+        "depth_flow_project": (lambda f, d: ops.depth_flow_project(f, d, fillhole=True),
+                               ("flow", "depth")),
+        "weighted_flow_project": (
+            lambda f, a, b: ops.weighted_flow_project(f, a, b, fillhole=True),
+            ("flow", "frame1", "frame2")),
+        "separable_conv": (ops.separable_conv, ("frame1", "vert", "horiz")),
+        "separable_conv_flow": (ops.separable_conv_flow, ("vert", "horiz")),
+        "occlusion_weight": (ops.occlusion_weight, ("frame1", "frame2", "flow")),
+        "pixel_splat": (ops.pixel_splat, ("frame1", "flow", "fw")),
+        "pixel_value": (ops.pixel_value, ("frame1", "flow", "fw")),
+        "pixel_weight": (ops.pixel_weight, ("flow", "fw")),
+        "reliable_weight": (ops.reliable_weight, ("flow",)),
+        "replication_pad2d": (lambda a: L.replication_pad2d(a, PART_OPS_PAD), ("frame1",)),
+        "grid_sample_bilinear": (L.grid_sample_bilinear, ("frame1", "grid")),
+    }
+    if set(ops.__all__) - set(calls):
+        raise CheckFailed(f"phase 10 misses {set(ops.__all__) - set(calls)}")
+    return [(name, fn, keys) for name, (fn, keys) in calls.items()]
+
+
+def part_ops_inputs(torch, dev):
+    """Phase 7's full-width inputs at B = 2 (its fw made B = 2), with
+    phase 8's +-20 px flow (within the halo budget, a band landing left of
+    the frame), a +-200 px one and a grid of the derived extent
+    (H - 16, W - 32), float32 on ``dev``."""
+    x = oplib_inputs(torch, dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x["fw"] = torch.rand((PART_OPS_B, 1, H, W), generator=gen, device=dev)
+    gh, gw = H - PART_OPS_GRID_CUT[0], W - PART_OPS_GRID_CUT[1]
+    x["grid"] = torch.rand((PART_OPS_B, gh, gw, 2), generator=gen, device=dev) * 2.2 - 1.1
+    flows = {"pm20": tile_flows(torch, dev)["pm20"],
+             "pm200": torch.rand((PART_OPS_B, 2, H, W), generator=gen, device=dev) * 400.0
+             - 200.0}
+    del x["flow"]
+    return x, flows
+
+
+def part_ops_shard(mesh, key, t):
+    from memcnet_tpu_torch.parallel import shard_frames
+
+    if key == "grid":  # channels-last: tiled over its dims 1 and 2
+        return shard_frames(mesh, t.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    return shard_frames(mesh, t)
+
+
+def part_ops_run(torch, name, fn, keys, x, flow, grid, axis_h, cot_seed, profile):
+    """One op untiled and partitioned on the card: the launches, gathers
+    and reductions of the partitioned call, its outputs gathered whole and
+    the VJP of a seeded cotangent, each against the untiled op's; the
+    profiled device ms and operations and the peak memory of both."""
+    from memcnet_tpu_torch.ops import cuda as K
+    from memcnet_tpu_torch.parallel import gather_frames, shard_frames, spatial_tiling
+    from memcnet_tpu_torch.parallel import partition as PT
+
+    dev = torch.device("cuda")
+    args = [flow if k == "flow" else x[k] for k in keys]
+
+    def as_tuple(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    xs = [a.detach().clone().requires_grad_(True) for a in args]
+    want = as_tuple(fn(*xs))
+    gen = torch.Generator(device=dev).manual_seed(cot_seed)
+    cots = [torch.randn(o.shape, generator=gen, device=dev) for o in want]
+    want_grads = torch.autograd.grad(want, xs, cots)
+    want = [o.detach() for o in want]
+    mesh = tile_mesh(torch, grid)
+    ts = [a.detach().clone().requires_grad_(True) for a in args]
+    with spatial_tiling(mesh, halo=TILE_HALO, axis_h=axis_h):
+        shard_frames(mesh, torch.zeros((1, 1, H, W), device=dev))
+        tiles = [part_ops_shard(mesh, k, t) for k, t in zip(keys, ts)]
+        torch.cuda.synchronize()
+        K.reset_counters()
+        PT.gathers.reset()
+        PT.reductions.reset()
+        out = as_tuple(fn(*tiles))
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        fwd = (PT.gathers.count, PT.reductions.count)
+        got = [gather_frames(mesh, o) for o in out]
+        PT.gathers.reset()
+        PT.reductions.reset()
+        grads = torch.autograd.grad(got, ts, cots)
+        bwd = (PT.gathers.count, PT.reductions.count)
+        flat = [t.detach() for t in tiles]
+        if profile:
+            prof = profile_best(torch, lambda: fn(*flat))
+            ms = timed_ms(torch, lambda: fn(*flat), reps=5)
+            with WholeLevelCalls() as rec:
+                fn(*flat)
+            whole_ms = {k: sum(timed_ms(torch, c, reps=5) for c in v)
+                        for k, v in rec.calls.items()}
+            peak = peak_bytes(torch, lambda: fn(*flat))
+    res = dict(launches={k: v for k, v in launches.items() if v}, whole_fwd=list(fwd),
+               whole_bwd=list(bwd))
+    want_launch = dict.fromkeys(launches, 0)
+    want_launch.update(PART_OPS_LAUNCHES.get(name, {}))
+    if launches != want_launch:
+        raise CheckFailed(f"partitioned {name} {grid}: launches {launches}, expected "
+                          f"{want_launch}")
+    if (fwd, bwd) != PART_OPS_WHOLE.get(name, ((0, 0), (0, 0))):
+        raise CheckFailed(f"partitioned {name} {grid}: whole-level (gathers, reductions) "
+                          f"{fwd} forward and {bwd} backward, expected "
+                          f"{PART_OPS_WHOLE.get(name, ((0, 0), (0, 0)))}")
+    errs = []
+    for o, w in zip(got, want):
+        errs.append(float((o.detach() - w).abs().max()) / max(1.0, float(w.abs().max())))
+        if name in PART_OPS_MASKS:
+            v = PART_OPS_MASKS[name]
+            if not torch.equal(o.detach() == v, w == v):
+                raise CheckFailed(f"partitioned {name} {grid}: where the output is {v} differs "
+                                  "from the untiled op")
+        if not bool(torch.isfinite(o).all()):
+            raise CheckFailed(f"partitioned {name} {grid}: not finite")
+    gerrs = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+             for g, w in zip(grads, want_grads)]
+    res.update(rel_err=max(errs), grad_rel_err=max(gerrs))
+    if not (res["rel_err"] <= PART_OPS_TOL and res["grad_rel_err"] <= PART_OPS_TOL):
+        raise CheckFailed(f"partitioned {name} {grid}: differs from the untiled op "
+                          f"({res['rel_err']:.3e} forward, {res['grad_rel_err']:.3e} VJP, "
+                          f"of the scale)")
+    if profile:
+        plain = [a.detach() for a in args]
+        u = profile_best(torch, lambda: fn(*plain))
+        res.update(ms=ms, gathers_ms=whole_ms["gather"], reductions_ms=whole_ms["reduce"],
+                   peak_bytes=peak, untiled_ms=timed_ms(torch, lambda: fn(*plain), reps=5),
+                   untiled_peak_bytes=peak_bytes(torch, lambda: fn(*plain)),
+                   device_ops=prof and prof[0], device_ms=prof and prof[1],
+                   top_kernels=prof and prof[4], untiled_device_ops=u and u[0],
+                   untiled_device_ms=u and u[1])
+    return res
+
+
+def phase_partition_ops(torch, results):
+    """Phase 10: every op of the library and the grid sample and replication
+    pad layers, float32, B = 2, 768x1344, on (data 1, tile 4) and (1, 2, 2),
+    halo 64, on the +-20 px flow and (the ops with no halo budget) the
+    +-200 px flow, against the same op untiled on the card (see the module
+    docstring)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    x, flows = part_ops_inputs(torch, dev)
+    calls = part_ops_calls()
+    out, totals = {}, {}
+    for grid, axis_h in TILE_GRIDS:
+        for tag, flow in flows.items():
+            for i, (name, fn, keys) in enumerate(calls):
+                if tag == "pm200" and name in HALO_BUDGET_OPS:
+                    continue
+                uses_flow = "flow" in keys
+                if tag == "pm200" and not uses_flow:
+                    continue
+                r = part_ops_run(torch, name, fn, keys, x, flow if uses_flow else None, grid,
+                                 axis_h, 100 + i, profile=tag == "pm20")
+                out.setdefault(grid, {}).setdefault(tag, {})[name] = r
+                for k, v in r["launches"].items():
+                    totals[k] = totals.get(k, 0) + v
+                line = (f"  {name:<25} {grid:<7} {tag:<5}: max err {r['rel_err']:.3e}, VJP "
+                        f"{r['grad_rel_err']:.3e} of the scale; launches {r['launches']}; "
+                        f"whole-level (gathers, reductions) {tuple(r['whole_fwd'])} forward, "
+                        f"{tuple(r['whole_bwd'])} backward")
+                if "ms" in r:
+                    def dev(ms, n):
+                        return ("not measured (the profiler kept no record)" if ms is None
+                                else f"{ms:.4f} in {n} ops")
+
+                    line += (f"; {r['ms']:.4f} ms by events (median of 5), untiled "
+                             f"{r['untiled_ms']:.4f}; whole-level gathers {r['gathers_ms']:.4f} "
+                             f"and reductions {r['reductions_ms']:.4f} ms alone by events; "
+                             f"device ms {dev(r['device_ms'], r['device_ops'])}, untiled "
+                             f"{dev(r['untiled_device_ms'], r['untiled_device_ops'])}; peak "
+                             f"{r['peak_bytes'] / 2 ** 30:.3f} GiB, untiled "
+                             f"{r['untiled_peak_bytes'] / 2 ** 30:.3f}")
+                log(line)
+        torch.cuda.empty_cache()
+    log(f"  phase 10 launches: {totals}")
+    results["partition_ops"] = dict(ops=out, launches=totals)
+
+
 def part_launches(results, name):
     """Phase 9's launches of a kernel: the partitioned serving of both models
     on both grids, and the sharded step."""
     part = results["partition"]
     return sum(e[grid]["launches"][name] for e in part["serve"].values()
                for grid, _ in TILE_GRIDS) + part["step"]["launches"][name]
+
+
+def oplib_part_launches(results, name):
+    """Phase 10's launches of a kernel: every op of the library and the two
+    layers on both grids."""
+    return results["partition_ops"]["launches"].get(name, 0)
 
 
 def main():
@@ -3039,6 +3426,9 @@ def main():
         torch.cuda.empty_cache()
         log("phase 9: partitioned convolutions")
         phase_partition(torch, results)
+        torch.cuda.empty_cache()
+        log("phase 10: the op library on partitioned frames")
+        phase_partition_ops(torch, results)
     except Exception:  # every failure ends the run with no result line
         traceback.print_exc()
         with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
@@ -3065,6 +3455,7 @@ def main():
         by_path["oplib"] = results["oplib"]["launches"][name]
         by_path["serve_tiled"] = results["tiled_serve"]["launches"][name]
         by_path["serve_partitioned"] = part_launches(results, name)
+        by_path["oplib_partitioned"] = oplib_part_launches(results, name)
         if name == "grid_sample":  # K5's tile entry, on MEMC_Net_s's partitioned path
             by_path["serve_partitioned_tile_entry"] = part_launches(results, "level_input_tile")
 
@@ -3149,7 +3540,8 @@ def main():
         held = {k: max(v[d]["max_abs_err"] for d in v) for k, v in trows.items()
                 if k.startswith(name + "[")}
         by_path = {"serve_tiled": results["tiled_serve"]["launches"][name],
-                   "serve_partitioned": part_launches(results, name)}
+                   "serve_partitioned": part_launches(results, name),
+                   "oplib_partitioned": oplib_part_launches(results, name)}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "computes": computes, "launches": sum(by_path.values()),
                         "launches_by_path": by_path,
@@ -3162,7 +3554,8 @@ def main():
     # MEMC_Net_s's partitioned serving in phase 9; its row from phase 2, (1, 4)
     # at the top level
     r, o = krows["level_input_tile"]["bfloat16"], krows["level_input_tile"]["float32"]
-    by_path = {"serve_partitioned": part_launches(results, "level_input_tile")}
+    by_path = {"serve_partitioned": part_launches(results, "level_input_tile"),
+               "oplib_partitioned": oplib_part_launches(results, "level_input_tile")}
     kernels.append({"name": "level_input_tile", "route": "cuda",
                     "source": TPU_KERNELS["grid_sample"][0],
                     "replaces": TPU_KERNELS["grid_sample"][1],
@@ -3179,6 +3572,29 @@ def main():
                     "cases_held": {f"{c['grid']} {c['shape']} {d}": c["max_abs_err"]
                                    for d in ("bfloat16", "float32")
                                    for c in krows["level_input_tile"][d]["cases"]}})
+    # K2's payload entry on tile origins: the depth-weighted and gated
+    # projections on partitioned frames, launched in phase 10; its row from
+    # phase 2, (1, 4) at 768x1344, float32 flows (phase 10's type), P = 3
+    r, o = krows["base_scatter_payload_tile[P=3]"]["float32"], \
+        krows["base_scatter_payload_tile[P=3]"]["bfloat16"]
+    by_path = {"oplib_partitioned": oplib_part_launches(results, "base_scatter_payload_tile")}
+    kernels.append({"name": "base_scatter_payload_tile", "route": "cuda",
+                    "source": TPU_KERNELS["base_scatter"][0],
+                    "replaces": TPU_KERNELS["base_scatter"][1],
+                    "computes": "N7's and N8's scatters on the tiles of a partitioned frame "
+                                "(memcnet_tpu/ops/projection.py:_scatter4 under "
+                                "frame_sharding, whose scatter GSPMD reduces over the frame)",
+                    "entry": "memc_project_payload_tile",
+                    "launches": sum(by_path.values()), "launches_by_path": by_path,
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"], "dtype": "float32",
+                    "device_ops_per_call": r["device_ops"],
+                    "other_dtype_max_abs_err": o["max_abs_err"], "other_dtype_ms": o["ms"],
+                    "other_dtype_library_ms": o["library_ms"],
+                    "payload_p4": {k: krows["base_scatter_payload_tile[P=4]"]["float32"][k]
+                                   for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms", "device_ops")}})
     with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
         json.dump(results, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -19,8 +19,8 @@ reader, built with g++ at first use; ``io.t7_import``; ``utils.flowviz``);
 and the parallel layer (``parallel``: ``Mesh``, ``make_mesh``,
 ``make_mesh_2d``, ``zero1_partition``, ``spatial_tiling``, ``data_parallel``,
 the tiled warp and projection on tile entries of K1-K3, ``shard_frames``
-and ``gather_frames`` -- every layer of MEMC_Net_star and MEMC_Net on the
-tiles of sharded frames (``parallel.partition``) --, ``ZeroAdamax``,
+and ``gather_frames`` -- every layer of the four models and every op of the
+library on the tiles of sharded frames (``parallel.partition``) --, ``ZeroAdamax``,
 ``DataParallelStep``, ``sharded_train_step``, and the HD720p demo's
 ``--multihost``).
 Entry points and train steps default to ``device="cuda"`` and raise without

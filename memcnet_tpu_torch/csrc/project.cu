@@ -67,6 +67,17 @@
 //       project_raw_fold_kernel (both +1 folds at the extended buffer's own
 //       edges, no divide).  The spill exchange between tiles, the crop and
 //       the divide follow in PyTorch.
+//   K2  memc_project_payload_tile: the payload entry on tile origins, for the
+//       depth-weighted and gated projections on partitioned frames (whose
+//       JAX ops GSPMD runs on frame_sharding-placed arrays): a memset,
+//       project_payload_tile_scatter_kernel (each owned pixel of a tile lands
+//       at the frame's cell, tile origin + local position in float32, and its
+//       P planes are atomicAdded into its sample's whole-frame buffer, every
+//       stacked tile of a sample into the same one) and project_raw_fold_kernel
+//       over the P planes (the +1 folds at the frame's own border, so a
+//       clamped right or bottom neighbour takes its contribution twice, as in
+//       the untiled op).  No divide: parallel/partition.py's reduce gives each
+//       tile its owned part of the sums first.
 //   K3  memc_project_fill_carry: a memset, project_mask_kernel (the has-value
 //       masks of a cropped tile from its count) and project_fill_kernel with
 //       carries: where a tile's own bit search finds nothing, the nearest
@@ -372,6 +383,41 @@ project_tile_scatter_kernel(const T* __restrict__ flow, const int* __restrict__ 
   atomicAdd(s + 2 * HWe, 1.f);
 }
 
+// K2's payload entry on tile origins: one thread per source pixel of B
+// stacked tiles of H x W, each at its origin (y0, x0) in an Hg x Wg frame
+// and owning its first (own_h, own_w) positions (origins: B x 4 int32, y0,
+// x0, own_h, own_w); a pixel past them is a stacked tile's padding and adds
+// nothing.  An owned pixel's P planes land at the frame's cell in the
+// whole-frame buffer of its sample, b % S (the tile index is outermost).
+template <typename T, int P>
+__global__ void __launch_bounds__(256)
+project_payload_tile_scatter_kernel(const T* __restrict__ flow, const float* __restrict__ payload,
+                                    const int* __restrict__ origins, float* __restrict__ sums,
+                                    int H, int W, int S, int Hg, int Wg, int64_t total) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int64_t HW = static_cast<int64_t>(H) * W;
+  const int64_t b = idx / HW;
+  const int64_t p = idx - b * HW;
+  const int y = static_cast<int>(p / W);
+  const int x = static_cast<int>(p - static_cast<int64_t>(y) * W);
+  const int* o = origins + 4 * b;
+  if (y >= o[2] || x >= o[3]) return;
+  const T* f = flow + 2 * b * HW + p;
+  const float x2 = static_cast<float>(o[1] + x) + to_f32(f[0]);
+  const float y2 = static_cast<float>(o[0] + y) + to_f32(f[HW]);
+  if (!(x2 >= 0.f && y2 >= 0.f && x2 <= static_cast<float>(Wg - 1) &&
+        y2 <= static_cast<float>(Hg - 1)))
+    return;
+  const int ix = clampi(__float2int_rz(x2), 0, Wg - 1);
+  const int iy = clampi(__float2int_rz(y2), 0, Hg - 1);
+  const int64_t HWg = static_cast<int64_t>(Hg) * Wg;
+  const float* v = payload + P * b * HW + p;
+  float* s = sums + P * (b % S) * HWg + static_cast<int64_t>(iy) * Wg + ix;
+#pragma unroll
+  for (int c = 0; c < P; ++c) atomicAdd(s + c * HWg, v[c * HW]);
+}
+
 // Both +1 folds of the three planes of S at the buffer's own edges, in the
 // plain version's order, no divide: one thread per target pixel.
 __global__ void __launch_bounds__(256)
@@ -441,6 +487,36 @@ cudaError_t launch_tile_sums(const T* flow, const int* origins, float* sums, flo
   project_raw_fold_kernel<<<ceil_div(planes, 256), 256, 0, st>>>(sums, out, static_cast<int>(He),
                                                                   static_cast<int>(We), planes);
   return cudaGetLastError();
+}
+
+template <typename T, int P>
+cudaError_t launch_payload_tile(const T* flow, const float* payload, const int* origins,
+                                float* sums, float* out, int B, int H, int W, int S, int Hg,
+                                int Wg, cudaStream_t st) {
+  const int64_t planes = static_cast<int64_t>(S) * P * Hg * Wg;
+  cudaError_t err = cudaMemsetAsync(sums, 0, sizeof(float) * planes, st);
+  if (err != cudaSuccess) return err;
+  const int64_t total = static_cast<int64_t>(B) * H * W;
+  project_payload_tile_scatter_kernel<T, P><<<ceil_div(total, 256), 256, 0, st>>>(
+      flow, payload, origins, sums, H, W, S, Hg, Wg, total);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  project_raw_fold_kernel<<<ceil_div(planes, 256), 256, 0, st>>>(sums, out, Hg, Wg, planes);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_payload_tile_p(const void* flow, const void* payload, const void* origins,
+                                  void* sums, void* out, int B, int P, int H, int W, int S,
+                                  int Hg, int Wg, cudaStream_t st) {
+  auto* f = static_cast<const T*>(flow);
+  auto* v = static_cast<const float*>(payload);
+  auto* o = static_cast<const int*>(origins);
+  auto* s = static_cast<float*>(sums);
+  auto* r = static_cast<float*>(out);
+  if (P == 3) return launch_payload_tile<T, 3>(f, v, o, s, r, B, H, W, S, Hg, Wg, st);
+  if (P == 4) return launch_payload_tile<T, 4>(f, v, o, s, r, B, H, W, S, Hg, Wg, st);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -647,6 +723,31 @@ MEMC_API int memc_project_tile_sums(const void* flow, const void* origins, void*
   if (dtype == memc::kBFloat16) {
     return memc::launch_tile_sums(static_cast<const __nv_bfloat16*>(flow), o, s, r, B, H, W, halo,
                                   halo_h, Hg, Wg, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// K2's payload entry on tile origins.  flow: (B, 2, H, W) tiles in dtype;
+// payload: (B, P, H, W) float32, P = 3 or 4; origins: (B, 4) int32 on the
+// device (y0, x0, own_h, own_w of each tile in the Hg x Wg frame); sums: (S,
+// P, Hg, Wg) float32 scratch; out: the same shape, float32: each sample's
+// whole-frame sums of its tiles' payloads with both +1 folds at the frame's
+// border, no divide.  B must be a multiple of S; tile b is of sample b % S.
+MEMC_API int memc_project_payload_tile(const void* flow, const void* payload,
+                                       const void* origins, void* sums, void* out, int B, int P,
+                                       int H, int W, int S, int Hg, int Wg, int dtype,
+                                       void* stream) {
+  if (B == 0 || H == 0 || W == 0) return cudaSuccess;
+  if (S < 1 || B % S != 0 || Hg < 1 || Wg < 1 || origins == nullptr)
+    return cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == memc::kFloat32) {
+    return memc::launch_payload_tile_p<float>(flow, payload, origins, sums, out, B, P, H, W, S,
+                                              Hg, Wg, st);
+  }
+  if (dtype == memc::kBFloat16) {
+    return memc::launch_payload_tile_p<__nv_bfloat16>(flow, payload, origins, sums, out, B, P,
+                                                      H, W, S, Hg, Wg, st);
   }
   return cudaErrorInvalidValue;
 }

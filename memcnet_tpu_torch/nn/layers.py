@@ -22,8 +22,12 @@ The convs, the deconv and the max- and average pools gather their halos
 upsample lerps on the frame's global coordinates; train-mode BatchNorm
 takes its statistics over the pixels the tiles own, over every rank of the
 mesh.  The elementwise layers and eval-mode BatchNorm need nothing.
-``replication_pad2d`` and ``grid_sample_bilinear`` have no partitioned form
-and raise: no model calls them on tiles, since SPyNet's level input
+``replication_pad2d`` takes an edge-replicating halo onto the padded
+extent, a derived extent of the frame (``Partition.clamped_take``), and
+``grid_sample_bilinear`` samples x's level whole (``Partition.gather``) at
+the grid's tiles, normalised to the whole frame, in one launch of K5's
+general entry, as the JAX layers (layers.py:302, :312) run on sharded
+arrays; no model calls them on tiles, since SPyNet's level input
 (ops/cuda/gather_kernel.py::level_input_tile) does their work there.
 """
 
@@ -42,10 +46,6 @@ def _context():
 
 def active_partition():
     return _context().active_partition()
-
-
-def refuse_partition(what):
-    _context().refuse_partition(what)
 
 
 def _pair(v):
@@ -124,9 +124,18 @@ def avg_pool2d(x, k=2, s=None):
 
 
 def replication_pad2d(x, pad):
-    """pad = (left, right, top, bottom), PyTorch ReplicationPad2d order."""
-    refuse_partition("replication_pad2d")
-    return F.pad(x, tuple(pad), mode="replicate")
+    """pad = (left, right, top, bottom), PyTorch ReplicationPad2d order.  On
+    partitioned frames the padded extent is a derived extent of the frame,
+    whose tile i reads x at clamp(j - left) (clamp(j - top)) for the
+    positions j it owns."""
+    part = active_partition()
+    if part is None:
+        return F.pad(x, tuple(pad), mode="replicate")
+    left, right, top, bottom = pad
+    gh, gw = part.extent(x)
+    size = part.add_extent(gh + top + bottom, gw + left + right)
+    y = part.clamped_take(x, (gh, gw), size, shift=(top, left))
+    return y if part.h else F.pad(y, (0, 0, top, bottom), mode="replicate")
 
 
 def grid_sample_bilinear(x, grid):
@@ -134,9 +143,22 @@ def grid_sample_bilinear(x, grid):
     align_corners=True (layers.py:312-360): each out-of-range tap adds zero.
     x (B, C, H, W); grid (B, Ho, Wo, 2) normalised to [-1, 1], [..., 0] = x.
     Coordinates and tap weights are float32 whatever x's type; the result has
-    x's type.  Kernel K5 on CUDA tensors, its plain version on CPU tensors."""
-    refuse_partition("grid_sample_bilinear")
-    return gather_kernel.grid_sample(x, grid)
+    x's type.  Kernel K5 on CUDA tensors, its plain version on CPU tensors.
+    On partitioned frames the grid (n, ho, wo, 2) is tiled over its dims 1
+    and 2 (a level or derived extent of the frame, normalised to the whole
+    x): x's level comes whole (``Partition.gather``) and the tiles of a
+    sample are sampled side by side along Ho in one call."""
+    part = active_partition()
+    if part is None:
+        return gather_kernel.grid_sample(x, grid)
+    part.extent(grid, dims=(1, 2))  # a tile of the frame, or raise
+    src = part.gather(x)
+    n, ho, wo, _ = grid.shape
+    S = src.shape[0]
+    T = n // S
+    g = grid.reshape(T, S, ho, wo, 2).transpose(0, 1).reshape(S, T * ho, wo, 2)
+    out = gather_kernel.grid_sample(src, g)
+    return out.view(S, -1, T, ho, wo).permute(2, 0, 1, 3, 4).reshape(n, -1, ho, wo)
 
 
 def relu(x):

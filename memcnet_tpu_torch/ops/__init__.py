@@ -21,7 +21,10 @@ package maps it:
                                     versions beside each kernel
 N1, N2, N7 and N8 run hand-written CUDA kernels on CUDA tensors (ops/cuda);
 the others are stock PyTorch on any device, as they are XLA in the JAX
-package.
+package.  Every op also runs on the tiles of sharded frames
+(parallel/partition.py): N1 and N2 on their tile-local steps, the others on
+the frame's global coordinates (ops/frame.py), N7 and N8 on K2's payload
+entry on tile origins.
 """
 
 from memcnet_tpu_torch.ops.mc import (

@@ -19,7 +19,9 @@ and the tile entries of the tiled warp and projection (parallel/tiling.py):
 K1's (``warp_kernel.warp_tile``), K2's (``project_kernel.tile_sums``) and
 K3's carry entry (``project_kernel.carry_fill``), and of SPyNet's level input
 on partitioned frames (parallel/partition.py): K5's
-(``gather_kernel.level_input_tile``), each with its own counter.
+(``gather_kernel.level_input_tile``), and of the depth-weighted and gated
+projections on partitioned frames: K2's payload entry on tile origins
+(``project_kernel.payload_tile_sums``), each with its own counter.
 """
 
 from memcnet_tpu_torch.ops.cuda import (
@@ -32,7 +34,7 @@ from memcnet_tpu_torch.ops.cuda import (
 COUNTERS = (warp_kernel.counter, project_kernel.scatter_counter, project_kernel.fill_counter,
             conv_kernel.counter, gather_kernel.counter, warp_kernel.tile_counter,
             project_kernel.tile_scatter_counter, project_kernel.carry_counter,
-            gather_kernel.tile_counter)
+            gather_kernel.tile_counter, project_kernel.payload_tile_counter)
 
 
 def reset_counters():

@@ -144,6 +144,8 @@ def _declare(lib):
     lib.memc_project_fill.restype = i
     lib.memc_project_tile_sums.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
     lib.memc_project_tile_sums.restype = i
+    lib.memc_project_payload_tile.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
+    lib.memc_project_payload_tile.restype = i
     lib.memc_project_fill_carry.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
     lib.memc_project_fill_carry.restype = i
     lib.memc_conv2d_small.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]

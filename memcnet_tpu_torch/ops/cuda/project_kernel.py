@@ -56,6 +56,17 @@ with no divide: the spill exchange comes first.  K3's (``carry_fill``;
 ``project_fill_kernel`` with carries, counted by ``carry_counter``) fills a
 cropped tile, taking the carry from the other tiles wherever the tile's own
 search finds nothing: the nearest tile wins.
+
+K2's payload entry on tile origins (``payload_tile_sums``;
+``memc_project_payload_tile``: a memset, ``project_payload_tile_scatter_kernel``
+and ``project_raw_fold_kernel`` of P planes, counted by
+``payload_tile_counter``) serves the depth-weighted and gated projections on
+partitioned frames (``ops/projection.py``), which the JAX package runs on
+``frame_sharding``-placed arrays: each owned pixel of a tile scatters its P
+planes at the frame's landing cell -- tile origin + local position, in
+float32 -- into its sample's whole-frame buffer, with no flow clamp and no
+halo; then both +1 folds at the frame's border.  The divide follows
+``parallel/partition.py``'s reduce, which gives each tile its part.
 """
 
 import functools
@@ -70,6 +81,7 @@ scatter_counter = _lib.LaunchCounter("base_scatter")  # K2
 fill_counter = _lib.LaunchCounter("fill_holes")       # K3
 tile_scatter_counter = _lib.LaunchCounter("base_scatter_tile")  # K2's tile entry
 carry_counter = _lib.LaunchCounter("fill_holes_carry")         # K3's carry entry
+payload_tile_counter = _lib.LaunchCounter("base_scatter_payload_tile")  # K2's, on tile origins
 
 # int32 words; bit k of word j = pixel 32 j + k of the line, bit k of a
 # summary word j = mask word 32 j + k is not empty; bits past a line are 0.
@@ -621,3 +633,87 @@ def carry_fill(avg, cnt, left, right, up, dtype):
     if _lib.on_cuda(*ts):
         return _CarryFillFunction.apply(avg, cnt, left, right, up, dtype)
     return carry_fill_reference(avg, cnt, left, right, up, dtype)
+
+
+def payload_tile_sums_reference(flow, payload, origins, samples, H, W):
+    """Plain version of K2's payload entry on tile origins: flow (n, 2, h, w)
+    and float32 payload (n, P, h, w) tiles; origins (n, 4) int32, each
+    tile's global (y0, x0) and owned (h, w) in the H x W frame.  Each owned
+    pixel whose landing (y0 + y, x0 + x) + f, in float32, is in the frame
+    adds its P planes at the frame's base cell of the whole-frame buffer of
+    its sample (tile j is of sample j % ``samples``); then both +1 folds at
+    the frame's border.  Returns (samples, P, H, W) float32."""
+    n, P, h, w = payload.shape
+    f = flow.float()
+    o = origins.long()
+    y0, x0, own_h, own_w = (o[:, k].view(n, 1, 1) for k in range(4))
+    ly = torch.arange(h, device=f.device).view(1, h, 1)
+    lx = torch.arange(w, device=f.device).view(1, 1, w)
+    x2 = (x0 + lx).float() + f[:, 0]
+    y2 = (y0 + ly).float() + f[:, 1]
+    valid = ((x2 >= 0.0) & (y2 >= 0.0) & (x2 <= W - 1.0) & (y2 <= H - 1.0)
+             & (ly < own_h) & (lx < own_w))
+    ix = x2.to(torch.int32).clamp(0, W - 1)
+    iy = y2.to(torch.int32).clamp(0, H - 1)
+    lin = torch.where(valid, iy * W + ix, torch.full_like(ix, -1))
+    T = n // samples
+
+    def by_sample(t):  # (n, ..., h, w) -> (samples, ..., T h, w): a sample's tiles stacked
+        t = t.reshape(T, samples, *t.shape[1:]).movedim(0, -3)
+        return t.reshape(*t.shape[:-3], T * h, w)
+
+    return fold(scatter_reference(by_sample(payload.float()), by_sample(lin), (H, W)))
+
+
+def launch_payload_tile(flow, payload, origins, samples, H, W):
+    """K2's payload entry on tile origins on CUDA tensors: the memset, the
+    scatter and the folds.  Returns (samples, P, H, W) float32."""
+    what = "project_payload_tile"
+    code = _lib.dtype_code(flow.dtype)
+    n, two, h, w = flow.shape
+    P = payload.shape[1]
+    org = origins.to(torch.int32).contiguous()
+    if two != 2 or P not in (3, 4) or tuple(payload.shape) != (n, P, h, w) \
+            or payload.dtype != torch.float32 or tuple(org.shape) != (n, 4) \
+            or samples < 1 or n % samples:
+        raise ValueError(f"{what}: takes flow (n, 2, h, w), a float32 payload (n, 3 or 4, h, w), "
+                         f"origins (n, 4) and n a multiple of the samples, got "
+                         f"{tuple(flow.shape)}, {payload.dtype} {tuple(payload.shape)}, "
+                         f"{tuple(origins.shape)} and {samples}")
+    flow, payload = flow.contiguous(), payload.contiguous()
+    _lib.check_cuda_args(what, flow, payload, org)
+    sums = torch.empty((samples, P, H, W), dtype=torch.float32, device=flow.device)
+    out = torch.empty_like(sums)
+    err = _lib.lib().memc_project_payload_tile(
+        flow.data_ptr(), payload.data_ptr(), org.data_ptr(), sums.data_ptr(), out.data_ptr(), n,
+        P, h, w, samples, H, W, code, _lib.stream_ptr(flow))
+    _lib.check(err, what)
+    payload_tile_counter.count += 1
+    return out
+
+
+class _PayloadTileFunction(torch.autograd.Function):
+    """K2's payload entry on tile origins; backward is autograd of
+    ``payload_tile_sums_reference``."""
+
+    @staticmethod
+    def forward(ctx, flow, payload, origins, geom):
+        ctx.geom = geom
+        ctx.save_for_backward(flow, payload, origins)
+        return launch_payload_tile(flow, payload, origins, *geom)
+
+    @staticmethod
+    def backward(ctx, g):
+        flow, payload, origins = ctx.saved_tensors
+        grads = _lib.reference_grads(
+            lambda f, p: payload_tile_sums_reference(f, p, origins, *ctx.geom), [flow, payload],
+            ctx.needs_input_grad[:2], [g])
+        return (*grads, None, None)
+
+
+def payload_tile_sums(flow, payload, origins, samples, H, W):
+    """K2's payload entry on tile origins on CUDA tensors, its plain version
+    on CPU tensors."""
+    if _lib.on_cuda(flow, payload, origins):
+        return _PayloadTileFunction.apply(flow, payload, origins, (samples, H, W))
+    return payload_tile_sums_reference(flow, payload, origins, samples, H, W)

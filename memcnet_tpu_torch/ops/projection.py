@@ -31,13 +31,21 @@ dispatches to the tiled projection (``parallel/tiling.py``), whose tile-local
 steps are K2's tile entry and K3's carry entry on CUDA tensors (on frames
 sharded under the context, ``parallel.partition``, those steps alone); with
 ``fix_down_scan_bug`` it raises there, as the JAX package does.  The depth
-and gated projections are not tiled, in the JAX package either, and raise
-on sharded frames.
+and gated projections take no halo budget: on whole frames under the context
+they run whole, and on sharded frames they run as the JAX ops do on
+``frame_sharding``-placed arrays, where GSPMD reduces their scatters over
+the whole frame.  Each tile scatters its payload at the frame's landing
+cells into a whole-frame buffer per sample (K2's payload entry on tile
+origins, ``project_kernel.payload_tile_sums``), ``Partition.reduce`` gives
+each tile its part, the tile divides, and the fill is the tiled
+projection's (K3's carry entry); the gate's frame2 and the depth
+projection's hand backward read their planes whole (``Partition.gather``).
 """
 
 import torch
 
 from memcnet_tpu_torch.ops.cuda import _lib, project_kernel
+from memcnet_tpu_torch.ops.frame import WholeFrame, frame_of
 
 
 def project(flow, *, fillhole=False, fix_down_scan_bug=False):
@@ -81,32 +89,46 @@ def depth_payload(flow, depth):
     return torch.cat([-f * d, d], dim=1)
 
 
-def _neighbour_cells(flow32):
+def _landing(flow32, fr):
+    """Validity and integer base cell (iyT, ixL) of every source pixel on
+    the frame's global coordinates (``project_kernel.landing_cells`` on a
+    whole frame)."""
+    n, _, h, w = flow32.shape
+    H, W = fr.size
+    ys, xs = fr.coords(n, h, w, flow32.device)
+    x2 = xs + flow32[:, 0]
+    y2 = ys + flow32[:, 1]
+    valid = (x2 >= 0.0) & (y2 >= 0.0) & (x2 <= W - 1.0) & (y2 <= H - 1.0)
+    return valid, x2.to(torch.int32).clamp(0, W - 1), y2.to(torch.int32).clamp(0, H - 1)
+
+
+def _neighbour_cells(flow32, fr):
     """Validity and the four landing neighbours (iy, ix) of each source
-    pixel, right and bottom clamped to the border."""
-    H, W = flow32.shape[2:]
-    valid, ixL, iyT = project_kernel.landing_cells(flow32)
+    pixel, right and bottom clamped to the frame's border."""
+    H, W = fr.size
+    valid, ixL, iyT = _landing(flow32, fr)
     ixR, iyB = (ixL + 1).clamp(max=W - 1), (iyT + 1).clamp(max=H - 1)
     return valid, ((iyT, ixL), (iyT, ixR), (iyB, ixL), (iyB, ixR))
 
 
-def depth_project_backward(flow, depth, avg, cnt, g):
+def depth_project_backward(flow, depth, avg, cnt, g, fr=None):
     """The reference's hand backward of the depth projection (my_lib.c:
     1751-1877; memcnet_tpu/ops/projection.py::_depth_project_bwd), which is
     not the true gradient: the depth term uses f(p) - avg[n] where autograd
     would give f(p) + avg[n].  A count of 0 divides by 1, as in the JAX
     package.  avg, cnt: the unfilled float32 average and depth sum; g: the
-    average's cotangent.  Returns (flow grad, depth grad) in their types."""
+    average's cotangent; on the rows of ``fr`` (whole frames by default),
+    whose g / cnt and avg are read whole at the landing cells.  Returns
+    (flow grad, depth grad) in their types."""
+    fr = fr or WholeFrame(flow)
     f, d = flow.float(), depth.float()
-    B, _, H, W = f.shape
-    valid, cells = _neighbour_cells(f)
+    valid, cells = _neighbour_cells(f, fr)
     gdivc = g.float() / torch.where(cnt > 0.0, cnt, 1.0)[:, None]
-    planes = torch.cat([gdivc, avg.float()], dim=1).reshape(B, 4, H * W)
+    planes = fr.whole(torch.cat([gdivc, avg.float()], dim=1))
     gflow = torch.zeros_like(f)
     gdepth = torch.zeros_like(d[:, 0])
     for iy, ix in cells:
-        lin = (iy * W + ix).reshape(B, 1, H * W).long().expand(B, 4, H * W)
-        got = planes.gather(2, lin).view(B, 4, H, W)
+        got = fr.take(planes, iy, ix)
         gc, av = got[:, :2], got[:, 2:]
         gflow = gflow - gc * d
         gdepth = gdepth - torch.sum(gc * (f - av), dim=1)
@@ -137,6 +159,41 @@ def depth_reference(flow, depth, *, fillhole=False):
     if fillhole:
         avg = project_kernel.fill_reference(avg, cnt)
     return avg.to(flow.dtype)
+
+
+class _DepthTilesCore(torch.autograd.Function):
+    """The tiles' float32 (average, depth sum): K2's payload entry on tile
+    origins (its plain version on CPU tensors), ``Partition.reduce`` and the
+    divide; backward the reference's hand rule on the tiles."""
+
+    @staticmethod
+    def forward(ctx, flow, depth, fr):
+        n = flow.shape[0]
+        sums = project_kernel.payload_tile_sums(
+            flow.contiguous(), depth_payload(flow, depth), fr.origins(n, flow.device),
+            fr.samples_of(n), *fr.size)
+        t = fr.rows(sums)
+        cnt = t[:, 2]
+        avg = t[:, :2] / torch.where(cnt > 0.0, cnt, 1.0)[:, None]
+        ctx.save_for_backward(flow, depth, avg, cnt)
+        ctx.fr = fr
+        ctx.mark_non_differentiable(cnt)
+        return avg, cnt
+
+    @staticmethod
+    def backward(ctx, g, _g_cnt):
+        return (*depth_project_backward(*ctx.saved_tensors, g, ctx.fr), None)
+
+
+def _fill_tiles(avg, cnt, dtype, fr):
+    """The tiled projection's hole fill (parallel/tiling.py: K3's carry
+    entry, each search continued into the other tiles; down dead)."""
+    from memcnet_tpu_torch.parallel.context import active_tiling
+    from memcnet_tpu_torch.parallel.tiling import _tiled_fill
+
+    t = active_tiling()
+    return _tiled_fill(avg.contiguous(), cnt, fr.part.ring(avg.shape[0]), t.axis, t.axis_h,
+                       dtype)
 
 
 class _DepthProjectFunction(torch.autograd.Function):
@@ -171,9 +228,10 @@ def depth_flow_project(flow, depth, *, fillhole=False):
     Returns:
       projected flow (B, 2, H, W) in the flow's type.
     """
-    from memcnet_tpu_torch.parallel.context import refuse_partition
-
-    refuse_partition("depth_flow_project")
+    fr = frame_of(flow)
+    if not isinstance(fr, WholeFrame):
+        avg, cnt = _DepthTilesCore.apply(flow, depth, fr)
+        return (_fill_tiles(avg, cnt, flow.dtype, fr) if fillhole else avg).to(flow.dtype)
     if not _lib.on_cuda(flow, depth):
         return depth_reference(flow, depth, fillhole=fillhole)
     return _DepthProjectFunction.apply(flow.contiguous(), depth.contiguous(), fillhole)
@@ -182,20 +240,21 @@ def depth_flow_project(flow, depth, *, fillhole=False):
 # -- N8: the brightness-gated projection -------------------------------------------
 
 
-def brightness_error(flow, frame1, frame2):
+def brightness_error(flow, frame1, frame2, fr=None):
     """err (B, H, W) float32: mean over the 3 channels of |frame1(p) -
     frame2(nn)| + 1e-8, nn the pixel of p + 2f clamped to the frame and
     truncated (my_lib.c:1959-1971), summed as d0/3 + d1/3 + d2/3 + 1e-8 in
-    that order; the coordinates in float32 whatever the flow's type."""
+    that order; the coordinates in float32 whatever the flow's type.  On
+    the rows of ``fr`` (whole frames by default): frame2 whole, frame1 and
+    err on the rows."""
+    fr = fr or WholeFrame(flow)
     f = flow.float()
-    B, _, H, W = f.shape
-    C = frame2.shape[1]
-    xs = torch.arange(W, dtype=torch.float32, device=f.device).view(1, 1, W)
-    ys = torch.arange(H, dtype=torch.float32, device=f.device).view(1, H, 1)
+    n, _, h, w = f.shape
+    H, W = fr.size
+    ys, xs = fr.coords(n, h, w, f.device)
     x3 = (xs + 2.0 * f[:, 0]).clamp(0.0, W - 1.0).to(torch.int32)
     y3 = (ys + 2.0 * f[:, 1]).clamp(0.0, H - 1.0).to(torch.int32)
-    lin = (y3 * W + x3).reshape(B, 1, H * W).long().expand(B, C, H * W)
-    samp = frame2.float().reshape(B, C, H * W).gather(2, lin).view(B, C, H, W)
+    samp = fr.take(fr.whole(frame2).float(), y3, x3)
     diff = (frame1.float() - samp).abs()
     # a tensor divisor: PyTorch's CUDA division by a Python number multiplies
     # by its reciprocal, which is not x / 3 in the last bit, and the gate
@@ -204,13 +263,14 @@ def brightness_error(flow, frame1, frame2):
     return diff[:, 0] / three + diff[:, 1] / three + diff[:, 2] / three + 1e-8
 
 
-def weighted_payload(flow, frame1, frame2, threshold):
+def weighted_payload(flow, frame1, frame2, threshold, fr=None):
     """(-fx, -fy, err, 1) in float32 (B, 4, H, W), zero where the gate
     ``valid landing & err <= threshold`` (threshold compared in float32)
-    fails."""
+    fails; on the rows of ``fr``, whole frames by default."""
+    fr = fr or WholeFrame(flow)
     f = flow.float()
-    err = brightness_error(f, frame1, frame2)
-    valid, _, _ = project_kernel.landing_cells(f)
+    err = brightness_error(f, frame1, frame2, fr)
+    valid, _, _ = _landing(f, fr)
     gate = valid & (err <= threshold)
     payload = torch.cat([-f, err[:, None], torch.ones_like(err[:, None])], dim=1)
     return torch.where(gate[:, None], payload, 0.0)
@@ -223,6 +283,22 @@ def weighted_reference(flow, frame1, frame2, *, threshold=20.0 / 255.0, fillhole
     out = avg[:, :2]
     if fillhole:
         out = project_kernel.fill_reference(out, cnt)
+    return out.to(flow.dtype), avg[:, 2:].to(flow.dtype)
+
+
+def weighted_tiles(flow, frame1, frame2, threshold, fillhole, fr):
+    """The gated projection on the tiles of ``fr``: the gate against
+    frame2's whole level, K2's payload entry on tile origins (its plain
+    version on CPU tensors), ``Partition.reduce``, the divide and the tiled
+    fill; autograd of each step backward."""
+    n = flow.shape[0]
+    payload = weighted_payload(flow, frame1, frame2, threshold, fr)
+    sums = project_kernel.payload_tile_sums(flow.contiguous(), payload, fr.origins(n, flow.device),
+                                            fr.samples_of(n), *fr.size)
+    t = fr.rows(sums)
+    den = t[:, 3]
+    avg = t[:, :3] / torch.where(den > 0.0, den, 1.0)[:, None]
+    out = _fill_tiles(avg[:, :2], den, flow.dtype, fr) if fillhole else avg[:, :2]
     return out.to(flow.dtype), avg[:, 2:].to(flow.dtype)
 
 
@@ -259,9 +335,9 @@ def weighted_flow_project(flow, frame1, frame2, *, threshold=20.0 / 255.0, fillh
       (projected flow (B, 2, H, W), weight plane (B, 1, H, W)), both in the
       flow's type.
     """
-    from memcnet_tpu_torch.parallel.context import refuse_partition
-
-    refuse_partition("weighted_flow_project")
+    fr = frame_of(flow)
+    if not isinstance(fr, WholeFrame):
+        return weighted_tiles(flow, frame1, frame2, float(threshold), fillhole, fr)
     if not _lib.on_cuda(flow, frame1, frame2):
         return weighted_reference(flow, frame1, frame2, threshold=threshold, fillhole=fillhole)
     return _WeightedProjectFunction.apply(flow.contiguous(), frame1.contiguous(),

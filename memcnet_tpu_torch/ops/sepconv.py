@@ -10,6 +10,13 @@ reference's hand backward, my_lib_kernel.cu:339-390), on any device.
   * separable_conv_flow (:19-84): the centroid of each 1-D kernel minus
     (fs - 1) / 2, channel 0 from horiz (x), channel 1 from vert (y);
     FLOW_SENTINEL where the weights sum to exactly 0.
+
+On sharded frames (``parallel/partition.py``) the valid output (H - fs + 1,
+W - fs + 1) is a derived extent of the frame, tiled by the ownership rule:
+vert, horiz and the output are its tiles, and the image tile takes the fs -
+1 positions right and below that its owned outputs read (taps x .. x + fs -
+1; ``Partition.clamped_take``).  separable_conv_flow is per pixel and runs
+on any tiles as it is.
 """
 
 import torch
@@ -21,11 +28,15 @@ FLOW_SENTINEL = -2000.0  # my_lib_kernel.cu:67, "no kernel mass"
 def separable_conv(image, vert, horiz):
     """image (B, C, H, W), vert and horiz (B, fs, H-fs+1, W-fs+1) ->
     (B, C, H-fs+1, W-fs+1), in the JAX package's order of sums."""
-    from memcnet_tpu_torch.parallel.context import refuse_partition
+    from memcnet_tpu_torch.parallel.context import active_partition
 
-    refuse_partition("separable_conv")
-    B, C, H, W = image.shape
     fs = vert.shape[1]
+    part = active_partition()
+    if part is not None:  # the image tiles extended right and down by fs - 1
+        gh, gw = part.extent(image)
+        valid = part.add_extent(gh - fs + 1, gw - fs + 1)
+        image = part.clamped_take(image, (gh, gw), valid, hi=(fs - 1, fs - 1))
+    B, C, H, W = image.shape
     oH, oW = H - fs + 1, W - fs + 1
     if horiz.shape[1] != fs or tuple(vert.shape[2:]) != (oH, oW) \
             or tuple(horiz.shape[2:]) != (oH, oW):

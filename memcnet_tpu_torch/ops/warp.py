@@ -12,8 +12,8 @@ On CUDA tensors the forward is the hand-written kernel K1
 (ops/cuda/warp_kernel.py); on CPU tensors it is the plain PyTorch version
 beside it.  Gradients are autograd of the plain version in both cases.
 Landing coordinates are computed in float32 even for bf16 activations.
-Under an active ``parallel.spatial_tiling`` context both warps dispatch to
-the tiled warp (``parallel/tiling.py``: halo exchange, flow clamped to the
+Under an active ``parallel.spatial_tiling`` context both filter warps
+dispatch to the tiled warp (``parallel/tiling.py``: halo exchange, flow clamped to the
 halo budget), whose tile-local step is K1's tile entry on CUDA tensors; the
 split warp keeps its sources apart there too.  On frames sharded under the
 context (``parallel.partition``) the inputs are tiles, and the warps run
@@ -24,12 +24,17 @@ channel count; my_lib_kernel.cu:507-686) is the classic backward warp, valid
 iff 0 <= x2 < W and 0 <= y2 < H (strict, unlike the filter warp's <= W-1),
 the right and bottom taps clamped to the border, zero outside.  It is XLA in
 the JAX package and stock PyTorch here (four gathers; autograd backward), on
-any device.
+any device.  On sharded frames it runs as the JAX op does on
+``frame_sharding``-placed arrays: the image's level comes whole through
+``Partition.gather`` (``ops/frame.py``), the flow and the result stay on
+the tiles, and validity and the border clamps are the frame's, so a flow
+that lands anywhere in the frame gives the untiled answer.
 """
 
 import torch
 
 from memcnet_tpu_torch.ops.cuda import warp_kernel
+from memcnet_tpu_torch.ops.frame import frame_of
 
 
 def filter_interp_warp_split(images, flow, filt, *, filter_size=4):
@@ -65,24 +70,18 @@ def filter_interp_warp(image, flow, filt, *, filter_size=4):
     return filter_interp_warp_split((image,), flow, filt, filter_size=filter_size)[0]
 
 
-def gather_hw(image, iy, ix):
-    """image (B, C, H, W) at per-pixel cells iy, ix (B, H, W), in bounds."""
-    B, C, H, W = image.shape
-    lin = (iy * W + ix).reshape(B, 1, H * W).long().expand(B, C, H * W)
-    return image.reshape(B, C, H * W).gather(2, lin).view(B, C, H, W)
-
-
 def bilinear_warp(image, flow):
     """Bilinear backward warp of image (B, C, H, W) along flow (B, 2, H, W);
     out of range -> 0.  Coordinates and blend weights in float32; the result
     in the image's type."""
-    from memcnet_tpu_torch.parallel.context import refuse_partition
-
-    refuse_partition("bilinear_warp")
-    B, C, H, W = image.shape
+    fr = frame_of(flow)
+    src = fr.whole(image)
+    H, W = fr.size
+    n, _, h, w = flow.shape
     f = flow.float()
-    x2 = torch.arange(W, dtype=torch.float32, device=f.device).view(1, 1, W) + f[:, 0]
-    y2 = torch.arange(H, dtype=torch.float32, device=f.device).view(1, H, 1) + f[:, 1]
+    ys, xs = fr.coords(n, h, w, f.device)
+    x2 = xs + f[:, 0]
+    y2 = ys + f[:, 1]
     valid = (x2 >= 0.0) & (y2 >= 0.0) & (x2 < float(W)) & (y2 < float(H))
     ixL = x2.to(torch.int32).clamp(0, W - 1)
     iyT = y2.to(torch.int32).clamp(0, H - 1)
@@ -90,8 +89,8 @@ def bilinear_warp(image, flow):
     iyB = (iyT + 1).clamp(max=H - 1)
     a = (x2 - ixL.float())[:, None]
     b = (y2 - iyT.float())[:, None]
-    out = ((1 - a) * (1 - b) * gather_hw(image, iyT, ixL) + a * (1 - b) * gather_hw(image, iyT, ixR)
-           + (1 - a) * b * gather_hw(image, iyB, ixL) + a * b * gather_hw(image, iyB, ixR))
+    out = ((1 - a) * (1 - b) * fr.take(src, iyT, ixL) + a * (1 - b) * fr.take(src, iyT, ixR)
+           + (1 - a) * b * fr.take(src, iyB, ixL) + a * b * fr.take(src, iyB, ixR))
     return torch.where(valid[:, None], out, 0.0).to(image.dtype)
 
 

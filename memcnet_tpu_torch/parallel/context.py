@@ -12,9 +12,14 @@ model code serves the whole frame and the tiled one.
 Frames that come in sharded (``parallel.mesh.shard_frames`` under the
 context) record a ``parallel.partition.Partition`` of their global size in
 it (``active_partition``): then every spatial layer runs on its tile with
-halos (``nn.layers``), and the warp and the projection go straight to their
-tile-local steps.  Frames passed whole keep the behaviour above: the convs
-on the whole frame, the warp and the projection split and merged.
+halos (``nn.layers``), the warp and the projection go straight to their
+tile-local steps, and the rest of the op library (N3-N11), the grid sample
+and the replication pad run on the frame's global coordinates, with a whole
+level gathered or reduced where an index is data-dependent
+(``ops/frame.py``), as GSPMD runs every op of the JAX package on
+``frame_sharding``-placed arrays.  Frames passed whole keep the behaviour
+above: the convs on the whole frame, the warp and the projection split and
+merged, the other ops whole.
 
 ``data_parallel(group)`` makes the train-mode BatchNorm
 (``nn.layers.batch_norm_train``) reduce its batch statistics over the ranks
@@ -77,7 +82,8 @@ def active_partition():
 
 def record_partition(partition):
     """Record the partition of sharded frames in the active context
-    (``parallel.mesh.shard_frames``); one frame size per context."""
+    (``parallel.mesh.shard_frames``); one frame size per context (other
+    sizes are its levels and derived extents)."""
     if active_tiling() is None:
         raise RuntimeError("shard frames under spatial_tiling(mesh): the layers read the "
                            "partition from it")
@@ -87,14 +93,6 @@ def record_partition(partition):
     if prev is None:
         _state.partition = partition
     return _state.partition
-
-
-def refuse_partition(what):
-    """Raise where ``what`` has no partitioned form and frames are sharded:
-    nothing gathers the whole frame unannounced."""
-    if active_partition() is not None:
-        raise NotImplementedError(f"{what} has no partitioned form: pass whole frames under "
-                                  "spatial_tiling, or none")
 
 
 def active_data_group():

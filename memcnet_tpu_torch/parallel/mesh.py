@@ -200,23 +200,28 @@ def shard_frames(mesh, *frames, sharding=None):
     """Whole frames (B, C, H, W) -> this process's tiles stacked into the
     batch, or this rank's tile of its data slice, over the active
     ``spatial_tiling`` context's axes (``sharding`` defaults to them;
-    ``replicated(mesh)`` returns the frames as they are).  Records the
-    partition of the frames' H and W in the context.  Returns one tensor
-    for one frame, else a tuple."""
+    ``replicated(mesh)`` returns the frames as they are).  The first call
+    under a context records the partition of its first frame's H and W
+    there; a tensor of another size is a level or a derived extent of that
+    frame (``Partition.split``).  Returns one tensor for one frame, else a
+    tuple."""
     ctx, spec = _context_sharding(mesh)
     if sharding is not None and tuple(sharding) == replicated(mesh):
         return frames[0] if len(frames) == 1 else frames
     if sharding is not None and tuple(sharding) != spec:
         raise ValueError(f"the spatial_tiling context shards frames as {spec}, not {sharding}")
-    H, W = frames[0].shape[-2:]
-    part = record_partition(Partition(mesh, ctx.axis, ctx.axis_h, H, W))
+    part = active_partition()
+    if part is None:
+        H, W = frames[0].shape[-2:]
+        part = record_partition(Partition(mesh, ctx.axis, ctx.axis_h, H, W))
     out = tuple(part.split(f) for f in frames)
     return out[0] if len(out) == 1 else out
 
 
 def gather_frames(mesh, *tiles):
-    """The inverse of ``shard_frames``: whole tensors (at any level of the
-    frame) on every rank, the stacked tiles' padding dropped."""
+    """The inverse of ``shard_frames``: whole tensors (at any level or
+    derived extent of the frame) on every rank, the stacked tiles' padding
+    dropped."""
     from memcnet_tpu_torch.parallel.context import active_partition
 
     _context_sharding(mesh)

@@ -41,8 +41,8 @@ is made); stacked tiles read any tile.  Every gather runs in the profiler
 range ``HALO_RANGE``.  Index maps are cached per (axis, level, layer
 geometry, device).
 
-One op reads beyond any halo: SPyNet's warp samples the second frame's
-level wherever its flow points.  ``gather`` brings that level whole to
+Among the models' layers one op reads beyond any halo: SPyNet's warp samples
+the second frame's level wherever its flow points.  ``gather`` brings that level whole to
 every tile, as GSPMD gathers the operand of a data-dependent gather in the
 JAX package: one index gather over stacked tiles, an all-gather whose
 backward sums the cotangents across ranks.  It runs in its own profiler
@@ -50,6 +50,26 @@ range, ``GATHER_RANGE``, and counts itself in ``gathers``; no layer with a
 halo form calls it.  ``level_input_window`` gives the same op the 0-1
 column halo of the coarse flow that the global upsample reads, and each
 tile's global origin (ops/cuda/gather_kernel.py::level_input_tile).
+
+The op library (``ops``, through ``ops/frame.py``) reads and writes at
+data-dependent cells anywhere in the frame, as GSPMD lets the JAX ops do on
+``frame_sharding``-placed arrays.  Where it reads, ``gather`` brings the
+level whole; where it writes, each tile scatters into a whole-frame buffer
+of its sample on global coordinates and ``reduce`` -- the transpose of
+``gather`` -- sums those buffers over every tile of the sample and gives
+each tile its owned part: one index gather over stacked tiles (every
+stacked tile of a sample scatters into the same buffer, so the sum is the
+scatter's own), a reduce-scatter over the tile axes' groups across ranks.
+It runs in ``REDUCE_RANGE`` and counts itself in ``reductions``; its
+backward is ``gather``.  ``clamped_take`` is a halo whose positions beyond
+the global edge repeat the edge (the patch window of ``occlusion_weight``,
+``replication_pad2d``) or reach fs - 1 positions right and down
+(``separable_conv``).  Some outputs of the op library are sized by the frame
+but are no level of it -- ``separable_conv``'s valid extent, a padded
+extent, a grid sample's grid: derived extents, tiled by the same ownership
+rule, registered per axis (``add_extent``; a tile width that names both a
+level and an extent raises) and looked up by ``extent``; the layers' level
+lookup (``level``) ignores them.
 """
 
 import math
@@ -63,7 +83,9 @@ from memcnet_tpu_torch.parallel import ring as R
 
 HALO_RANGE = "partition.halo"  # the profiler range of every halo gather and crop
 GATHER_RANGE = "partition.gather"  # the profiler range of the whole-level gathers
+REDUCE_RANGE = "partition.reduce"  # the profiler range of the whole-level reductions
 gathers = LaunchCounter("partition.gather")  # whole-level gathers (Partition.gather)
+reductions = LaunchCounter("partition.reduce")  # whole-level reductions (Partition.reduce)
 
 
 def owned(g, t):
@@ -84,6 +106,7 @@ class Axis:
             raise ValueError(f"a frame of {size} positions does not split into {self.t} tiles "
                              f"over {name!r} at full resolution")
         self.levels = {}   # local size -> the level's global size
+        self.extents = {}  # local size -> a derived extent's global size
         g = size
         while g >= self.t:
             w = self.width(g)
@@ -119,6 +142,39 @@ class Axis:
     def out_width(self, g, i):
         """The width tile i's output takes at the level of global size g."""
         return self.own(g, i) if self.across else self.width(g)
+
+    def _key(self, g, i):
+        """The local size tile i of an extent of g is looked up by."""
+        return self.own(g, i) if self.across else self.width(g)
+
+    def add_extent(self, g):
+        """Register g positions, no level, as a derived extent of the frame
+        (tiled by the ownership rule); raise where a tile of it would be as
+        wide as a tile of a level or of another extent, on any rank."""
+        known = list(self.levels.values()) + list(self.extents.values())
+        if g in known:
+            return
+        if g < self.t:
+            raise ValueError(f"an extent of {g} positions over {self.name!r} does not split "
+                             f"into {self.t} tiles")
+        for other in known:
+            if any(self._key(g, i) == self._key(other, i) for i in range(self.t)):
+                kind = "level" if other in self.levels.values() else "extent"
+                raise ValueError(f"tiles over {self.name!r} hold both the {kind} of {other} and "
+                                 f"the extent of {g} positions: the extent of a tile is "
+                                 "ambiguous")
+        self.extents[self.width(g)] = g
+
+    def extent(self, width):
+        """The global size of the level or derived extent whose tiles are
+        ``width`` wide."""
+        if width in self.levels:
+            return self.levels[width]
+        if width in self.extents:
+            return self.extents[width]
+        raise ValueError(f"a tile of {width} positions over {self.name!r} is no level of the "
+                         f"partitioned frame, nor an extent (levels {self.levels}, extents "
+                         f"{self.extents})")
 
 
 class Partition:
@@ -177,6 +233,40 @@ class Partition:
         of global size (gh, gw)."""
         return (self.h.width(gh) if self.h else gh), self.w.width(gw)
 
+    def extent(self, x, dims=(-2, -1)):
+        """(global H, global W) of the level or derived extent of the tiles
+        x, whose H and W are the dims ``dims``; an untiled H is its own size."""
+        gh = self.h.extent(x.shape[dims[0]]) if self.h else x.shape[dims[0]]
+        return gh, self.w.extent(x.shape[dims[1]])
+
+    def add_extent(self, gh, gw):
+        """Register the derived extent (gh, gw) of the frame on each tiled
+        axis (``Axis.add_extent``); returns it."""
+        if self.h:
+            self.h.add_extent(gh)
+        self.w.add_extent(gw)
+        return gh, gw
+
+    def origins(self, size, n, device):
+        """(n, 4) int32: each of n stacked tiles' (or this rank's) global
+        origin (y0, x0) and the positions it owns (h, w) in the level or
+        extent ``size`` (gh, gw)."""
+        gh, gw = size
+        ck = ("origins", gh, gw, n, device)
+        o = self._plans.get(ck)
+        if o is None:
+            cols = []
+            for ax, g in ((self.h, gh), (self.w, gw)):
+                if ax is None:
+                    cols.append(torch.tensor([[0, g]], dtype=torch.int32).expand(n, 2))
+                    continue
+                rows = torch.tensor([[a, b - a] for a, b in ax.bounds(g)], dtype=torch.int32)
+                cols.append(rows[self.tile_index(ax, n, torch.device("cpu"))])
+            (y0, own_h), (x0, own_w) = (c.unbind(1) for c in cols)
+            o = torch.stack([y0, x0, own_h, own_w], 1).contiguous().to(device)
+            self._plans[ck] = o
+        return o
+
     # -- halo gathers ------------------------------------------------------------
 
     def take(self, x, ax, g_in, g_out, key, cols_of):
@@ -211,6 +301,25 @@ class Partition:
             c = list(c) + [-1] * (width - len(c))
             flat += [owner[g] * P + g - bounds[owner[g]][0] if g >= 0 else ax.t * P for g in c]
         return torch.tensor(flat, dtype=torch.int64, device=device), width
+
+    def clamped_take(self, x, size_in, size_out, shift=(0, 0), lo=(0, 0), hi=(0, 0)):
+        """The tiles x of the extent ``size_in`` (gh, gw) -> along each tiled
+        axis, tile i's input positions clamp(j - shift) for j from c0 - lo to
+        c1 + hi, [c0, c1) its owned outputs in the extent ``size_out``: the
+        global edge repeats beyond the frame (an edge-replicating halo);
+        positions past c1 + hi, the padding of a stacked tile, read zeros.
+        An untiled axis is left as it is."""
+        for ax, g_in, g_out, sh, a, b in zip((self.h, self.w), size_in, size_out, shift, lo, hi):
+            if ax is None:
+                continue
+
+            def cols(i, E, ax=ax, g_in=g_in, g_out=g_out, sh=sh, a=a, b=b):
+                c0, c1 = ax.bounds(g_out)[i]
+                return [min(max(j - sh, 0), g_in - 1) if j < c1 + b else -1
+                        for j in range(c0 - a, c0 + E + b)]
+
+            x = self.take(x, ax, g_in, g_out, ("clamped", sh, a, b), cols)
+        return x
 
     def window(self, x, ax, g_in, k, s, p):
         """x extended along ``ax`` for a (k, stride s, zero padding p) window
@@ -367,12 +476,13 @@ class Partition:
 
     # -- a whole level, for a gather that reads anywhere ----------------------------
 
-    def gather(self, x):
-        """The whole level of the tiles x, (samples, C, gh, gw): sample s is
-        the frame of the stacked tiles j with j % samples == s (the tile
-        index is outermost), or of this rank's data slice.  Counted in
-        ``gathers``, in the profiler range ``GATHER_RANGE``."""
-        gh, gw = self.level(x)
+    def gather(self, x, size=None):
+        """The whole level (or derived extent, ``size`` by default x's) of
+        the tiles x, (samples, C, gh, gw): sample s is the frame of the
+        stacked tiles j with j % samples == s (the tile index is outermost),
+        or of this rank's data slice.  Counted in ``gathers``, in the
+        profiler range ``GATHER_RANGE``."""
+        gh, gw = size or self.extent(x)
         gathers.count += 1
         with record_function(GATHER_RANGE):
             if self.across:
@@ -403,6 +513,47 @@ class Partition:
                 self._plans[ck] = index
             y = x.reshape(T, n // T, C, h * w).permute(1, 2, 0, 3).reshape(n // T, C, T * h * w)
             return y.index_select(2, index).reshape(n // T, C, gh, gw)
+
+    def reduce(self, s):
+        """The transpose of ``gather``: s (samples, C, gh, gw), this
+        process's whole-frame sums per sample (every stacked tile of a sample
+        scattered into one buffer) or this rank's -> each tile's owned part of
+        the sum over every tile of its sample, (n, C, h, w), a stacked tile's
+        padding zero: one index gather over stacked tiles, a reduce-scatter
+        over each tile axis's group of ranks.  Its backward is ``gather``.
+        Counted in ``reductions``, in the profiler range ``REDUCE_RANGE``."""
+        reductions.count += 1
+        with record_function(REDUCE_RANGE):
+            return _Reduce.apply(s, self)
+
+    def _reduce(self, s):
+        gh, gw = s.shape[-2:]
+        if self.across:
+            for ax, g in ((self.w, gw), (self.h, gh)):
+                if ax is not None:
+                    s = R.reduce_scatter_uneven(s, ax.dim, [ax.own(g, i) for i in range(ax.t)],
+                                                ax.coord, self.mesh.axis_group(ax.name))
+            return s
+        S, C = s.shape[:2]
+        T = self.stacked
+        h, w = self.tile_size(gh, gw)
+        ck = ("reduce", gh, gw, s.device)
+        index = self._plans.get(ck)
+        if index is None:
+            glob = []
+            for ax, g, size in ((self.h, gh, h), (self.w, gw, w)):
+                if ax is None:
+                    glob.append(np.arange(size)[None, :])
+                    continue
+                glob.append(np.array([[a + k if a + k < b else -1 for k in range(size)]
+                                      for a, b in ax.bounds(g)]))
+            gy, gx = glob[0][:, None, :, None], glob[1][None, :, None, :]
+            flat = np.where((gy >= 0) & (gx >= 0), gy * gw + gx, gh * gw)  # (th, tw, h, w)
+            index = torch.from_numpy(flat.reshape(-1)).to(s.device)
+            self._plans[ck] = index
+        y = torch.cat([s.reshape(S, C, gh * gw), s.new_zeros(S, C, 1)], dim=2)
+        y = y.index_select(2, index).view(S, C, T, h, w)
+        return y.permute(2, 0, 1, 3, 4).reshape(T * S, C, h, w)
 
     def level_input_window(self, flow, fst):
         """What SPyNet's level input on the tiles fst reads of the coarse
@@ -455,12 +606,13 @@ class Partition:
 
     # -- reductions over owned pixels -----------------------------------------------
 
-    def mask(self, x):
+    def mask(self, x, size=None):
         """(n, 1, h, w) float32 of the pixels the stacked tiles own, or None
-        where every pixel is owned (across ranks, or an even level)."""
+        where every pixel is owned (across ranks, or an even level); x at
+        the level or extent ``size``, by default its level."""
         if self.across:
             return None
-        gh, gw = self.level(x)
+        gh, gw = size or self.level(x)
         n, _, h, w = x.shape
         ck = ("mask", gh, gw, n, x.device)
         m = self._plans.get(ck, False)
@@ -502,8 +654,7 @@ class Partition:
             x = x[r * b:(r + 1) * b]
         for ax in self.axes:
             g = x.shape[ax.dim]
-            if g not in ax.levels.values():
-                raise ValueError(f"{g} positions over {ax.name!r} are no level of the frame")
+            ax.add_extent(g)  # a derived extent where g is no level
             bounds = ax.bounds(g)
             if ax.across:
                 a, b = bounds[ax.coord]
@@ -523,7 +674,7 @@ class Partition:
 
     def merge(self, x):
         """The inverse of ``split``: whole tensors, on every rank."""
-        gh, gw = self.level(x)
+        gh, gw = self.extent(x)
         for ax, g in reversed([(a, gw if a is self.w else gh) for a in self.axes]):
             bounds = ax.bounds(g)
             if ax.across:
@@ -536,3 +687,16 @@ class Partition:
             x = R.gather_uneven(x, 0, [x.shape[0]] * self.mesh.shape["data"],
                                 self.mesh.coords["data"], self.mesh.axis_group("data"))
         return x
+
+
+class _Reduce(torch.autograd.Function):
+    """``Partition.reduce``; its backward gathers the cotangent whole."""
+
+    @staticmethod
+    def forward(ctx, s, part):
+        ctx.part, ctx.size = part, tuple(s.shape[-2:])
+        return part._reduce(s)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.part.gather(g.contiguous(), ctx.size), None

@@ -328,3 +328,12 @@ def gather_summed(x, dim, sizes, coord, group):
     whole level that a tile's data-dependent gather reads): the backward
     sums the cotangents over the line's ranks and keeps this rank's part."""
     return _GatherSummed.apply(x, dim % x.dim(), list(sizes), coord, group)
+
+
+def reduce_scatter_uneven(x, dim, sizes, coord, group):
+    """The sum of ``x`` over the ranks of a line, of which rank i keeps the
+    ``sizes[i]`` positions along ``dim`` after those of the ranks before
+    it; not differentiable (``Partition.reduce`` gives the backward)."""
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out.narrow(dim % x.dim(), sum(sizes[:coord]), sizes[coord]).contiguous()

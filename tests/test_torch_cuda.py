@@ -38,7 +38,8 @@ pytestmark = pytest.mark.cuda
 ATOL = 1e-4
 # the tile entries of parallel/tiling.py launch on no untiled path
 NO_TILE_ENTRIES = {"filter_interp_warp_tile": 0, "base_scatter_tile": 0, "fill_holes_carry": 0,
-                   "level_input_tile": 0}
+                   "level_input_tile": 0,
+                   "base_scatter_payload_tile": 0}
 
 
 @pytest.fixture
@@ -453,13 +454,13 @@ def test_flow_project_down_scan_on_the_card(rng, dev, dtype, kind):
     close_projection(got, TP.reference(flow, fillhole=True, fix_down_scan_bug=True))
 
 
-def op_library_calls(rng, B=2, H=40, W=72):
-    """Each op of the library with seeded inputs: (name, fn, inputs, which
-    inputs take a gradient)."""
+def op_library_calls(rng, B=2, H=40, W=72, amp=4.0):
+    """Each op of the library with seeded inputs, flows of about ``amp`` px:
+    (name, fn, inputs, which inputs take a gradient)."""
     def r(*shape, scale=1.0):
         return torch.from_numpy((rng.rand(*shape) * scale).astype(np.float32))
 
-    flow = flow_field(rng, B, H, W, 4.0)
+    flow = flow_field(rng, B, H, W, amp)
     f1 = r(B, 3, H, W)
     f2 = (f1 + torch.from_numpy(rng.randn(B, 3, H, W).astype(np.float32)) * 0.05).clamp(0, 1)
     fs = 5
@@ -856,7 +857,8 @@ def test_tile_entries_match_their_plain_versions(rng, dev, dtype, grid, halo, ki
     assert K.launch_counts() == {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
                                  "conv2d_small": 0, "grid_sample": 0,
                                  "filter_interp_warp_tile": 1, "base_scatter_tile": 1,
-                                 "fill_holes_carry": 1, "level_input_tile": 0}
+                                 "fill_holes_carry": 1, "level_input_tile": 0,
+                                 "base_scatter_payload_tile": 0}
     for g, r in zip(tw, ops.filter_interp_warp_split((frame, ctx), flow, filt)):
         close(g, r)
     close(tp, ops.flow_project(flow.to(dtype), fillhole=True), long_sums=True)
@@ -882,7 +884,8 @@ def test_tiled_ops_under_spatial_tiling_launch_the_tile_entries(rng, dev):
     assert K.launch_counts() == {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
                                  "conv2d_small": 0, "grid_sample": 0,
                                  "filter_interp_warp_tile": 2, "base_scatter_tile": 2,
-                                 "fill_holes_carry": 1, "level_input_tile": 0}
+                                 "fill_holes_carry": 1, "level_input_tile": 0,
+                                 "base_scatter_payload_tile": 0}
 
 
 # -- partitioned frames (parallel/partition.py): every layer on its tile -------------------
@@ -985,7 +988,8 @@ def test_partitioned_forward_on_the_card_launches_tile_entries_and_matches(rng, 
                                  "conv2d_small": 15 if spy else int(name == "MEMC_Net_star"),
                                  "grid_sample": 0, "filter_interp_warp_tile": 2,
                                  "base_scatter_tile": 1, "fill_holes_carry": 1,
-                                 "level_input_tile": 3 if spy else 0}
+                                 "level_input_tile": 3 if spy else 0,
+                                 "base_scatter_payload_tile": 0}
     for g, w in zip(got, (wi, wr, *woffs)):
         assert float((g - w).abs().max()) <= 1e-4 * max(1.0, float(w.abs().max()))
 
@@ -1011,7 +1015,8 @@ def test_partitioned_ve_on_the_card_launches_tile_entries_and_matches(rng, dev):
     assert K.launch_counts() == {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
                                  "conv2d_small": 1, "grid_sample": 0,
                                  "filter_interp_warp_tile": 1, "base_scatter_tile": 0,
-                                 "fill_holes_carry": 0, "level_input_tile": 0}
+                                 "fill_holes_carry": 0, "level_input_tile": 0,
+                                 "base_scatter_payload_tile": 0}
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= 1e-4 * max(1.0, float(w.abs().max()))
 
@@ -1077,3 +1082,111 @@ def test_level_input_tile_gradients_match_plain(rng, dev):
     (gather_kernel.level_input_tile_reference(*xs, *args[3:]) * ct).sum().backward()
     for a, c in zip((fst, snd, flow), xs):
         assert float((a.grad - c.grad).abs().max()) <= ATOL
+
+
+# -- the op library on partitioned frames: K2's payload entry on tile origins -----------
+
+# (grid, frame, level): even levels and levels whose tiles do not divide them
+PAYLOAD_TILE_CASES = [("tile4", (64, 256), 0), ("tile2x2", (192, 320), 0),
+                      ("tile4", (64, 320), 5), ("tile2x2", (192, 320), 6)]
+
+
+def payload_tile_case(rng, dev, dtype, planes, grid, frame, lvl):
+    """(tiles of a +-20 px flow in ``dtype``, of a float32 payload whose last
+    plane is a count, their origins, samples, level size) on ``grid``."""
+    from memcnet_tpu_torch.parallel import active_partition, shard_frames, spatial_tiling
+
+    mesh, axis_h = tile_grid(grid, dev)
+    H, W = frame[0] >> lvl, frame[1] >> lvl
+    flow = torch.from_numpy(((rng.rand(2, 2, H, W) - 0.5) * 40.0).astype(np.float32))
+    payload = torch.from_numpy(rng.rand(2, planes, H, W).astype(np.float32))
+    payload[:, -1] = (payload[:, -1] > 0.3).float()
+    with spatial_tiling(mesh, halo=16, axis_h=axis_h):
+        shard_frames(mesh, torch.zeros((1, 1) + frame, device=dev))
+        f, pl = shard_frames(mesh, flow.to(dev, dtype), payload.to(dev))
+        p = active_partition()
+        n = f.shape[0]
+        return f, pl, p.origins((H, W), n, f.device), p.samples(n), (H, W)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("planes", [3, 4])
+@pytest.mark.parametrize("grid, frame, lvl", PAYLOAD_TILE_CASES)
+def test_payload_tile_entry_matches_plain(rng, dev, dtype, planes, grid, frame, lvl):
+    """K2's payload entry on tile origins against its plain version: the
+    count plane exact, the sums within ATOL of their scale; one launch of
+    its counter per call and nothing else."""
+    f, pl, org, samples, (H, W) = payload_tile_case(rng, dev, dtype, planes, grid, frame, lvl)
+    K.reset_counters()
+    got = P.payload_tile_sums(f, pl, org, samples, H, W)
+    counts = K.launch_counts()
+    assert counts["base_scatter_payload_tile"] == 1 and sum(counts.values()) == 1, counts
+    ref = P.payload_tile_sums_reference(f, pl, org, samples, H, W)
+    assert got.shape == (samples, planes, H, W)
+    assert torch.equal(got[:, -1], ref[:, -1])
+    close(got, ref)
+
+
+def test_payload_tile_entry_gradients_match_plain(rng, dev):
+    f, pl, org, samples, (H, W) = payload_tile_case(rng, dev, torch.float32, 4, "tile2x2",
+                                                    (192, 320), 0)
+    pl = pl.requires_grad_(True)
+    g = torch.randn(samples, 4, H, W, device=dev)
+    (got,) = torch.autograd.grad(P.payload_tile_sums(f, pl, org, samples, H, W), pl, g)
+    (want,) = torch.autograd.grad(P.payload_tile_sums_reference(f, pl, org, samples, H, W),
+                                  pl, g)
+    close(got, want)
+
+
+@pytest.mark.parametrize("grid", ["tile4", "tile2x2"])
+def test_partitioned_op_library_on_the_card_matches_untiled(rng, dev, grid):
+    """Every op of the library, and the grid sample and replication pad
+    layers, on sharded frames (64x256 on (1, 4), 128x128 on (1, 2, 2), flows
+    of +-20 px across tiles) against the untiled op on the card, forward and
+    a VJP of a seeded cotangent, within ATOL of each output's scale; N7 and
+    N8 launch K2's payload entry on tile origins once and K3's carry entry
+    with the fill, the grid sample K5's general entry once, nothing else."""
+    from memcnet_tpu_torch.nn import layers as L
+    from memcnet_tpu_torch.parallel import gather_frames, shard_frames, spatial_tiling
+
+    H, W = (64, 256) if grid == "tile4" else (128, 128)
+    calls = [c for c in op_library_calls(rng, H=H, W=W, amp=20.0)
+             if c[0] != "flow_project_down"]  # no tiled form, as in the JAX package
+    image = torch.from_numpy(rng.rand(2, 3, H, W).astype(np.float32))
+    grid_in = torch.from_numpy((rng.rand(2, H, W, 2) * 2.2 - 1.1).astype(np.float32))
+    calls += [("replication_pad2d", lambda x: L.replication_pad2d(x, (2, 3, 1, 2)), [image],
+               [True]),
+              ("grid_sample_bilinear", L.grid_sample_bilinear, [image, grid_in], [True, True])]
+    mesh, axis_h = tile_grid(grid, dev)
+
+    def shard(name, i, x):  # the channels-last grid is tiled over its dims 1 and 2
+        if name == "grid_sample_bilinear" and i == 1:
+            return shard_frames(mesh, x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return shard_frames(mesh, x)
+
+    for name, fn, inputs, _ in calls:
+        res = {}
+        for tiled in (False, True):
+            xs = [x.to(dev).requires_grad_(True) for x in inputs]
+            K.reset_counters()
+            if tiled:
+                with spatial_tiling(mesh, halo=16, axis_h=axis_h):
+                    shard_frames(mesh, torch.zeros(1, 1, H, W, device=dev))
+                    out = fn(*(shard(name, i, x) for i, x in enumerate(xs)))
+                    counts = K.launch_counts()
+                    out = tuple(gather_frames(mesh, o) for o in
+                                (out if isinstance(out, tuple) else (out,)))
+            else:
+                out = fn(*xs)
+                out = out if isinstance(out, tuple) else (out,)
+            cts = [torch.from_numpy(np.random.RandomState(1).randn(*o.shape).astype(np.float32))
+                   .to(dev) for o in out]
+            res[tiled] = ([o.detach() for o in out], torch.autograd.grad(out, xs, cts))
+        want = dict.fromkeys(counts, 0)
+        if "project" in name:
+            want.update(base_scatter_payload_tile=1, fill_holes_carry=int("nofill" not in name))
+        if name == "grid_sample_bilinear":
+            want["grid_sample"] = 1
+        assert counts == want, (name, counts)
+        for a, b in zip(res[True][0] + list(res[True][1]), res[False][0] + list(res[False][1])):
+            assert float((a - b).abs().max()) <= ATOL * max(1.0, float(b.abs().max())), name

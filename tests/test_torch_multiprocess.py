@@ -8,6 +8,12 @@ the CPU (tests/torch_mp_workers.py), each held against one process.
     tile) across 4 ranks on a (1, 4) grid at 64x320 and a (1, 2, 2) grid at
     128x192, each with a level that does not divide, equal to the tiles
     stacked in one process and to the untiled forward;
+  * the op library on partitioned frames across 4 ranks on (1, 4) at
+    64x256 -- depth_flow_project with the fill (the reduce-scatter, the
+    carries), pixel_splat (the reduce-scatter) and bilinear_warp (the
+    whole-level all-gather), flows of up to 20 px -- equal to the tiles
+    stacked in one process and to the untiled ops, with their input
+    gradients (each rank's gradient holds its tile's part);
   * the dryrun's sharded MEMC_Net_star step on 4 ranks, (1, 2, 2) with 64
     px tiles, its frames partitioned: equal to the same step in one process
     (the tiles stacked), its loss and gradients to the untiled step's;
@@ -159,13 +165,16 @@ def four(tmp_path_factory):
                 (_, rectified), offs, _, _ = model(x0, x2)
             part["MEMC_Net_s"] = (W.part_s_run(W.make_mesh(4, devices=[CPU] * 4)),
                                   {"rectified": rectified, "offset0": offs[0]})
+            x = W.oplib_inputs()
+            oplib = (W.oplib_run(W.make_mesh(4, devices=[CPU] * 4), x), W.oplib_run(None, x))
     except BaseException:
         for p in procs:
             p.kill()
         raise
     ranks = collect(procs, out)
     return dict(ring=[r["ring"] for r in ranks], sharded=[r["sharded"] for r in ranks],
-                partition=[r["partition"] for r in ranks], ring_want=want, part_want=part)
+                partition=[r["partition"] for r in ranks], ring_want=want, part_want=part,
+                oplib=[r["oplib"] for r in ranks], oplib_want=oplib)
 
 
 # -- the ring across ranks ----------------------------------------------------------
@@ -208,6 +217,26 @@ def test_partitioned_memc_s_across_ranks_equals_one_process(four, rank):
         scale = max(1.0, float(w.abs().max()))
         assert float((got[k] - w).abs().max()) <= 1e-5 * scale, k
         assert float((got[k] - untiled[k]).abs().max()) <= 1e-4 * scale, k
+
+
+@pytest.mark.parametrize("name", [c[0] for c in W.OPLIB_CALLS])
+def test_oplib_across_ranks_equals_one_process(four, name):
+    """Each rank's outputs against the tiles stacked in one process and the
+    untiled op, within 1e-6 of their scale (the ranks sum their whole-frame
+    buffers in another order); the ranks' input gradients, summed, within
+    1e-5 of their largest of both."""
+    stacked, untiled = four["oplib_want"]
+    for rank in range(4):
+        for got, w, u in zip(four["oplib"][rank][name], stacked[name], untiled[name]):
+            scale = max(1.0, float(u.abs().max()))
+            assert float((got - w).abs().max()) <= 1e-6 * scale
+            assert float((got - u).abs().max()) <= 1e-6 * scale
+    grads = [sum(r[name + "_grads"][i] for r in four["oplib"])
+             for i in range(len(stacked[name + "_grads"]))]
+    for got, w, u in zip(grads, stacked[name + "_grads"], untiled[name + "_grads"]):
+        top = float(u.abs().max())
+        assert float((got - w).abs().max()) <= 1e-5 * top
+        assert float((got - u).abs().max()) <= 1e-5 * top
 
 
 def test_sharded_star_step_mesh_and_loss(four):

@@ -35,7 +35,7 @@ import jax.random as jr
 
 from memcnet_tpu import models as JM
 
-from memcnet_tpu_torch import ops, parallel
+from memcnet_tpu_torch import parallel
 from memcnet_tpu_torch.cli.runner import PaddedInterp, build_model
 from memcnet_tpu_torch.io import load_jax_params
 from memcnet_tpu_torch.models.memc_net import MEMCNetStar
@@ -330,24 +330,16 @@ def test_halo_gather_gradcheck():
         assert torch.autograd.gradcheck(lambda t: L.upsample_bilinear(t, 2), (xt,))
 
 
-# -- what has no partitioned form raises ------------------------------------------------
+# -- what raises -------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("call", ["grid_sample_bilinear", "replication_pad2d", "bilinear_warp",
-                                  "depth_flow_project"])
-def test_layers_without_a_partitioned_form_raise(call):
+def test_a_tensor_of_no_level_raises():
+    """A whole tensor passed to a layer on a partitioned frame: its width is
+    no level of the frame (tests/test_torch_partition_ops.py runs the op
+    library and the grid sample and replication pad layers on tiles)."""
     x = torch.rand(1, 3, 64, 256)
-    with Sharded("tile4", (64, 256)) as p:
-        t = p.split(x)
-        calls = {
-            "grid_sample_bilinear": lambda: L.grid_sample_bilinear(t, torch.zeros(4, 64, 64, 2)),
-            "replication_pad2d": lambda: L.replication_pad2d(t, (1, 1, 1, 1)),
-            "bilinear_warp": lambda: ops.bilinear_warp(t, torch.zeros(4, 2, 64, 64)),
-            "depth_flow_project": lambda: ops.depth_flow_project(t[:, :2], t[:, 2:]),
-        }
-        with pytest.raises(NotImplementedError, match="no partitioned form"):
-            calls[call]()
-        with pytest.raises(ValueError, match="no level"):  # a tensor of no level's width
+    with Sharded("tile4", (64, 256)):
+        with pytest.raises(ValueError, match="no level"):
             L.conv2d(x, torch.zeros(1, 3, 3, 3), None, padding=1)
 
 

@@ -5,8 +5,9 @@ results to ``<out>/rank<r>.pt`` for the test to hold against one process.
     python tests/torch_mp_workers.py <scenario> <rank> <world> <port> <out>
 
 Scenarios: ``four`` (4 ranks: the ring-shift tiled ops, the partitioned
-MEMC_Net_star and MEMC_Net_s forwards, then the sharded MEMC_Net_star step)
-and ``dp`` (2 ranks: the data-parallel MEMC_Net steps).
+MEMC_Net_star and MEMC_Net_s forwards, three ops of the op library on
+partitioned frames, then the sharded MEMC_Net_star step) and ``dp`` (2
+ranks: the data-parallel MEMC_Net steps).
 
 Imports torch and memcnet_tpu_torch only.
 """
@@ -39,6 +40,12 @@ PART_FLOW_PX = 3.0  # star's flows scaled to about this, inside the halo budget 
 # MEMC_Net_s partitioned on (1, 4) across ranks: SPyNet's 4 levels at 64x256, each
 # with a whole-level all-gather of the second frame
 PART_S_SIZE = (64, 256)
+# the op library on partitioned frames across ranks: B 2 on (1, 4), flows of up
+# to 20 px (across tiles; no halo budget)
+OPLIB_SIZE = (64, 256)
+OPLIB_CALLS = (("depth_flow_project", ("flow", "depth"), ("g2",)),
+               ("pixel_splat", ("image", "flow", "fw"), ("g3", "g1")),
+               ("bilinear_warp", ("image", "flow"), ("g3",)))
 SHARDED_LR = 2e-3   # the dryrun's Adamax
 STEP_TOL = 1e-6
 
@@ -149,6 +156,41 @@ def scenario_partition(rank, world):
     res = {name: part_run(factory(group=dist.group.WORLD), axis_h, H, W)
            for name, factory, (H, W), axis_h in PART_MESHES}
     res["MEMC_Net_s"] = part_s_run(make_mesh(4, group=dist.group.WORLD))
+    return res
+
+
+def oplib_inputs(seed=9):
+    """The op library's whole inputs (B 2) and cotangents."""
+    rng = np.random.RandomState(seed)
+    H, W = OPLIB_SIZE
+    x = {"image": rng.rand(2, 3, H, W), "flow": (rng.rand(2, 2, H, W) - 0.5) * 40.0,
+         "depth": np.round(rng.rand(2, 1, H, W) * 4) / 4 + 0.25, "fw": rng.rand(2, 1, H, W),
+         "g3": rng.randn(2, 3, H, W), "g2": rng.randn(2, 2, H, W), "g1": rng.randn(2, 1, H, W)}
+    return {k: torch.from_numpy(v.astype(np.float32)) for k, v in x.items()}
+
+
+def oplib_run(mesh, x):
+    """depth_flow_project (with the fill), pixel_splat and bilinear_warp on
+    frames sharded over ``mesh`` (untiled where it is None): each op's
+    outputs gathered whole and the gradients of its whole inputs."""
+    from memcnet_tpu_torch import ops
+
+    fns = {"depth_flow_project": lambda f, d: ops.depth_flow_project(f, d, fillhole=True),
+           "pixel_splat": ops.pixel_splat, "bilinear_warp": ops.bilinear_warp}
+    res = {}
+    for name, keys, cot_keys in OPLIB_CALLS:
+        ins = [x[k].clone().requires_grad_(True) for k in keys]
+        if mesh is None:
+            out = fns[name](*ins)
+        else:
+            with spatial_tiling(mesh, halo=16):
+                tiles = shard_frames(mesh, *ins)
+                out = fns[name](*(tiles if isinstance(tiles, tuple) else (tiles,)))
+                out = tuple(gather_frames(mesh, o) for o in
+                            (out if isinstance(out, tuple) else (out,)))
+        out = out if isinstance(out, tuple) else (out,)
+        res[name] = [o.detach() for o in out]
+        res[name + "_grads"] = list(torch.autograd.grad(out, ins, [x[k] for k in cot_keys]))
     return res
 
 
@@ -267,6 +309,7 @@ def main():
         if scenario == "four":  # the ring, then the sharded step, on 4 ranks
             res = {"ring": scenario_ring(rank, world),
                    "partition": scenario_partition(rank, world),
+                   "oplib": oplib_run(make_mesh(4, group=dist.group.WORLD), oplib_inputs()),
                    "sharded": scenario_sharded(rank, world)}
         elif scenario == "dp":
             res = scenario_dp(rank, world, out)
