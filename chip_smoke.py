@@ -2453,10 +2453,12 @@ def phase_tile_entries(torch, results):
                                                                          hh, W, H),
                                     reps=3, flush=flush)
                     lib_ms = tile_scatter_library_ms(torch, P, fl2, org2, hh, flush)
-                # float32 sums of up to ~10 values of |f| <= 20 in a run-dependent order
+                # float32 sums of up to ~10 values of |f| <= 20 in a run-dependent order;
+                # reads each tile's flow (its own Hl x Wl) and writes the extended sums
                 record_row(rows, f"base_scatter_tile[{tag}]", dtype_name,
                            compare([(got, ref)], 1e-3), k_ms, p_ms, lib_ms,
-                           nbytes=n2 * (H * W // n2 * 2 * esize + 3 * He2 * We2 * 4), flops=0,
+                           nbytes=n2 * (fl2.shape[2] * fl2.shape[3] * 2 * esize
+                                        + 3 * He2 * We2 * 4), flops=0,
                            op_dtype="float32")
                 # --- K3's carry entry, on the plain pipeline's average, counts and carries
                 avg, cnt, ring = T._tiled_average(mesh, flow_dt, TILE_HALO, "tile", axis_h,

@@ -3,6 +3,7 @@ flow projection (K2 and K3) timed on one card at the 720p paths' shapes,
 against another checkout of the repo and against K1's design steps.
 
     python memcnet_tpu_torch/bench/kernel_ab.py [--other DIR] [--out FILE]
+                                                [--rows GROUP,...]
 
 Measures this tree's K1 -- MEMC_Net_star's split warp of (frame, context),
 67 channels, and the 3-channel frame warp, on the smooth +-20 px flow that
@@ -16,7 +17,13 @@ standalone K5, and fused where the tree has it, with device operations; the
 standalone K5; SPyNet's forward with its device operations; each the
 median device time of repeated launches after a 256 MB L2 flush, and each
 checked against the tree's own plain version (the projection against the
-tree's CPU path).
+tree's CPU path).  The tile entries of partitioned frames (``--rows tile``)
+at 768x1344, B = 2, halo 64, on (data 1, tile 4) and (1, 2, 2): K5's level
+input on tiles at the top level (merged fst and up bit for bit against the
+untiled kernel), K2's tile entry on the +-20 px flow (counts exact against
+its plain version) and K2's payload entry on tile origins (P = 3 and 4),
+each with its device operations.  ``--rows`` picks groups of rows:
+projection, K1, K5, K4, tile (all by default).
 
 With ``--other DIR`` (a checkout of another commit, e.g. the parent unpacked
 with ``git archive``), the same measurements run on that tree's kernels too,
@@ -27,8 +34,13 @@ other tree builds its own kernels into its own ``_build`` directory.
 The design steps of K1 (``warp_steps.cu``: tiled and vector-load gathers,
 and the floor of 16 loads per channel that all hit the pixel itself) and of
 K5's level input (``level_steps.cu``: taps at the pixel, no sample, the copy
-floor, four coarse-flow loads a pixel, 8 pixels a thread) are timed in this tree's
-process, and ``mma_probe.cu`` shows how the tensor
+floor, four coarse-flow loads a pixel, 8 pixels a thread), of K5's tile
+entry (``level_tile_steps.cu``: pixels a thread, register caps, the first
+design; each must give the entry's bits) and of K2's tile
+entry (``tile_sums_steps.cu``: its memset, scatter and fold apart, each
+beside the first design's, and the scatter as one 4-wide vector atomic into
+an interleaved buffer; the fold as built must equal the first design's bit
+for bit on the same sums) are timed in this tree's process, and ``mma_probe.cu`` shows how the tensor
 cores add: 1 + 2^-k and 1 - 1 + 2^-k in one MMA, for which k the small term
 survives.  Results go to ``--out`` as JSON (default
 ``chiprun_out/kernel_ab/results.json``) and a table to standard output.
@@ -107,78 +119,124 @@ def max_ulps(torch, got, ref, slack):
     return float((((got.float() - ref.float()).abs() - slack).clamp(min=0.0) / ulp).max())
 
 
-def measure(root, steps):
+ROW_GROUPS = ("projection", "K1", "K5", "K4", "tile")
+TILE_HALO = 64
+TILE_GRIDS = (("tile4", None), ("tile2x2", "tile_h"))  # (data 1, tile 4), (1, 2, 2)
+# in the order timed, twice over (the best of the two passes is kept)
+LEVEL_TILE_STEPS = [(5, "first design (1 px a thread, 1D grid)"), (0, "4 px a thread where it fits"),
+                    (1, "2 px a thread"), (2, "1 px a thread (as built)"),
+                    (3, "4 px, at most 85 registers"), (4, "4 px, at most 64 registers")]
+TILE_SUMS_STEPS = [(0, "memset of S"), (1, "scatter as built"),
+                   (2, "scatter, first design (1D grid, 64-bit divisions)"),
+                   (3, "fold as built (warp strips)"),
+                   (4, "fold, first design (one thread an element)"),
+                   (5, "memset of S interleaved (4 floats a cell)"),
+                   (6, "scatter, one float4 atomic a pixel"), (7, "fold of interleaved S")]
+
+
+def measure(root, steps, groups=ROW_GROUPS):
     """This process's measurements of the kernels of the tree at ``root``."""
     sys.path.insert(0, root)
     import torch
 
-    from memcnet_tpu_torch.nn import init as I
-    from memcnet_tpu_torch.ops import projection
-    from memcnet_tpu_torch.ops.cuda import _lib, conv_kernel, warp_kernel
+    from memcnet_tpu_torch.ops.cuda import _lib
 
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     res = {}
-    step_lib = build(_lib, "warp_steps") if steps else None
-    level_lib = build(_lib, "level_steps") if steps else None
-    if steps:
+    step_lib = build(_lib, "warp_steps") if steps and "K1" in groups else None
+    level_lib = build(_lib, "level_steps") if steps and "K5" in groups else None
+    tile_libs = ((build(_lib, "level_tile_steps"), build(_lib, "tile_sums_steps"))
+                 if steps and "tile" in groups else (None, None))
+    if steps and "K4" in groups:
         res["mma probe"] = mma_probe(torch, build(_lib, "mma_probe"))
     for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        pflow = PROBE.synthetic_flow(2, dev).to(dt)  # both directions, as served
-        # both trees' CPU path is the plain composition
-        ref = projection.flow_project(pflow.cpu(), fillhole=True).to(dev)
-        got = projection.flow_project(pflow, fillhole=True)
-        n_ops, dev_ms, by_kernel = PROBE.device_ops(
-            lambda: projection.flow_project(pflow, fillhole=True))
-        key = f"flow_project {name}"
-        res[key] = dict(ms=timed_ms(torch, lambda: projection.flow_project(pflow, fillhole=True),
-                                    flush),
-                        err=max_ulps(torch, got, ref, 0.0), launches=n_ops, device_ms=dev_ms,
-                        kernels=by_kernel)
-        if steps:
-            res[key]["steps"] = projection_steps(torch, projection, pflow, flush)
-        del ref, got
-        smooth = PROBE.synthetic_flow(1, dev).to(dt).float()
-        frame = torch.rand((1, 3, H, W), generator=gen, device=dev).to(dt)
-        ctx = torch.randn((1, 64, H, W), generator=gen, device=dev).to(dt)
-        filt = (torch.rand((1, 16, H, W), generator=gen, device=dev) / 8.0).to(dt)
-        noisy = noisy_flow(torch, dev).to(dt).float()
-        for srcs, flow, tag in (((frame, ctx), smooth, ""), ((frame,), smooth, ""),
-                                ((frame, ctx), noisy, " noisy flow")):
-            key = f"K1 {sum(s.shape[1] for s in srcs)}ch{tag} {name}"
-            ref = warp_kernel.reference(srcs, flow, filt, 4)
-            got = warp_kernel.launch(srcs, flow, filt, 4)
-            res[key] = dict(ms=timed_ms(torch, lambda: warp_kernel.launch(srcs, flow, filt, 4),
-                                        flush),
-                            err=max(max_ulps(torch, g, r, 0.0) for g, r in zip(got, ref)))
-            if step_lib is not None and not tag:
-                res[key]["steps"] = time_steps(torch, step_lib, warp_kernel, _lib, srcs, flow,
-                                               filt, flush)
-        del frame, ctx, filt, noisy
-        level_input_rows(torch, res, name, dt, gen, flush, level_lib)
-        convs = [("ctx 3->64", 3, 64, H, W, False, False)]
-        convs += [(f"L{lvl} {H >> lvl}x{W >> lvl} {cin}->{cout}", cin, cout, H >> lvl, W >> lvl,
-                   True, j < len(BASIC) - 1)
-                  for lvl in range(LEVELS) for j, (cin, cout) in enumerate(BASIC)]
-        wgen = torch.Generator().manual_seed(2)
-        for label, cin, cout, h, w_, bias, relu in convs:
-            x = (torch.rand((2, cin, h, w_), generator=gen, device=dev) * 4.0 - 2.0).to(dt)
-            if bias:
-                w = I.torch_default_uniform((cout, cin, 7, 7), wgen).to(dev).to(dt)
-                b = I.torch_default_uniform((cout,), wgen, fan_in=cin * 49).to(dev)
-            else:
-                w = I.resnet_msra((cout, cin, 7, 7), torch.Generator().manual_seed(1)).to(dev).to(dt)
-                b = None
-            got = conv_kernel.launch(x, w, b, relu=relu)
-            ref = conv_kernel.reference(x, w, b, relu=relu)
-            res[f"K4 {label} {name}"] = dict(
-                ms=timed_ms(torch, lambda: conv_kernel.launch(x, w, b, relu=relu), flush),
-                err=max_ulps(torch, got, ref, 5e-4 if bias else 0.0))
-            del x, w, b, got, ref
+        if "projection" in groups:
+            projection_rows(torch, res, name, dt, flush, steps)
+        if "K1" in groups:
+            warp_rows(torch, res, name, dt, gen, flush, step_lib)
+        if "K5" in groups:
+            level_input_rows(torch, res, name, dt, gen, flush, level_lib)
+        if "K4" in groups:
+            conv_rows(torch, res, name, dt, gen, flush)
+        if "tile" in groups:
+            tile_entry_rows(torch, res, name, dt, flush, *tile_libs)
         torch.cuda.empty_cache()
     return res
+
+
+def projection_rows(torch, res, name, dt, flush, steps):
+    """``flow_project`` with the fill, B = 2, against the tree's CPU path."""
+    from memcnet_tpu_torch.ops import projection
+
+    dev = torch.device("cuda")
+    pflow = PROBE.synthetic_flow(2, dev).to(dt)  # both directions, as served
+    # both trees' CPU path is the plain composition
+    ref = projection.flow_project(pflow.cpu(), fillhole=True).to(dev)
+    got = projection.flow_project(pflow, fillhole=True)
+    n_ops, dev_ms, by_kernel = PROBE.device_ops(
+        lambda: projection.flow_project(pflow, fillhole=True))
+    key = f"flow_project {name}"
+    res[key] = dict(ms=timed_ms(torch, lambda: projection.flow_project(pflow, fillhole=True),
+                                flush),
+                    err=max_ulps(torch, got, ref, 0.0), launches=n_ops, device_ms=dev_ms,
+                    kernels=by_kernel)
+    if steps:
+        res[key]["steps"] = projection_steps(torch, projection, pflow, flush)
+    del ref, got
+
+
+def warp_rows(torch, res, name, dt, gen, flush, step_lib):
+    """K1's split warp, its frame warp and the split warp on a noisy flow."""
+    from memcnet_tpu_torch.ops.cuda import _lib, warp_kernel
+
+    dev = torch.device("cuda")
+    smooth = PROBE.synthetic_flow(1, dev).to(dt).float()
+    frame = torch.rand((1, 3, H, W), generator=gen, device=dev).to(dt)
+    ctx = torch.randn((1, 64, H, W), generator=gen, device=dev).to(dt)
+    filt = (torch.rand((1, 16, H, W), generator=gen, device=dev) / 8.0).to(dt)
+    noisy = noisy_flow(torch, dev).to(dt).float()
+    for srcs, flow, tag in (((frame, ctx), smooth, ""), ((frame,), smooth, ""),
+                            ((frame, ctx), noisy, " noisy flow")):
+        key = f"K1 {sum(s.shape[1] for s in srcs)}ch{tag} {name}"
+        ref = warp_kernel.reference(srcs, flow, filt, 4)
+        got = warp_kernel.launch(srcs, flow, filt, 4)
+        res[key] = dict(ms=timed_ms(torch, lambda: warp_kernel.launch(srcs, flow, filt, 4),
+                                    flush),
+                        err=max(max_ulps(torch, g, r, 0.0) for g, r in zip(got, ref)))
+        if step_lib is not None and not tag:
+            res[key]["steps"] = time_steps(torch, step_lib, warp_kernel, _lib, srcs, flow,
+                                           filt, flush)
+    del frame, ctx, filt, noisy
+
+
+def conv_rows(torch, res, name, dt, gen, flush):
+    """K4: the ctx conv and SPyNet's five 7x7 convs at each of its levels."""
+    from memcnet_tpu_torch.nn import init as I
+    from memcnet_tpu_torch.ops.cuda import conv_kernel
+
+    dev = torch.device("cuda")
+    convs = [("ctx 3->64", 3, 64, H, W, False, False)]
+    convs += [(f"L{lvl} {H >> lvl}x{W >> lvl} {cin}->{cout}", cin, cout, H >> lvl, W >> lvl,
+               True, j < len(BASIC) - 1)
+              for lvl in range(LEVELS) for j, (cin, cout) in enumerate(BASIC)]
+    wgen = torch.Generator().manual_seed(2)
+    for label, cin, cout, h, w_, bias, relu in convs:
+        x = (torch.rand((2, cin, h, w_), generator=gen, device=dev) * 4.0 - 2.0).to(dt)
+        if bias:
+            w = I.torch_default_uniform((cout, cin, 7, 7), wgen).to(dev).to(dt)
+            b = I.torch_default_uniform((cout,), wgen, fan_in=cin * 49).to(dev)
+        else:
+            w = I.resnet_msra((cout, cin, 7, 7), torch.Generator().manual_seed(1)).to(dev).to(dt)
+            b = None
+        got = conv_kernel.launch(x, w, b, relu=relu)
+        ref = conv_kernel.reference(x, w, b, relu=relu)
+        res[f"K4 {label} {name}"] = dict(
+            ms=timed_ms(torch, lambda: conv_kernel.launch(x, w, b, relu=relu), flush),
+            err=max_ulps(torch, got, ref, 5e-4 if bias else 0.0))
+        del x, w, b, got, ref
 
 
 def level_input_rows(torch, res, name, dt, gen, flush, level_lib=None):
@@ -251,6 +309,168 @@ def level_steps(torch, lib, fst, snd, cflow, want, flush):
     return ms
 
 
+def tile_entry_rows(torch, res, name, dt, flush, level_lib=None, sums_lib=None):
+    """The tile entries at 768x1344, B = 2, halo 64 in the measured tree:
+    K5's level input on the tiles of the top level, (1, 4) and (1, 2, 2),
+    the coarse flow of probe.level_flow clipped to +-10 px (its merged fst
+    and up must equal the untiled kernel's bit for bit); K2's tile entry on
+    (1, 4) and (1, 2, 2) with the +-20 px flow of probe.synthetic_flow (its
+    counts must equal its plain version's); K2's payload entry on tile
+    origins on (1, 4), P = 3 and 4 (counts exact).  Each with its device
+    operations; with ``level_lib``, K5's tile entry in variants, and with
+    ``sums_lib``, K2's tile entry in steps."""
+    from memcnet_tpu_torch.ops.cuda import gather_kernel as G
+    from memcnet_tpu_torch.ops.cuda import project_kernel as P
+    from memcnet_tpu_torch.parallel import (active_partition, make_mesh, make_mesh_2d,
+                                            shard_frames, spatial_tiling)
+    from memcnet_tpu_torch.parallel import tiling as T
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    devs = [dev] * 4
+    fst, snd = (torch.rand((2, 3, H, W), generator=gen, device=dev).to(dt) for _ in range(2))
+    cflow = PROBE.level_flow(2, 0, dev).clamp(-10.0, 10.0).to(dt)
+    flow = PROBE.synthetic_flow(2, dev).to(dt)
+    untiled = G.launch_level_input(fst, snd, cflow)
+    for grid, axis_h in TILE_GRIDS:
+        mesh = make_mesh(4, devices=devs) if grid == "tile4" else make_mesh_2d(4, devices=devs)
+        with spatial_tiling(mesh, halo=TILE_HALO, axis_h=axis_h):
+            shard_frames(mesh, torch.zeros((1, 1, H, W), device=dev))
+            p = active_partition()
+            ft = p.split(fst)
+            window, origins, level = p.level_input_window(p.split(cflow), ft)
+            args = (ft, p.gather(p.split(snd)), window, origins, *level)
+        tiles = G.launch_level_input_tile(*args)
+        got = p.merge(tiles)
+        n_bad = int((got[:, :3] != untiled[:, :3]).sum() + (got[:, 6:] != untiled[:, 6:]).sum())
+        n_ops, dev_ms, by_kernel = PROBE.device_ops(lambda: G.launch_level_input_tile(*args))
+        key = f"K5 level input tile {grid} {name}"
+        res[key] = dict(
+            ms=timed_ms(torch, lambda: G.launch_level_input_tile(*args), flush),
+            err=max_ulps(torch, got[:, 3:6], G.reference(snd, G.warp_grid(got[:, 6:8])), 0.0),
+            launches=n_ops, device_ms=dev_ms, kernels=by_kernel, fst_up_not_bit_equal=n_bad,
+            tile=f"{tuple(ft.shape)}")
+        if level_lib is not None:
+            res[key]["steps"] = level_tile_steps(torch, level_lib, args, tiles, flush)
+        del got, tiles, args, ft, window
+        # K2's tile entry on the tiles tiling.py hands it
+        ring = T._ring(mesh, 2, "tile", axis_h)
+        Wl, Hl, hh = T._grid(mesh, flow.shape, "tile", axis_h, TILE_HALO, None)
+        fl = ring.split(flow)
+        org = T._origins(ring, "tile", axis_h, Wl, Hl, dev)
+        geom = (TILE_HALO, hh, W, H)
+        got = P.launch_tile_sums(fl, org, *geom)
+        ref = P.tile_sums_reference(fl, org, *geom)
+        n_ops, dev_ms, by_kernel = PROBE.device_ops(lambda: P.launch_tile_sums(fl, org, *geom))
+        res[f"K2 tile sums {grid} {name}"] = dict(
+            ms=timed_ms(torch, lambda: P.launch_tile_sums(fl, org, *geom), flush),
+            err=float((got - ref).abs().max()), launches=n_ops, device_ms=dev_ms,
+            kernels=by_kernel, counts_equal=bool(torch.equal(got[:, 2], ref[:, 2])),
+            tile=f"{tuple(fl.shape)}")
+        if sums_lib is not None:
+            res[f"K2 tile sums {grid} {name}"]["steps"] = tile_sums_steps(
+                torch, sums_lib, fl, org, geom, got, flush)
+        del got, ref
+    mesh = make_mesh(4, devices=devs)
+    with spatial_tiling(mesh, halo=TILE_HALO):
+        shard_frames(mesh, torch.zeros((1, 1, H, W), device=dev))
+        p = active_partition()
+        ft = p.split(flow)
+        n = ft.shape[0]
+        S, org = p.samples(n), p.origins((H, W), n, dev)
+        gen_p = torch.Generator(device=dev).manual_seed(17)
+        for planes in (3, 4):
+            pt = torch.rand((n, planes, *ft.shape[2:]), generator=gen_p, device=dev)
+            pt[:, -1] = (pt[:, -1] > 0.3).float()
+            got = P.launch_payload_tile(ft, pt, org, S, H, W)
+            ref = P.payload_tile_sums_reference(ft, pt, org, S, H, W)
+            n_ops, dev_ms, by_kernel = PROBE.device_ops(
+                lambda: P.launch_payload_tile(ft, pt, org, S, H, W))
+            res[f"K2 payload tile P={planes} tile4 {name}"] = dict(
+                ms=timed_ms(torch, lambda: P.launch_payload_tile(ft, pt, org, S, H, W), flush),
+                err=float((got - ref).abs().max()), launches=n_ops, device_ms=dev_ms,
+                kernels=by_kernel, counts_equal=bool(torch.equal(got[:, -1], ref[:, -1])))
+            del got, ref, pt
+
+
+def level_tile_steps(torch, lib, args, want, flush):
+    """ms of each variant of K5's tile entry (``level_tile_steps.cu``), each
+    checked bit for bit against the entry's output."""
+    from memcnet_tpu_torch.ops.cuda import _lib
+
+    ft, snd, window, origins, GH, GW = args
+    n, _, th, tw = ft.shape
+    out = torch.empty_like(want)
+    ms = {}
+    for step, label in LEVEL_TILE_STEPS * 2:
+        def run():
+            err = lib.memc_level_tile_step(
+                step, ft.data_ptr(), snd.data_ptr(), window.data_ptr(), origins.data_ptr(),
+                out.data_ptr(), n, snd.shape[0], th, tw, window.shape[2], window.shape[3], GH,
+                GW, _lib.dtype_code(ft.dtype), torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"level tile step {label}: CUDA error {err}")
+        run()
+        if not torch.equal(out, want):
+            raise RuntimeError(f"level tile step {label}: differs from the entry")
+        ms[label] = min(ms.get(label, float("inf")), timed_ms(torch, run, flush))
+    return ms
+
+
+def tile_sums_steps(torch, lib, fl, org, geom, want, flush):
+    """ms of each step of K2's tile entry (``tile_sums_steps.cu``) on the
+    entry's own inputs.  The scatter as built, then the fold as built, must
+    give the entry's counts; the fold as built must equal the first design's
+    fold bit for bit on the same S, and the fold of the interleaved S (where
+    the vector atomic was compiled in) the fold as built on its own S's
+    planes."""
+    from memcnet_tpu_torch.ops.cuda import _lib
+
+    halo, hh, Wg, Hg = geom
+    n, _, Hl, Wl = fl.shape
+    He, We = Hl + 2 * hh, Wl + 2 * halo
+    code = _lib.dtype_code(fl.dtype)
+    sums = torch.empty((n, 3, He, We), device=fl.device)
+    sums4 = torch.empty((n, He, We, 4), device=fl.device)
+    out = torch.empty_like(sums)
+
+    def run(step, buf=sums):
+        err = lib.memc_tile_sums_step(step, fl.data_ptr(), org.data_ptr(), buf.data_ptr(),
+                                      out.data_ptr(), n, Hl, Wl, halo, hh, Hg, Wg, code,
+                                      torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"tile sums step {step}: CUDA error {err}")
+
+    for step in (0, 1, 3):
+        run(step)
+    if not torch.equal(out[:, 2], want[:, 2]):
+        raise RuntimeError("tile sums steps: counts differ from the entry's")
+    built = out.clone()
+    run(4)
+    fold_bit_equal = bool(torch.equal(out, built))
+    if not fold_bit_equal:
+        raise RuntimeError("tile sums steps: the fold as built differs from the first design's")
+    vec = bool(lib.memc_tile_sums_vec_atomic())
+    ms = {}
+    for step, label in TILE_SUMS_STEPS:
+        if step >= 5 and not vec:
+            continue
+        buf = sums4 if step >= 5 else sums
+        ms[label] = timed_ms(torch, lambda: run(step, buf), flush)
+    if vec:
+        for step in (5, 6, 7):
+            run(step, sums4)
+        vec_out = out.clone()
+        for step in (0, 1):
+            run(step)
+        planes = sums4[..., :3].permute(0, 3, 1, 2).contiguous()
+        sums.copy_(planes)
+        run(3)
+        if not torch.equal(out[:, 2], want[:, 2]) or not torch.equal(vec_out, out):
+            raise RuntimeError("tile sums steps: the interleaved path differs")
+    return dict(ms, fold_bit_equal=fold_bit_equal, vector_atomic=vec)
+
+
 def projection_steps(torch, projection, flow, flush):
     """The fused projection's stages, this tree only: K2 (memset, scatter,
     fold-and-divide) with and without the fill's masks, K3 (the fill), and
@@ -285,6 +505,14 @@ def build(_lib, name):
     elif name == "level_steps":
         lib.memc_level_step.argtypes = [i, i, vp, vp, vp, vp, i, i, i, i, vp]
         lib.memc_level_step.restype = i
+    elif name == "level_tile_steps":
+        lib.memc_level_tile_step.argtypes = [i, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i,
+                                             vp]
+        lib.memc_level_tile_step.restype = i
+    elif name == "tile_sums_steps":
+        lib.memc_tile_sums_step.argtypes = [i, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
+        lib.memc_tile_sums_step.restype = i
+        lib.memc_tile_sums_vec_atomic.restype = i
     else:
         lib.memc_mma_probe.argtypes = [vp, vp, vp, vp]
         lib.memc_mma_probe.restype = i
@@ -337,11 +565,16 @@ def main():
     ap.add_argument("--other", help="checkout of another commit to time beside this one")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "kernel_ab",
                                                   "results.json"))
+    ap.add_argument("--rows", default=",".join(ROW_GROUPS),
+                    help="groups of rows to measure, of " + ", ".join(ROW_GROUPS))
     ap.add_argument("--measure", help=argparse.SUPPRESS)  # internal: one tree's process
     ap.add_argument("--steps", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    groups = tuple(g for g in args.rows.split(",") if g)
+    if not groups or set(groups) - set(ROW_GROUPS):
+        ap.error(f"--rows takes groups of {', '.join(ROW_GROUPS)}, got {args.rows!r}")
     if args.measure:
-        print(json.dumps(measure(args.measure, args.steps)))
+        print(json.dumps(measure(args.measure, args.steps, groups)))
         return 0
 
     import torch
@@ -354,7 +587,7 @@ def main():
     runs = {name: [] for name, _ in trees}
     for i, name in enumerate(order):
         root = dict(trees)[name]
-        cmd = [sys.executable, os.path.abspath(__file__), "--measure", root]
+        cmd = [sys.executable, os.path.abspath(__file__), "--measure", root, "--rows", args.rows]
         if name == "this" and not any(r for r in runs["this"]):
             cmd.append("--steps")
         out = subprocess.run(cmd, capture_output=True, text=True)
@@ -364,7 +597,7 @@ def main():
         runs[name].append(json.loads(out.stdout.strip().splitlines()[-1]))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    probe = runs["this"][0].pop("mma probe")
+    probe = runs["this"][0].pop("mma probe", {})
     for r in runs["this"][1:]:
         r.pop("mma probe", None)
     table = {}
@@ -381,6 +614,9 @@ def main():
                 row[f"{name}_launches"] = rs[0]["launches"]
                 row[f"{name}_device_ms"] = sum(r["device_ms"] for r in rs) / len(rs)
                 row[f"{name}_kernels"] = rs[0]["kernels"]
+            for k, v in rs[0].items():  # a row's own checks and shapes
+                if k not in ("ms", "err", "launches", "device_ms", "kernels", "steps", "by_kernel"):
+                    row[f"{name}_{k}"] = v
         if "steps" in runs["this"][0][key]:
             row["steps_ms"] = runs["this"][0][key]["steps"]
         table[key] = row
@@ -403,8 +639,13 @@ def main():
         for n in trees:
             for k, ms in row.get(f"{n}_kernels", {}).items():
                 print(f"    {n} kernel {k[:70]:<70} {ms:.4f} ms")
+        for n in trees:
+            checks = {k[len(n) + 1:]: v for k, v in row.items() if k.startswith(f"{n}_")
+                      and k[len(n) + 1:] not in ("ms", "err", "launches", "device_ms", "kernels", "tile")}
+            if checks:
+                print(f"    {n}: " + ", ".join(f"{k} {v}" for k, v in checks.items()))
         for label, ms in row.get("steps_ms", {}).items():
-            print(f"    step {label:<32} {ms:.4f} ms")
+            print(f"    step {label:<32} " + (f"{ms:.4f} ms" if isinstance(ms, float) else str(ms)))
     return 0
 
 

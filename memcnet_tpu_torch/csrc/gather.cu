@@ -291,31 +291,41 @@ cudaError_t launch_level_input(const T* fst, const T* snd, const T* flow, T* out
 // the scales are the frame level's (level_args of GH x GW), in the untiled
 // kernel's float32 order, so fst and up equal the untiled kernel's bit for
 // bit.  A stacked tile's positions beyond those it owns get zero warp and up
-// channels.  One thread per pixel: a simple kernel, bound by memory like the
-// untiled one.
+// channels.
+//
+// Design: one thread a pixel on a (columns, rows, tiles) grid: no division,
+// and 32-bit offsets inside a tile; fst is copied through first.  The
+// untiled kernel's 4 pixels a thread (vectors of fst and the 8 channels, row
+// terms and the coarse window shared by 4 pixels) ran 0.0500 ms against this
+// design's 0.0408 in bf16 (float32 0.0635 against 0.0536) on the top level's
+// tiles of 768x1344, B = 2, (1, 4), on an NVIDIA H100 80GB HBM3 at 700 W
+// (bench/level_tile_steps.cu, PERF.md): the taps of snd are gathers, and one
+// pixel a thread keeps four times as many in flight.
 
 struct TileArgs {
-  LevelArgs l;        // the frame level's: H = GH, W = GW, h = GH / 2, w = GW / 2
+  LevelArgs l;         // the frame level's: H = GH, W = GW, h = GH / 2, w = GW / 2
   int th, tw, hc, wc;  // tile size, coarse window size
   int S;               // samples of the whole level
 };
 
+// Block (32, 8) over 32 columns x 8 rows of a tile, grid (columns, rows,
+// tiles).
 template <typename T>
 __global__ void __launch_bounds__(256)
 spynet_level_input_tile_kernel(const T* __restrict__ fst, const T* __restrict__ snd,
                                const T* __restrict__ flow, const int* __restrict__ origins,
-                               T* __restrict__ out, TileArgs a, int64_t total) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int64_t plane = static_cast<int64_t>(a.th) * a.tw;
-  const int64_t b = idx / plane;
-  const int64_t pix = idx - b * plane;
-  const int y = static_cast<int>(pix / a.tw);
-  const int x = static_cast<int>(pix - static_cast<int64_t>(y) * a.tw);
-  const int* o = origins + b * 6;  // y0, x0, cy0, cx0, owned h, owned w
-  T* ob = out + b * 8 * plane + pix;
+                               T* __restrict__ out, TileArgs a) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= a.tw || y >= a.th) return;
+  const int b = blockIdx.z;
+  const int plane = a.th * a.tw;
+  const int p = y * a.tw + x;
+  const T* fb = fst + static_cast<int64_t>(b) * 3 * plane + p;
+  T* ob = out + static_cast<int64_t>(b) * 8 * plane + p;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) ob[c * plane] = fst[(b * 3 + c) * plane + pix];
+  for (int c = 0; c < 3; ++c) ob[c * plane] = fb[c * plane];
+  const int* o = origins + 6 * b;  // y0, x0, cy0, cx0, owned h, owned w
   if (y >= o[4] || x >= o[5]) {
 #pragma unroll
     for (int c = 3; c < 8; ++c) ob[c * plane] = from_f32<T>(0.f);
@@ -326,33 +336,32 @@ spynet_level_input_tile_kernel(const T* __restrict__ fst, const T* __restrict__ 
   const int X = o[1] + x;
   const Lerp ly = up_lerp(min(Y, 2 * l.h - 1), l.h, l.up_scale_y);
   const Lerp lx = up_lerp(min(X, 2 * l.w - 1), l.w, l.up_scale_x);
-  const int r0 = clampi(ly.i0 - o[2], 0, a.hc - 1), r1 = clampi(ly.i1 - o[2], 0, a.hc - 1);
+  // the coarse window's rows and columns, clamped into the tile's window
+  const int r0 = clampi(ly.i0 - o[2], 0, a.hc - 1) * a.wc;
+  const int r1 = clampi(ly.i1 - o[2], 0, a.hc - 1) * a.wc;
   const int c0 = clampi(lx.i0 - o[3], 0, a.wc - 1), c1 = clampi(lx.i1 - o[3], 0, a.wc - 1);
-  const int64_t cplane = static_cast<int64_t>(a.hc) * a.wc;
+  const int cplane = a.hc * a.wc;
+  const T* fl = flow + static_cast<int64_t>(b) * 2 * cplane;
   float up[2];
 #pragma unroll
   for (int ch = 0; ch < 2; ++ch) {
-    const T* f = flow + (b * 2 + ch) * cplane;
-    const float v = lerp2(ly.l0, lerp2(lx.l0, to_f32(f[r0 * a.wc + c0]), lx.l1,
-                                       to_f32(f[r0 * a.wc + c1])),
-                          ly.l1, lerp2(lx.l0, to_f32(f[r1 * a.wc + c0]), lx.l1,
-                                       to_f32(f[r1 * a.wc + c1])));
+    const T* f = fl + ch * cplane;
+    const float v = lerp2(ly.l0, lerp2(lx.l0, to_f32(f[r0 + c0]), lx.l1, to_f32(f[r0 + c1])),
+                          ly.l1, lerp2(lx.l0, to_f32(f[r1 + c0]), lx.l1, to_f32(f[r1 + c1])));
     up[ch] = round_to<T>(v) * 2.f;  // exact
     ob[(6 + ch) * plane] = from_f32<T>(up[ch]);
   }
+  // the float32 grid, each step rounded apart as the separate ops round it
   const float gxn = __fadd_rn(linspace_pm1(X, l.W, l.step_x), __fmul_rn(up[0], l.inv_x));
   const float gyn = __fadd_rn(linspace_pm1(Y, l.H, l.step_y), __fmul_rn(up[1], l.inv_y));
   const Taps t = grid_taps(gxn, gyn, l.H, l.W);
-  const T* snd_b = snd + (b % a.S) * 3 * static_cast<int64_t>(l.H) * l.W;
+  const int GHW = l.H * l.W;
+  const T* snd_b = snd + static_cast<int64_t>(b % a.S) * 3 * GHW;
 #pragma unroll
-  for (int c = 0; c < 3; ++c)
-    ob[(3 + c) * plane] = from_f32<T>(sample(snd_b + c * static_cast<int64_t>(l.H) * l.W, t));
+  for (int c = 0; c < 3; ++c) ob[(3 + c) * plane] = from_f32<T>(sample(snd_b + c * GHW, t));
 }
 
-template <typename T>
-cudaError_t launch_level_input_tile(const T* fst, const T* snd, const T* flow,
-                                    const int* origins, T* out, int n, int S, int th, int tw,
-                                    int hc, int wc, int GH, int GW, cudaStream_t stream) {
+inline TileArgs tile_args(int S, int th, int tw, int hc, int wc, int GH, int GW) {
   TileArgs a;
   a.l = level_args(GH, GW, 1);
   a.th = th;
@@ -360,9 +369,20 @@ cudaError_t launch_level_input_tile(const T* fst, const T* snd, const T* flow,
   a.hc = hc;
   a.wc = wc;
   a.S = S;
-  const int64_t total = static_cast<int64_t>(n) * th * tw;
-  spynet_level_input_tile_kernel<T><<<ceil_div(total, 256), 256, 0, stream>>>(
-      fst, snd, flow, origins, out, a, total);
+  return a;
+}
+
+template <typename T>
+cudaError_t launch_level_input_tile(const T* fst, const T* snd, const T* flow,
+                                    const int* origins, T* out, int n, int S, int th, int tw,
+                                    int hc, int wc, int GH, int GW, cudaStream_t stream) {
+  // 32-bit offsets inside a tile's 8 planes and a sample's 3 level planes
+  if (8LL * th * tw > INT32_MAX || 3LL * GH * GW > INT32_MAX || 2LL * hc * wc > INT32_MAX ||
+      n > 65535 || th > 8 * 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid(ceil_div(tw, 32), ceil_div(th, 8), n);
+  spynet_level_input_tile_kernel<T><<<grid, dim3(32, 8), 0, stream>>>(
+      fst, snd, flow, origins, out, tile_args(S, th, tw, hc, wc, GH, GW));
   return cudaGetLastError();
 }
 

@@ -63,10 +63,12 @@
 //   K2  memc_project_tile_sums: a memset, project_tile_scatter_kernel (the
 //       flow clamped to +-(halo - 1), and to +-(halo_h - 1) when halo_h > 0;
 //       the gate in the frame's coordinates; (-fx, -fy, 1) atomicAdded at the
-//       landing cell in the extended buffer's coordinates) and
-//       project_raw_fold_kernel (both +1 folds at the extended buffer's own
-//       edges, no divide).  The spill exchange between tiles, the crop and
-//       the divide follow in PyTorch.
+//       landing cell in the extended buffer's coordinates; a 3D grid with
+//       32-bit offsets) and project_raw_fold_kernel (both +1 folds at the
+//       extended buffer's own edges, no divide: a warp walks a 32-column
+//       strip down the rows, so each S value is loaded once, where a fold
+//       of one thread per element loads it four times).  The spill
+//       exchange between tiles, the crop and the divide follow in PyTorch.
 //   K2  memc_project_payload_tile: the payload entry on tile origins, for the
 //       depth-weighted and gated projections on partitioned frames (whose
 //       JAX ops GSPMD runs on frame_sharding-placed arrays): a memset,
@@ -341,24 +343,23 @@ project_fill_kernel(const float* __restrict__ avg, const uint32_t* __restrict__ 
   ox[HW] = from_f32<T>(den > 0.f ? ny / den : ay[p]);
 }
 
-// K2's tile entry: one thread per source pixel of a tile (B tiles of H x W,
-// sources of an Hg x Wg frame at origins (x0, y0) per tile), landing in the
-// (He, We) = (H + 2 halo_h, W + 2 halo) extended buffer.  The landing cell
-// is the frame's, moved to the buffer, so tiles land where the global op
-// lands.
+// K2's tile entry's scatter: one thread per source pixel of a tile (B tiles
+// of H x W, sources of an Hg x Wg frame at origins (x0, y0) per tile),
+// landing in the (He, We) = (H + 2 halo_h, W + 2 halo) extended buffer.  The
+// landing cell is the frame's, moved to the buffer, so tiles land where the
+// global op lands.  Block (32, 8) over 32 columns x 8 rows of a tile, grid
+// (words_for(W), ceil(H / 8), B): no division, 32-bit offsets in a tile.
 template <typename T>
 __global__ void __launch_bounds__(256)
 project_tile_scatter_kernel(const T* __restrict__ flow, const int* __restrict__ origins,
                             float* __restrict__ sums, int H, int W, int halo, int halo_h, int Hg,
-                            int Wg, int64_t total) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int64_t HW = static_cast<int64_t>(H) * W;
-  const int64_t b = idx / HW;
-  const int64_t p = idx - b * HW;
-  const int y = static_cast<int>(p / W);
-  const int x = static_cast<int>(p - static_cast<int64_t>(y) * W);
-  const T* f = flow + 2 * b * HW + p;
+                            int Wg) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const int b = blockIdx.z;
+  const int HW = H * W;
+  const T* f = flow + static_cast<int64_t>(b) * 2 * HW + y * W + x;
   float fx = to_f32(f[0]);
   float fy = to_f32(f[HW]);
   const float bx = static_cast<float>(halo - 1);
@@ -376,8 +377,8 @@ project_tile_scatter_kernel(const T* __restrict__ flow, const int* __restrict__ 
   const int He = H + 2 * halo_h, We = W + 2 * halo;
   const int ix = clampi(clampi(__float2int_rz(x2), 0, Wg - 1) - x0 + halo, 0, We - 1);
   const int iy = clampi(clampi(__float2int_rz(y2), 0, Hg - 1) - y0 + halo_h, 0, He - 1);
-  const int64_t HWe = static_cast<int64_t>(He) * We;
-  float* s = sums + 3 * b * HWe + static_cast<int64_t>(iy) * We + ix;
+  const int HWe = He * We;
+  float* s = sums + static_cast<int64_t>(b) * 3 * HWe + iy * We + ix;
   atomicAdd(s, -fx);
   atomicAdd(s + HWe, -fy);
   atomicAdd(s + 2 * HWe, 1.f);
@@ -418,22 +419,43 @@ project_payload_tile_scatter_kernel(const T* __restrict__ flow, const float* __r
   for (int c = 0; c < P; ++c) atomicAdd(s + c * HWg, v[c * HW]);
 }
 
-// Both +1 folds of the three planes of S at the buffer's own edges, in the
-// plain version's order, no divide: one thread per target pixel.
-__global__ void __launch_bounds__(256)
-project_raw_fold_kernel(const float* __restrict__ sums, float* __restrict__ out, int H, int W,
-                        int64_t total) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;  // total = B * 3 * H * W, one plane after another
-  const int64_t HW = static_cast<int64_t>(H) * W;
-  const int64_t q = idx / HW;
-  const int64_t p = idx - q * HW;
-  const int y = static_cast<int>(p / W);
-  const int x = static_cast<int>(p - static_cast<int64_t>(y) * W);
-  const float* plane = sums + q * HW;
-  const float t = fold_x(plane, y, x, W);
-  const float tp = y > 0 ? fold_x(plane, y - 1, x, W) : 0.f;
-  out[idx] = t + fold_term(tp, t, y, H);
+constexpr int kFoldRows = 16;  // rows a warp of project_raw_fold_kernel walks
+
+// Both +1 folds of each H x W plane of S at the plane's own edges, in the
+// plain version's order, no divide (the tile entries').  A warp walks
+// kFoldRows rows of a 32-column strip of one plane: lane l holds column x,
+// takes S at x - 1 from lane l - 1 by a shuffle (lane 0 loads it), and keeps
+// the x fold of the row above in a register, so each S value is loaded once
+// (and the row above the warp's first, and lane 0's column to the left).
+// All its rows are loaded before the first is folded.  Block (32, 8), grid
+// (words_for(W), ceil(H / (8 kFoldRows)), planes); 32-bit offsets in a plane.
+__global__ void __launch_bounds__(kTile * kTileWarps)
+project_raw_fold_kernel(const float* __restrict__ sums, float* __restrict__ out, int H, int W) {
+  const int lane = threadIdx.x;
+  const int x = blockIdx.x * kTile + lane;
+  const int y0 = (blockIdx.y * blockDim.y + threadIdx.y) * kFoldRows;
+  if (y0 >= H) return;  // the whole warp
+  const int64_t base = static_cast<int64_t>(blockIdx.z) * H * W;
+  const float* s = sums + base;
+  float* o = out + base;
+  const bool in = x < W;
+  float cur[kFoldRows + 1], left[kFoldRows + 1];  // rows y0 - 1 .. y0 + kFoldRows - 1
+#pragma unroll
+  for (int r = 0; r <= kFoldRows; ++r) {
+    const int y = y0 - 1 + r;
+    const bool row = y >= 0 && y < H;
+    cur[r] = row && in ? s[y * W + x] : 0.f;
+    left[r] = row && lane == 0 && x > 0 ? s[y * W + x - 1] : 0.f;
+  }
+  float tp = 0.f;  // T, the x fold, of the row above (0 above row 0)
+#pragma unroll
+  for (int r = 0; r <= kFoldRows; ++r) {
+    const int y = y0 - 1 + r;
+    const float from_left = __shfl_up_sync(kFullMask, cur[r], 1);
+    const float t = cur[r] + fold_term(lane == 0 ? left[r] : from_left, cur[r], x, W);
+    if (r > 0 && in && y < H) o[y * W + x] = t + fold_term(tp, t, y, H);
+    tp = t;
+  }
 }
 
 // The has-value masks (count > 0) of (B, H, W) counts, as project_fold_kernel
@@ -472,27 +494,36 @@ project_mask_kernel(const float* __restrict__ cnt, uint32_t* __restrict__ rows,
   if (word) atomicOr(col_sums + line * words_for(nh) + blockIdx.y / 32, 1u << (blockIdx.y % 32));
 }
 
+// The raw fold of `planes` H x W planes of S into out.
+inline cudaError_t launch_raw_fold(const float* sums, float* out, int planes, int H, int W,
+                                   cudaStream_t st) {
+  const dim3 grid(words_for(W), ceil_div(H, kTileWarps * kFoldRows), planes);
+  project_raw_fold_kernel<<<grid, dim3(kTile, kTileWarps), 0, st>>>(sums, out, H, W);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_tile_sums(const T* flow, const int* origins, float* sums, float* out, int B,
                              int H, int W, int halo, int halo_h, int Hg, int Wg, cudaStream_t st) {
   const int64_t He = H + 2 * halo_h, We = W + 2 * halo;
+  // 32-bit offsets inside a tile's planes; B and 3 B planes on the grid's z
+  if (2LL * H * W > INT32_MAX || 3 * He * We > INT32_MAX || 3LL * B > 65535)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(sums, 0, sizeof(float) * 3 * B * He * We, st);
   if (err != cudaSuccess) return err;
-  const int64_t total = static_cast<int64_t>(B) * H * W;
-  project_tile_scatter_kernel<T><<<ceil_div(total, 256), 256, 0, st>>>(
-      flow, origins, sums, H, W, halo, halo_h, Hg, Wg, total);
+  project_tile_scatter_kernel<T><<<dim3(words_for(W), ceil_div(H, 8), B), dim3(32, 8), 0, st>>>(
+      flow, origins, sums, H, W, halo, halo_h, Hg, Wg);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int64_t planes = 3 * B * He * We;
-  project_raw_fold_kernel<<<ceil_div(planes, 256), 256, 0, st>>>(sums, out, static_cast<int>(He),
-                                                                  static_cast<int>(We), planes);
-  return cudaGetLastError();
+  return launch_raw_fold(sums, out, 3 * B, static_cast<int>(He), static_cast<int>(We), st);
 }
 
 template <typename T, int P>
 cudaError_t launch_payload_tile(const T* flow, const float* payload, const int* origins,
                                 float* sums, float* out, int B, int H, int W, int S, int Hg,
                                 int Wg, cudaStream_t st) {
+  if (static_cast<int64_t>(Hg) * Wg > INT32_MAX || static_cast<int64_t>(S) * P > 65535)
+    return cudaErrorInvalidValue;
   const int64_t planes = static_cast<int64_t>(S) * P * Hg * Wg;
   cudaError_t err = cudaMemsetAsync(sums, 0, sizeof(float) * planes, st);
   if (err != cudaSuccess) return err;
@@ -501,8 +532,7 @@ cudaError_t launch_payload_tile(const T* flow, const float* payload, const int* 
       flow, payload, origins, sums, H, W, S, Hg, Wg, total);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  project_raw_fold_kernel<<<ceil_div(planes, 256), 256, 0, st>>>(sums, out, Hg, Wg, planes);
-  return cudaGetLastError();
+  return launch_raw_fold(sums, out, S * P, Hg, Wg, st);
 }
 
 template <typename T>

@@ -7,9 +7,14 @@ read by ``train.trainer.build_interp_trainer``.  The JAX fields that nothing
 in the port reads (dataset, batch size, task parameter, run directory,
 epochs: ``JAX_ONLY_FIELDS``) are not carried; ``add_config_args`` still
 accepts a flag for each, as the JAX demos do, and ``config_from_args`` drops
-it, so a command line written for a JAX demo runs the port's."""
+it, so a command line written for a JAX demo runs the port's.  Without
+``save_path``, ``Config.make_run_dir`` takes the run root as an argument."""
 
 import dataclasses
+import datetime
+import json
+import os
+import random
 from typing import Optional, Sequence
 
 
@@ -28,6 +33,21 @@ class Config:
     lr: float = 2e-3
     epsilon: float = 1e-6
     alpha: Sequence[float] = (1.0, 0.0)
+
+    def make_run_dir(self, root, rng=None):
+        """Make ``<root>/<uid>-<%a-%b-%d-%H:%M>`` (``exist_ok``) holding
+        ``args.txt``, this config as indented JSON, and return its path, as
+        the JAX ``Config.make_run_dir`` does under its ``save_path``.  The
+        uid is ``self.uid`` or else a random integer in [0, 100000] drawn
+        from ``rng`` (a ``random.Random``; a fresh one when None)."""
+        rng = rng if rng is not None else random.Random()
+        uid = self.uid or str(rng.randint(0, 100000))
+        stamp = datetime.datetime.now().strftime("%a-%b-%d-%H:%M")
+        run_dir = os.path.join(root, f"{uid}-{stamp}")
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "args.txt"), "w") as f:
+            json.dump(dataclasses.asdict(self), f, indent=2, default=str)
+        return run_dir
 
 
 TRAINER_FIELDS = ("lr", "epsilon", "alpha")

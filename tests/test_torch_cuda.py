@@ -864,6 +864,63 @@ def test_tile_entries_match_their_plain_versions(rng, dev, dtype, grid, halo, ki
     close(tp, ops.flow_project(flow.to(dtype), fillhole=True), long_sums=True)
 
 
+def tile_sums_case(rng, dev, dtype, grid, kind, H=70, W=148, halo=16):
+    """K2's tile entry's arguments on the tiles of B = 2 H x W frames: 37
+    columns a tile on (1, 4), 74 x 35 on (1, 2, 2).  Flows: +-20 px with
+    a band landing left of the frame, all landing below the frame, NaN
+    in a third of the pixels, or whole pixels (every sum exact, so the
+    kernel's result must equal the plain version's bit for bit)."""
+    from memcnet_tpu_torch.parallel import tiling as T
+
+    mesh, axis_h = tile_grid(grid, dev)
+    if kind == "integer":
+        f = rng.randint(-20, 21, (2, 2, H, W)).astype(np.float32)
+    else:
+        f = tile_flow(rng, "invalid" if kind == "invalid" else "noisy", 2, H, W, halo).numpy()
+    if kind == "nan":
+        f[rng.rand(*f.shape) < 0.33] = np.nan
+    flow = torch.from_numpy(f).to(dev, dtype)
+    ring = T._ring(mesh, 2, "tile", axis_h)
+    Wl, Hl, hh = T._grid(mesh, flow.shape, "tile", axis_h, halo, None)
+    return ring.split(flow), T._origins(ring, "tile", axis_h, Wl, Hl, dev), (halo, hh, W, H)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid", ["tile4", "tile2x2"])
+@pytest.mark.parametrize("kind", ["noisy", "invalid", "nan", "integer"])
+def test_tile_sums_odd_tiles_nan_and_alignment(rng, dev, dtype, grid, kind):
+    """K2's tile entry on tiles of odd widths (37, and 35 rows on (1, 2, 2):
+    halo_h 0 and 16): counts exact against its plain version, sums within
+    1e-3 (exact, bit for bit, for whole-pixel flows); an all-invalid flow
+    scatters nothing, a NaN flow only its other pixels; written into an
+    output one float past an 8-byte boundary, the same counts."""
+    from memcnet_tpu_torch.ops.cuda import _lib
+
+    fl, org, geom = tile_sums_case(rng, dev, dtype, grid, kind)
+    K.reset_counters()
+    got = P.tile_sums(fl, org, *geom)
+    assert K.launch_counts()["base_scatter_tile"] == 1
+    ref = P.tile_sums_reference(fl, org, *geom)
+    assert torch.equal(got[:, 2], ref[:, 2])
+    assert float((got - ref).abs().max()) <= 1e-3
+    if kind == "integer":
+        assert torch.equal(got, ref)
+    if kind == "invalid" and grid == "tile4":
+        assert not got.any()
+    if kind == "nan":
+        assert torch.isfinite(got).all() and float(got[:, 2].sum()) > 0
+    halo, hh, W, H = geom
+    n, _, Hl, Wl = fl.shape
+    sums = torch.empty_like(got)
+    out = misaligned(torch.zeros_like(got))
+    err = _lib.lib().memc_project_tile_sums(
+        fl.data_ptr(), org.data_ptr(), sums.data_ptr(), out.data_ptr(), n, Hl, Wl, halo, hh, H,
+        W, _lib.dtype_code(dtype), _lib.stream_ptr(fl))
+    _lib.check(err, "project_tile_sums")
+    assert torch.equal(out[:, 2], ref[:, 2])
+    assert float((out - ref).abs().max()) <= 1e-3
+
+
 def test_tiled_ops_under_spatial_tiling_launch_the_tile_entries(rng, dev):
     """Under spatial_tiling the three ops dispatch to the tiled ones, which
     launch the tile entries on CUDA tensors and never the plain versions."""
@@ -1024,9 +1081,9 @@ def test_partitioned_ve_on_the_card_launches_tile_entries_and_matches(rng, dev):
 LEVEL_TILE_LEVELS = [(768, 1344), (96, 168), (24, 42)]  # 720p's levels 0, 3 and 5
 
 
-def level_tile_case(rng, dev, dtype, grid, H, W, B=2, amp=20.0):
-    """The partition of 768x1344 on ``grid`` at the level H x W, and the tile
-    entry's arguments for fst, snd (B, 3, H, W) and a coarse flow whose
+def level_tile_case(rng, dev, dtype, grid, H, W, B=2, amp=20.0, frame=(768, 1344), halo=64):
+    """The partition of ``frame`` on ``grid`` at the level H x W, and the
+    tile entry's arguments for fst, snd (B, 3, H, W) and a coarse flow whose
     upsample reaches +-amp px."""
     from memcnet_tpu_torch.parallel import active_partition, shard_frames, spatial_tiling
 
@@ -1034,8 +1091,8 @@ def level_tile_case(rng, dev, dtype, grid, H, W, B=2, amp=20.0):
     f = np.clip(flow_field(rng, B, H // 2, W // 2, amp / 2).numpy(), -amp / 2, amp / 2)
     flow = torch.from_numpy(f).to(dev, dtype)
     mesh, axis_h = tile_grid(grid, dev)
-    with spatial_tiling(mesh, halo=64, axis_h=axis_h):
-        shard_frames(mesh, torch.zeros(1, 1, 768, 1344, device=dev))
+    with spatial_tiling(mesh, halo=halo, axis_h=axis_h):
+        shard_frames(mesh, torch.zeros((1, 1) + frame, device=dev))
         p = active_partition()
         ft = p.split(fst)
         window, origins, level = p.level_input_window(p.split(flow), ft)
@@ -1082,6 +1139,72 @@ def test_level_input_tile_gradients_match_plain(rng, dev):
     (gather_kernel.level_input_tile_reference(*xs, *args[3:]) * ct).sum().backward()
     for a, c in zip((fst, snd, flow), xs):
         assert float((a.grad - c.grad).abs().max()) <= ATOL
+
+
+# (grid, frame, level) -> the tile width (the widest of 4, 2, 1 pixels that
+# divides it): 332 (4), 334 (2), 167 (1), 84 owning 84 and 83 (4, the last
+# group partly owned), 42 owning 42 and 41 (2); on (1, 2, 2) 166 (2), 83 (1)
+# and 80 (4), with tiles of 16, 8 and 48 rows
+LEVEL_TILE_WIDTHS = [("tile4", (64, 1328), 0), ("tile4", (64, 1336), 0),
+                     ("tile4", (64, 1336), 1), ("tile4", (64, 1336), 2),
+                     ("tile4", (64, 1328), 3), ("tile2x2", (128, 1328), 2),
+                     ("tile2x2", (128, 1328), 3), ("tile2x2", (192, 320), 1)]
+
+
+def level_input_tile_into(args, out):
+    """The tile entry's kernel writing into ``out`` (any alignment)."""
+    from memcnet_tpu_torch.ops.cuda import _lib
+
+    ft, snd, window, origins, GH, GW = args
+    n, _, h, w = ft.shape
+    err = _lib.lib().memc_spynet_level_input_tile(
+        ft.data_ptr(), snd.data_ptr(), window.data_ptr(), origins.data_ptr(), out.data_ptr(), n,
+        snd.shape[0], h, w, window.shape[2], window.shape[3], GH, GW,
+        _lib.dtype_code(ft.dtype), _lib.stream_ptr(ft))
+    _lib.check(err, "spynet_level_input_tile")
+    return out
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` one element past an 8-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid,frame,lvl", LEVEL_TILE_WIDTHS)
+def test_level_input_tile_kernel_widths_and_alignment(rng, dev, dtype, grid, frame, lvl):
+    """K5's tile entry at tile widths that 4 does not divide (even and odd,
+    owned widths that end inside a group of 4 or 2), on (1, 4) (no H tiles)
+    and (1, 2, 2): merged fst and up equal the untiled kernel's bit for
+    bit, fst equals its plain version's, up and the warp of its own up are
+    within 1e-5 (float32) or 2 bf16 ulps, the unowned positions' last five
+    channels are zero; and an output or an fst one element past an 8-byte
+    boundary gives the same bits."""
+    H, W = frame[0] >> lvl, frame[1] >> lvl
+    p, (fst, snd, flow), args = level_tile_case(rng, dev, dtype, grid, H, W, frame=frame,
+                                                halo=16)
+    got = gather_kernel.launch_level_input_tile(*args)
+    ref = gather_kernel.level_input_tile_reference(*args)
+    merged = p.merge(got)
+    untiled = gather_kernel.launch_level_input(fst, snd, flow)
+    assert torch.equal(merged[:, :3], untiled[:, :3]) and torch.equal(merged[:, 6:],
+                                                                      untiled[:, 6:])
+    assert torch.equal(got[:, :3], ref[:, :3])
+    owned = ref[:, 3:].abs().sum(1) > 0
+    assert not got[:, 3:][~owned[:, None].expand_as(got[:, 3:])].any()
+    want = gather_kernel.reference(snd, gather_kernel.warp_grid(merged[:, 6:]))
+    if dtype == torch.float32:
+        assert float((got[:, 6:] - ref[:, 6:]).abs().max()) <= 1e-5 * 20
+        assert float((merged[:, 3:6] - want).abs().max()) <= 1e-5
+    else:
+        close(got[:, 6:], ref[:, 6:])
+        close(merged[:, 3:6], want)
+    assert torch.equal(level_input_tile_into(args, misaligned(torch.zeros_like(got))), got)
+    moved = (misaligned(args[0]),) + args[1:]
+    assert torch.equal(gather_kernel.launch_level_input_tile(*moved), got)
 
 
 # -- the op library on partitioned frames: K2's payload entry on tile origins -----------

@@ -311,6 +311,70 @@ def test_config_from_argv_matches_jax(argv):
                             "pretrained", "uid", "dtype", "lr", "epsilon", "alpha"}
 
 
+class _FrozenClock:
+    """Stands in for the ``datetime`` module of a config module: ``now()``
+    is one fixed time."""
+
+    class datetime:
+        @staticmethod
+        def now():
+            import datetime
+
+            return datetime.datetime(2026, 3, 7, 9, 5, 41)
+
+
+@pytest.mark.parametrize("uid", ["u7", None])
+def test_make_run_dir_matches_jax(uid, tmp_path, monkeypatch):
+    """``Config.make_run_dir(root)`` makes the JAX method's directory under
+    ``root`` in place of ``save_path``: the same ``<uid>-<%a-%b-%d-%H:%M>``
+    name on a frozen clock (without a uid, the port's seeded
+    ``random.Random`` draws the integer that the JAX method draws from the
+    global ``random`` seeded alike), and an ``args.txt`` equal to the JAX
+    one on the port's fields."""
+    import json
+    import random
+
+    for mod in (torch_config, jax_config):
+        monkeypatch.setattr(mod, "datetime", _FrozenClock)
+    kw = dict(net_name="MEMC_Net_s", seed=3, task="sr", uid=uid, dtype="bfloat16",
+              alpha=(1.0, 0.5))
+    state = random.getstate()
+    try:
+        random.seed(11)
+        jax_dir = jax_config.Config(save_path=str(tmp_path / "jax"), **kw).make_run_dir()
+    finally:
+        random.setstate(state)
+    port_dir = torch_config.Config(**kw).make_run_dir(str(tmp_path / "port"),
+                                                      rng=random.Random(11))
+    assert os.path.dirname(port_dir) == str(tmp_path / "port")
+    name = os.path.basename(port_dir)
+    assert name == os.path.basename(jax_dir)
+    assert name.endswith("-Sat-Mar-07-09:05") and (uid is None or name.startswith(uid + "-"))
+    with open(os.path.join(jax_dir, "args.txt")) as f:
+        jax_args = json.load(f)
+    with open(os.path.join(port_dir, "args.txt")) as f:
+        port_args = json.load(f)
+    assert port_args == {k: jax_args[k] for k in port_args}
+    assert set(port_args) == {f.name for f in dataclasses.fields(torch_config.Config)}
+    # exist_ok: a second call on the same uid and minute returns the same directory
+    again = torch_config.Config(**kw).make_run_dir(str(tmp_path / "port"), rng=random.Random(11))
+    assert again == port_dir
+
+
+def test_make_run_dir_draws_the_uid_from_its_rng(tmp_path):
+    """Without a uid, one seed gives one uid twice; a fresh generator is made
+    where none is given."""
+    import random
+
+    cfg = torch_config.Config()
+    uids = [os.path.basename(cfg.make_run_dir(str(tmp_path / str(k)),
+                                              rng=random.Random(5))).split("-")[0]
+            for k in range(2)]
+    assert uids[0] == uids[1] == str(random.Random(5).randint(0, 100000))
+    free = os.path.basename(cfg.make_run_dir(str(tmp_path / "free"))).split("-")[0]
+    assert 0 <= int(free) <= 100000
+
+
 @pytest.mark.parametrize("flag", ["--lr", "--batch-size", "--num-epoch", "--task-param",
                                   "--alpha", "--dataset-path"])
 def test_demos_refuse_trainer_flags(flag, monkeypatch):
