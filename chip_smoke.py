@@ -20,11 +20,12 @@ Phases (any failed check exits non-zero and prints no result line):
      its fst and up equal to the untiled kernel's bit for bit, timed at the
      top level on (1, 4) beside F.grid_sample of the same sample; K2's
      payload entry on tile origins (the depth-weighted and gated projections
-     on partitioned frames) on the (1, 4) tiles of 768x1344, B = 2, P = 3
-     and 4, its count plane equal to its plain version's and to the untiled
-     payload entry's, its sums within 1e-5 of their scale, at most 3 device
-     operations per call, timed beside index_add_ of the same planes into a
-     whole-frame buffer; the projection's K2
+     on partitioned frames, the payload built inside the scatter from the
+     depth or from frame1 and frame2's whole level) on the (1, 4) tiles of
+     768x1344, B = 2, P = 3 and 4, its last plane (depth sums, gate counts)
+     equal to its plain version's and to the untiled payload entry's, its
+     sums within 1e-5 of their scale, at most 3 device operations per call,
+     timed beside index_add_ of the same payload into a whole-frame buffer; the projection's K2
      and K3 stages each, and the whole op (flow_project) against its plain
      composition on
      smooth, +-200 px and all-invalid flows, with its device operations per
@@ -84,13 +85,15 @@ Phases (any failed check exits non-zero and prints no result line):
      (recorded), bf16 and float32, and its step gradient against the plain
      version's at the largest such shape;
   7. the op library (ops.__all__'s 13 names) on the card, on textured frames
-     from probe.py and the +-20 px flows of phase 2: K2's payload entry (the
-     depth payload, 3 planes, and the brightness-gated one, 4) and K3's down
-     search against their plain versions at B = 2, 768x1344, bf16 and
-     float32 (counts and masks exact; timed beside their bounds and, for
-     K2, index_add_ of the same payload); depth_flow_project,
+     from probe.py and the +-20 px flows of phase 2: K2's payload entry (N7's
+     payload built inside the scatter from the depth, 3 planes, and N8's
+     from the frames with the gate, 4) and K3's down search against their
+     plain versions at B = 2, 768x1344, bf16 and float32 (counts, gate
+     decisions and masks exact; timed beside their bounds and, for K2,
+     index_add_ of the same payload); depth_flow_project,
      weighted_flow_project and flow_project with fix_down_scan_bug whole,
-     one K2 and (with the fill) one K3 per call; then the op library's run:
+     one K2 and (with the fill) one K3 per call, at most 4 device operations
+     with the fill and 3 without; then the op library's run:
      each of the 13 ops once on the card in float32 (the projections, the
      warps and separable_conv at B = 2, 768x1344; the MC ops at B = 1, C = 3)
      with the launch counts set to 0 just before and read just after, each
@@ -101,7 +104,10 @@ Phases (any failed check exits non-zero and prints no result line):
      (parallel/tiling.py's tile-local steps) against their plain versions at
      MEMC_Net_star's 768x1344 in bf16 and float32, on a (data 1, tile 4)
      and a (1, 2, 2) grid with halo 64, on smooth, +-20 px and all-invalid
-     flows (counts and masks exact), timed beside their bounds; the tiled
+     flows (counts and masks exact; K3's tile entry bit-equal to the tiled
+     fill's plain composition with the tiles stacked and with every carry
+     given, and the whole tiled fill from avg, cnt at most 2 device
+     operations), timed beside their bounds; the tiled
      warp and projection against the global ops on the card, with launches,
      ms and device operations per call of each; MEMC_Net_star served at 720p
      under spatial_tiling (tile 4, halo 64) through PaddedInterp, the launch
@@ -146,10 +152,16 @@ Phases (any failed check exits non-zero and prints no result line):
      on tile origins and one K3 carry entry, the grid sample one K5 general
      entry, the filter warps one K1 tile entry, flow_project one K2 tile
      entry and one K3 carry entry, nothing else), and the whole-level
-     gathers and reductions of the forward and the backward; for the +-20
-     px flow each op's device ms and device operations from one profiled
-     call, the gathers' and reductions' device ms and the peak memory, beside
-     the untiled op's.
+     gathers and reductions of the forward and the backward; the tiled fill
+     of flow_project, N7 and N8 at most 2 device operations from avg, cnt
+     (counted where the profiler keeps the records, at least once);
+     for the +-20 px flow each op's device ms and device operations from one
+     profiled call (N7 and N8 at most 30: no payload built in PyTorch), the
+     gathers' and reductions' device ms and the peak memory, beside the
+     untiled op's; then K3's tile entry and K2's payload entries, recorded
+     through phases 9-10 (phase 8 holds its own), held against their plain
+     versions at every shape those phases launched them at, bf16 and
+     float32.
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.  Long output (the kernels' build
 log, the full results) goes to chiprun_out/chip_smoke/.
@@ -215,9 +227,14 @@ TILE_ENTRIES = {
                           "memcnet_tpu/parallel/tiling.py:187-222 (tiled_flow_project's scatter)"),
     "fill_holes_carry": ("memcnet_tpu_torch/csrc/project.cu",
                          "memcnet_tpu/ops/pallas/fill_kernel.py:114",
-                         "memcnet_tpu/parallel/tiling.py:236 (_tiled_fill)"),
+                         "memcnet_tpu/parallel/tiling.py:236-289 (_tiled_fill, chained_scan)"),
 }
+TILE_ENTRY_NAMES = {"filter_interp_warp_tile": "memc_filter_interp_warp_tile",
+                    "base_scatter_tile": "memc_project_tile_sums",
+                    "fill_holes_carry": "memc_project_fill_tiles"}
 
+# the ShapeRecorder rows of phases 9-10: K3's tile entry, K2's payload entries
+PARALLEL_SHAPE_ROWS = ("fill_tiles", "payload", "payload_tile")
 # the ShapeRecorder rows (phase 5) that hold each kernel of the line; K3
 # runs in flow_project with the fill
 DEMO_SHAPE_ROWS = {"filter_interp_warp": ("filter_interp_warp",),
@@ -242,6 +259,26 @@ def gpu_name_and_limit():
         return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
     except (OSError, subprocess.TimeoutExpired, IndexError):
         return "nvidia-smi unavailable"
+
+
+FILL_OPS_MAX = 2  # the tiled fill, from avg, cnt to the filled tiles
+
+
+def fill_count(torch, fn, what):
+    """The tiled fill's device operations, counted as CUDA-graph nodes
+    (``probe.graph_ops``, which loses none) and held at 1 to FILL_OPS_MAX,
+    with its device ms and kernels from the profiler where that kept every
+    record (else None: not measured)."""
+    from memcnet_tpu_torch.probe import device_ops, graph_ops
+
+    n = graph_ops(fn)
+    if not 1 <= n <= FILL_OPS_MAX:
+        raise CheckFailed(f"{what}: {n} device operations from avg, cnt to the filled tiles, "
+                          f"1 to {FILL_OPS_MAX}")
+    kept, ms, by_kernel = device_ops(fn)
+    whole = kept == n
+    return dict(device_ops=n, device_ms=ms if whole else None,
+                by_kernel=by_kernel if whole else None)
 
 
 def timed_ms(torch, fn, reps=10, flush=None):
@@ -1224,7 +1261,7 @@ class ShapeRecorder:
     and leaves the launch counts alone.  ``seen`` maps a kernel to the set
     of its launch signatures."""
 
-    def __init__(self):
+    def __init__(self, only=None):
         import inspect
 
         from memcnet_tpu_torch.ops.cuda import conv_kernel, gather_kernel, warp_kernel
@@ -1245,9 +1282,22 @@ class ShapeRecorder:
              lambda a: tuple(a["fst"].shape)),
             ("grid_sample", gather_kernel, "launch",
              lambda a: (*a["x"].shape, *a["grid"].shape[1:3])),
+            # K3's tile entry: (n, H, W, the stacked axes, which carries are given)
+            ("fill_tiles", project_kernel, "launch_fill_tiles",
+             lambda a: (a["avg"].shape[0], *a["avg"].shape[2:], a["stacks"],
+                        tuple(a[k] is not None for k in ("left", "right", "up")))),
+            # K2's payload entry: (op, flow shape, fill); on tile origins (op, flow
+            # shape, samples, frame), its first origins kept
+            ("payload", project_kernel, "_payload_sums",
+             lambda a: (a["op"], *a["flow"].shape, bool(a["fillhole"]))),
+            ("payload_tile", project_kernel, "launch_payload_tile",
+             lambda a: (a["op"], *a["flow"].shape, a["samples"], a["H"], a["W"])),
         )
+        if only is not None:
+            self.targets = tuple(t for t in self.targets if t[0] in only)
         self.seen = {name: set() for name, *_ in self.targets}
         self.calls = {name: 0 for name, *_ in self.targets}
+        self.origins = {}  # (name, key) -> the origins of its first launch
         self.saved = []
         self.inspect = inspect
 
@@ -1259,7 +1309,10 @@ class ShapeRecorder:
             def wrapped(*args, _fn=fn, _sig=sig, _name=name, _key=key, **kwargs):
                 bound = _sig.bind(*args, **kwargs)
                 bound.apply_defaults()
-                self.seen[_name].add(_key(bound.arguments))
+                k = _key(bound.arguments)
+                self.seen[_name].add(k)
+                if "origins" in bound.arguments:
+                    self.origins.setdefault((_name, k), bound.arguments["origins"])
                 self.calls[_name] += 1
                 return _fn(*args, **kwargs)
 
@@ -1273,7 +1326,7 @@ class ShapeRecorder:
         self.saved = []
 
 
-def hold_recorded_shapes(torch, results, seen, tag="demo"):
+def hold_recorded_shapes(torch, results, seen, tag="demo", origins=None):
     """Each kernel against its plain version at every shape a path (the
     demos, the train steps) launched it at (``ShapeRecorder.seen``), in bf16
     and in float32, on
@@ -1282,7 +1335,13 @@ def hold_recorded_shapes(torch, results, seen, tag="demo"):
     flow, +-200 px noise and an all-invalid flow (counts and masks exact);
     K4 with torch-0.2 default weights and bias where the path has a bias
     (SPyNet), MSRA weights where it has none (ctx); K5's level input exact
-    in fst and up, its warp against the plain grid sample.  Per-shape lines
+    in fst and up, its warp against the plain grid sample; K3's tile entry
+    on sparse counts (carries from tiles away, rows empty to the frame's
+    edge) and on counts whose last column and row are empty, bits and masks
+    exact against the tiled fill's plain composition; K2's payload entry
+    (N7's depth in quarters, N8's gate at 20/255) on the +-20 px flow, its
+    last plane and masks exact, and on tile origins (``origins``: the
+    first launch's of each shape), its last plane exact.  Per-shape lines
     go to OUT_DIR/<tag>_shapes.log, the rows to results["<tag>_shapes"]."""
     from memcnet_tpu_torch.nn import init as I
     from memcnet_tpu_torch.ops import projection
@@ -1353,11 +1412,92 @@ def hold_recorded_shapes(torch, results, seen, tag="demo"):
         grid = gather_kernel.warp_grid(synthetic_flow(B, dev, size=(Ho, Wo))).contiguous()
         return compare([(gather_kernel.launch(x, grid), gather_kernel.reference(x, grid))], 1e-5)
 
+    def fill_tiles(dt, n, Hl, Wl, stacks, given):
+        from memcnet_tpu_torch.parallel import tiling as T
+
+        # every carry given (the mode of an axis across ranks): the carry entry's plain
+        # version on random carries; else the grid of these stacks, rebuilt
+        ring = axis_h = None
+        if stacks[0] is not None:
+            axis_h = "tile_h" if stacks[1] is not None else None
+            ring = T._ring(tile_mesh(torch, "tile2x2" if axis_h else "tile4"), stacks[0][1],
+                           "tile", axis_h)
+            if (ring.n, ring.stacked("tile"), axis_h and ring.stacked(axis_h)) != \
+                    (n, stacks[0], axis_h and stacks[1]):
+                raise CheckFailed(f"fill_tiles {(n, Hl, Wl, stacks)}: no such grid here")
+        elif stacks[1] is not None or not given[0]:
+            raise CheckFailed(f"fill_tiles {(n, Hl, Wl, stacks, given)}: no such grid here")
+
+        def carries(length):
+            c = torch.randn((n, 3, length), generator=gen, device=dev)
+            c[:, 0] = (c[:, 0] > 0).float()
+            return c
+
+        checks = []
+        for density, uneven in ((0.004, False), (0.3, True)):
+            cnt = (torch.rand((n, Hl, Wl), generator=gen, device=dev) < density).float()
+            if uneven:
+                cnt[..., -1] = 0.0
+                cnt[:, -1] = 0.0
+            avg = torch.randn((n, 2, Hl, Wl), generator=gen, device=dev) * (cnt > 0)[:, None]
+            has = cnt > 0
+            if ring is None:
+                lf, rt = carries(Hl), carries(Hl)
+                up = carries(Wl) if given[2] else None
+                ref = P.carry_fill_reference(avg, cnt, lf, rt, up, dt)
+            else:
+                lf, rt = T._row_carries(avg, has, ring, "tile") if given[0] else (None, None)
+                up = T._up_carry(avg, has, ring, axis_h) if given[2] else None
+                ref = T.tiled_fill_reference(avg, cnt, ring, "tile", axis_h, dt)
+            got, masks = P.launch_fill_tiles(avg, cnt, stacks, lf, rt, up, dt, with_masks=True)
+            want = P.pack_masks(has)
+            if not (torch.equal(got, ref) and torch.equal(masks.rows, want.rows)
+                    and torch.equal(masks.cols, want.cols)):
+                raise CheckFailed(f"fill_tiles {dt} {(n, Hl, Wl, stacks)}: not the plain "
+                                  "composition's bits or masks")
+            checks.append(compare([(got, ref)], 0.0))
+        return max(checks, key=lambda c: c[1])
+
+    def op_inputs(op, B, Hh, Ww, dt):
+        if op == "depth":
+            return ((torch.randint(1, 8, (B, 1, Hh, Ww), generator=gen, device=dev) * 0.25)
+                    .to(dt),)
+        f1 = rand(B, 3, Hh, Ww, dt=torch.float32)
+        f2 = (f1 + 0.05 * torch.randn(f1.shape, generator=gen, device=dev)).clamp(0.0, 1.0)
+        return f1.to(dt), f2.to(dt)
+
+    def payload(dt, op, B, _two, Hh, Ww, fillhole):
+        flow = synthetic_flow(B, dev, size=(Hh, Ww)).to(dt)
+        ins = op_inputs(op, B, Hh, Ww, dt)
+        S, out, extra, masks = P.launch_payload(op, flow, ins, 20.0 / 255.0, fillhole)
+        S_ref, out_ref, extra_ref, masks_ref = P.op_stage_reference(op, flow, ins, 20.0 / 255.0,
+                                                                    fillhole)
+        if fillhole:
+            check_projection_exact(torch, f"payload {op} {dt} {Hh}x{Ww}", S, S_ref, masks,
+                                   masks_ref)
+        elif not torch.equal(S[:, -1], S_ref[:, -1]):
+            raise CheckFailed(f"payload {op} {dt} {Hh}x{Ww}: the last plane differs")
+        return compare([(out, out_ref)] + ([(extra, extra_ref)] if extra is not None else []),
+                       1e-3)
+
+    def payload_tile(dt, op, n, _two, h, w, S, Hg, Wg):
+        org = origins[("payload_tile", (op, n, _two, h, w, S, Hg, Wg))]
+        flow = ((torch.rand((n, 2, h, w), generator=gen, device=dev) - 0.5) * 40.0).to(dt)
+        ins = op_inputs(op, n, h, w, dt)
+        if op == "gated":
+            ins = (ins[0], op_inputs(op, S, Hg, Wg, dt)[1])
+        got = P.launch_payload_tile(op, flow, ins, 20.0 / 255.0, org, S, Hg, Wg)
+        ref = P.payload_tile_reference(op, flow, ins, 20.0 / 255.0, org, S, Hg, Wg)
+        if not torch.equal(got[:, -1], ref[:, -1]):
+            raise CheckFailed(f"payload_tile {op} {dt} {(n, h, w)}: the last plane differs")
+        return compare([(got, ref)], 1e-5 * max(1.0, float(ref.abs().max())))
+
     holds = {"filter_interp_warp": warp, "flow_project": project, "conv2d_small": conv,
-             "spynet_level_input": level_input, "grid_sample": grid_sample}
+             "spynet_level_input": level_input, "grid_sample": grid_sample,
+             "fill_tiles": fill_tiles, "payload": payload, "payload_tile": payload_tile}
     rows, lines = [], []
     for name, keys in seen.items():
-        for key in sorted(keys):
+        for key in sorted(keys, key=repr):
             for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
                 err, measure, limit, rule = holds[name](dt, *key)
                 ok = bool(measure <= limit)
@@ -1941,12 +2081,12 @@ def oplib_calls(ops, x):
 
 
 def oplib_kernels(torch, x, rows):
-    """K2's payload entry (the depth payload, P = 3, and the gated one,
-    P = 4) and K3's down search against their plain versions under phase
-    2's rules, in bf16 and float32; then the depth-weighted and gated
-    projections and flow_project with the down search whole, against their
-    plain compositions, with their launches and device operations per
-    call."""
+    """K2's payload entry (N7's payload built from the depth, P = 3, and
+    N8's from the frames, P = 4) and K3's down search against their plain
+    versions under phase 2's rules, in bf16 and float32; then the
+    depth-weighted and gated projections and flow_project with the down
+    search whole, against their plain compositions, with their launches and
+    device operations per call (at most 4 with the fill, 3 without)."""
     from memcnet_tpu_torch.ops import cuda as K
     from memcnet_tpu_torch.ops import projection
     from memcnet_tpu_torch.ops.cuda import project_kernel as P
@@ -1955,20 +2095,20 @@ def oplib_kernels(torch, x, rows):
     dev = torch.device("cuda")
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     B, HW = 2, H * W
+    threshold = 20.0 / 255.0
     launches = {}
     for dtype_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         esize = torch.tensor([], dtype=dt).element_size()
         flow = x["flow"].to(dt)
         f1, f2, depth = x["frame1"].to(dt), x["frame2"].to(dt), x["depth"].to(dt)
-        payloads = {3: projection.depth_payload(flow, depth),
-                    4: projection.weighted_payload(flow, f1, f2, 20.0 / 255.0)}
-        gated = float((payloads[4][:, 3] > 0).float().mean())
-        for planes, payload in payloads.items():
+        cases = {3: ("depth", (depth,)), 4: ("gated", (f1, f2))}
+        gated = float((P.op_payload("gated", flow, (f1, f2), threshold)[:, 3] > 0).float().mean())
+        for planes, (op, ins) in cases.items():
             name = f"base_scatter[payload P={planes}]"
             for fillhole in (True, False):
-                S, out, extra, masks = P.launch_payload(flow, payload, fillhole)
-                S_ref, out_ref, extra_ref, masks_ref = P.payload_stage_reference(
-                    flow, payload, fillhole)
+                S, out, extra, masks = P.launch_payload(op, flow, ins, threshold, fillhole)
+                S_ref, out_ref, extra_ref, masks_ref = P.op_stage_reference(
+                    op, flow, ins, threshold, fillhole)
                 if fillhole:
                     check_projection_exact(torch, f"{name} {dtype_name}", S, S_ref, masks,
                                            masks_ref)
@@ -1980,26 +2120,29 @@ def oplib_kernels(torch, x, rows):
             valid, ixL, iyT = P.landing_cells(flow.float())
             cell = (torch.where(valid, iyT * W + ixL, 0).long()
                     + (torch.arange(B, device=dev) * HW).view(B, 1, 1)).reshape(-1)
+            payload = P.op_payload(op, flow, ins, threshold)
             src = torch.where(valid[:, None], payload, 0.0).permute(0, 2, 3, 1).reshape(B * HW,
                                                                                      planes)
 
-            def lib_scatter():  # the same P-plane base scatter, one PyTorch call
+            def lib_scatter():  # the same P-plane base scatter of the built payload, one call
                 return torch.zeros(B * HW, planes, device=dev).index_add_(0, cell, src)
 
-            # reads the flow and the payload, writes the result and the extra planes
+            def entry(fill):
+                return P.launch_payload(op, flow, ins, threshold, fill)
+
+            n_ops, dev_ms, by_kernel = device_ops(lambda: entry(False))
+            # reads the flow and the op's inputs, writes the result and the extra planes
             record_row(rows, name, dtype_name, check,
-                       timed_ms(torch, lambda: P.launch_payload(flow, payload, False),
-                                flush=flush),
-                       timed_ms(torch, lambda: P.payload_stage_reference(flow, payload, False),
-                                flush=flush),
+                       timed_ms(torch, lambda: entry(False), flush=flush),
+                       timed_ms(torch, lambda: P.op_stage_reference(op, flow, ins, threshold,
+                                                                    False), flush=flush),
                        timed_ms(torch, lib_scatter, flush=flush),
-                       nbytes=B * HW * (2 * esize + planes * 4 + (planes - 1) * esize),
+                       nbytes=B * HW * (2 + sum(t.shape[1] for t in ins) + planes - 1) * esize,
                        flops=0, op_dtype="float32",
                        extra=dict(valid_pixels=int(valid.sum()), gated_share=gated,
-                                  fill_ms=timed_ms(
-                                      torch, lambda: P.launch_payload(flow, payload, True),
-                                      flush=flush)))
-            del S, S_ref, out, out_ref, extra, extra_ref, src, cell
+                                  device_ops=n_ops, device_ms=dev_ms, by_kernel=by_kernel,
+                                  fill_ms=timed_ms(torch, lambda: entry(True), flush=flush)))
+            del S, S_ref, out, out_ref, extra, extra_ref, src, cell, payload
 
         # K3 with the down search, on the flow projection's average and masks
         _, avg_ref, masks_ref = P.sums_stage_reference(flow, True)
@@ -2051,7 +2194,7 @@ def oplib_kernels(torch, x, rows):
                 ref = ref if isinstance(ref, tuple) else (ref,)
                 check = compare(list(zip(got, ref)), 1e-3)
                 n_ops, dev_ms, by_kernel = device_ops(lambda: fn(fillhole))
-                most = 4 if fillhole else 3
+                most = 4 if fillhole else 3  # memset, scatter, fold (, fill): no payload glue
                 log(f"  {name:<19} {dtype_name:<8} fill {fillhole}: max_abs_err {check[0]:.3e} "
                     f"[{check[3]}: {check[1]:.3g}]; launches {want}; device ops per call "
                     f"{n_ops}, device ms {dev_ms:.4f}: "
@@ -2059,6 +2202,9 @@ def oplib_kernels(torch, x, rows):
                 if not check[1] <= check[2]:
                     raise CheckFailed(f"{name} {dtype_name} fill {fillhole}: the card disagrees "
                                       f"with the plain composition ({check[3]}: {check[1]})")
+                if n_ops > most:
+                    raise CheckFailed(f"{name} {dtype_name} fill {fillhole}: {n_ops} device "
+                                      f"operations per call, at most {most} expected")
                 per[fillhole] = dict(check=check, device_ops=n_ops, device_ms=dev_ms,
                                      device_ms_by_kernel=by_kernel, launches=want)
                 launches[name] = want
@@ -2072,7 +2218,7 @@ def oplib_kernels(torch, x, rows):
                                   by_fill={str(k): {kk: vv for kk, vv in v.items()
                                                     if kk != "check"}
                                            for k, v in per.items()}))
-        del payloads, flow, f1, f2, depth
+        del cases, flow, f1, f2, depth
         torch.cuda.empty_cache()
     return launches
 
@@ -2305,15 +2451,16 @@ def level_input_tile_rows(torch, rows, dt, dtype_name, gen, flush):
 
 def payload_tile_rows(torch, rows, dt, dtype_name, flush):
     """K2's payload entry on tile origins (the depth-weighted and gated
-    projections on partitioned frames) on the tiles of (data 1, tile 4) at
-    768x1344, B = 2, phase 2's +-20 px flows in ``dt`` with their
-    out-of-frame blocks: the depth payload (P = 3, depths in quarters) and
-    the gated one (P = 4).  Against its plain version the count plane
-    exactly and the sums within 1e-5 of their scale, and the count plane
-    against the untiled payload entry's folded counts exactly; at most 3
-    device operations per call; timed beside its plain version and
-    index_add_ of the same planes into a whole-frame buffer."""
-    from memcnet_tpu_torch.ops import projection
+    projections on partitioned frames), the payload built inside its
+    scatter, on the tiles of (data 1, tile 4) at 768x1344, B = 2, phase 2's
+    +-20 px flows in ``dt`` with their out-of-frame blocks: N7's depth tiles
+    (P = 3, depths in quarters) and N8's frame1 tiles and frame2's whole
+    level (P = 4, the gate at 20/255).  Against its plain version the last
+    plane exactly (the depth sums; the gate's counts, every gate decision)
+    and the sums within 1e-5 of their scale, and the last plane against the
+    untiled payload entry's folded one exactly; at most 3 device operations
+    per call; timed beside its plain version and index_add_ of the same
+    payload, built beforehand, into a whole-frame buffer."""
     from memcnet_tpu_torch.ops.cuda import project_kernel as P
     from memcnet_tpu_torch.parallel import active_partition, shard_frames, spatial_tiling
     from memcnet_tpu_torch.probe import device_ops, synthetic_flow
@@ -2325,8 +2472,7 @@ def payload_tile_rows(torch, rows, dt, dtype_name, flush):
     depth = (torch.randint(0, 5, (2, 1, H, W), generator=gen) * 0.25 + 0.5).to(dev)
     f1 = torch.rand((2, 3, H, W), generator=gen).to(dev)
     f2 = (f1 + 0.05 * torch.randn((2, 3, H, W), generator=gen).to(dev)).clamp(0.0, 1.0)
-    payloads = {3: projection.depth_payload(flow, depth),
-                4: projection.weighted_payload(flow, f1, f2, 20.0 / 255.0)}
+    threshold = 20.0 / 255.0
     mesh = tile_mesh(torch, "tile4")
     with spatial_tiling(mesh, halo=TILE_HALO):
         shard_frames(mesh, torch.zeros((1, 1, H, W), device=dev))
@@ -2336,6 +2482,8 @@ def payload_tile_rows(torch, rows, dt, dtype_name, flush):
         S, (th, tw) = p.samples(n), ft.shape[2:]
         org = p.origins((H, W), n, dev)
         keep = p.mask(ft)
+        cases = {3: ("depth", (depth,), (p.split(depth),)),
+                 4: ("gated", (f1, f2), (p.split(f1), p.gather(p.split(f2), (H, W))))}
     # the library call's cells: each owned tile pixel's landing in the frame
     o = org.long()
     x2 = (o[:, 1].view(n, 1, 1) + torch.arange(tw, device=dev).view(1, 1, tw)).float() \
@@ -2349,42 +2497,49 @@ def payload_tile_rows(torch, rows, dt, dtype_name, flush):
             + y2.to(torch.int32).clamp(0, H - 1).long() * W
             + x2.to(torch.int32).clamp(0, W - 1).long())
     cell = torch.where(valid, cell, 0).reshape(-1)
-    for planes, payload in payloads.items():
+    for planes, (op, ins, tins) in cases.items():
         name = f"base_scatter_payload_tile[P={planes}]"
-        pt = p.split(payload)
-        got = P.launch_payload_tile(ft, pt, org, S, H, W)
-        ref = P.payload_tile_sums_reference(ft, pt, org, S, H, W)
-        untiled = P.fold(P.launch_payload(flow, payload, False)[0])
+
+        def entry():
+            return P.launch_payload_tile(op, ft, tins, threshold, org, S, H, W)
+
+        got = entry()
+        ref = P.payload_tile_reference(op, ft, tins, threshold, org, S, H, W)
+        untiled = P.fold(P.launch_payload(op, flow, ins, threshold, False)[0])
         if not torch.equal(got[:, -1], ref[:, -1]):
-            raise CheckFailed(f"{name} {dtype_name}: counts differ from the plain version")
+            raise CheckFailed(f"{name} {dtype_name}: the last plane differs from the plain "
+                              "version's (a depth sum or a gate decision)")
         if not torch.equal(got[:, -1], untiled[:, -1]):
-            raise CheckFailed(f"{name} {dtype_name}: counts differ from the untiled entry's")
+            raise CheckFailed(f"{name} {dtype_name}: the last plane differs from the untiled "
+                              "entry's")
         scale = max(1.0, float(ref.abs().max()))
         check = compare([(got, ref)], 1e-5 * scale)
-        n_ops, dev_ms, by_kernel = device_ops(lambda: P.launch_payload_tile(ft, pt, org, S, H, W))
+        n_ops, dev_ms, by_kernel = device_ops(entry)
         if not 1 <= n_ops <= 3:
             raise CheckFailed(f"{name} {dtype_name}: {n_ops} device operations per call, at "
                               "most 3 expected")
+        pt = P.op_payload(op, ft, tins, threshold, org)
         src = torch.where(valid[:, None], pt, 0.0).permute(0, 2, 3, 1).reshape(-1, planes)
 
-        def lib_scatter():  # the same planes into a whole-frame buffer, one PyTorch call
+        def lib_scatter():  # the same payload into a whole-frame buffer, one PyTorch call
             return torch.zeros(S * H * W, planes, device=dev).index_add_(0, cell, src)
 
         log(f"  {name} {dtype_name}: device ops per call {n_ops}, device ms {dev_ms:.4f}: "
             + ", ".join(f"{k[:40]} {v:.4f}" for k, v in by_kernel.items()))
-        # reads the flow and payload tiles, writes the samples' whole-frame sums
+        # reads the flow tiles and the op's inputs (N7: the depth tiles; N8: the frame1
+        # tiles and frame2's whole level), writes the samples' whole-frame sums
+        in_bytes = sum(t.numel() * t.element_size() for t in tins)
         record_row(rows, name, dtype_name, check,
-                   timed_ms(torch, lambda: P.launch_payload_tile(ft, pt, org, S, H, W),
-                            flush=flush),
-                   timed_ms(torch, lambda: P.payload_tile_sums_reference(ft, pt, org, S, H, W),
-                            flush=flush),
+                   timed_ms(torch, entry, flush=flush),
+                   timed_ms(torch, lambda: P.payload_tile_reference(op, ft, tins, threshold, org,
+                                                                    S, H, W), flush=flush),
                    timed_ms(torch, lib_scatter, flush=flush),
-                   nbytes=n * th * tw * (2 * esize + planes * 4) + S * planes * H * W * 4
+                   nbytes=n * th * tw * 2 * esize + in_bytes + S * planes * H * W * 4
                    + org.numel() * 4, flops=0, op_dtype="float32",
-                   extra=dict(device_ops=n_ops, device_ms=dev_ms, tiles=n, tile=f"{th}x{tw}",
-                              scale=scale, valid_pixels=int(valid.sum())))
+                   extra=dict(device_ops=n_ops, device_ms=dev_ms, by_kernel=by_kernel, tiles=n,
+                              tile=f"{th}x{tw}", scale=scale, valid_pixels=int(valid.sum())))
         del got, ref, untiled, src, pt
-    del payloads, flow, ft, cell
+    del cases, flow, ft, cell
 
 
 def phase_tile_entries(torch, results):
@@ -2460,35 +2615,49 @@ def phase_tile_entries(torch, results):
                            nbytes=n2 * (fl2.shape[2] * fl2.shape[3] * 2 * esize
                                         + 3 * He2 * We2 * 4), flops=0,
                            op_dtype="float32")
-                # --- K3's carry entry, on the plain pipeline's average, counts and carries
+                # --- K3's tile entry, on the plain pipeline's average and counts: bits and
+                # masks exact, on its own (the tiles stacked) and with every carry given
                 avg, cnt, ring = T._tiled_average(mesh, flow_dt, TILE_HALO, "tile", axis_h,
                                                   None)
+                stacks = (ring.stacked("tile"), ring.stacked(axis_h) if axis_h else None)
+                got, masks = P.launch_fill_tiles(avg, cnt, stacks, None, None, None, dt,
+                                                 with_masks=True)
+                ref = T.tiled_fill_reference(avg, cnt, ring, "tile", axis_h, dt)
                 has = cnt > 0.0
-                left = T._carry(T._edge_message(has, avg, 2, last=True), ring, "tile", 1)
-                right = T._carry(T._edge_message(has, avg, 2, last=False), ring, "tile", -1)
-                up = (T._carry(T._edge_message(has, avg, 1, last=True), ring, axis_h, 1)
-                      if axis_h else None)
-                args = (avg.contiguous(), cnt.contiguous(), left, right, up, dt)
-                got = P.launch_carry_fill(*args)
-                ref = P.carry_fill_reference(*args)
+                want = P.pack_masks(has)
+                if not (torch.equal(masks.rows, want.rows) and torch.equal(masks.cols,
+                                                                           want.cols)):
+                    raise CheckFailed(f"fill_holes_carry {tag} {dtype_name}: masks differ from "
+                                      "the plain version's")
+                left, right = T._row_carries(avg, has, ring, "tile")
+                up = T._up_carry(avg, has, ring, axis_h) if axis_h else None
+                given = P.launch_fill_tiles(avg, cnt, (None, None), left, right, up, dt)
+                for mode, out in (("stacked", got), ("carries given", given)):
+                    if not torch.equal(out, ref):
+                        raise CheckFailed(f"fill_holes_carry {tag} {dtype_name} ({mode}): not "
+                                          "the plain composition's bits")
                 holes = int((~has).sum())
                 carried = int(((left[:, 0] > 0) | (right[:, 0] > 0)).sum())
                 if fname == "invalid" and not axis_h and (holes != has.numel() or got.any()):
                     raise CheckFailed(f"fill_holes_carry {tag} {dtype_name}: an all-invalid "
                                       f"flow left {has.numel() - holes} projected pixels or a "
                                       "nonzero fill")
+                fill_ops = fill_count(torch, lambda: T._tiled_fill(avg, cnt, ring, "tile",
+                                                                    axis_h, dt),
+                                      f"the tiled fill {tag} {dtype_name}")
                 k_ms = p_ms = None
                 if timed:
-                    k_ms = timed_ms(torch, lambda: P.launch_carry_fill(*args), flush=flush)
-                    p_ms = timed_ms(torch, lambda: P.carry_fill_reference(*args), reps=3,
-                                    flush=flush)
+                    k_ms = timed_ms(torch, lambda: P.launch_fill_tiles(
+                        avg, cnt, stacks, None, None, None, dt), flush=flush)
+                    p_ms = timed_ms(torch, lambda: T.tiled_fill_reference(
+                        avg, cnt, ring, "tile", axis_h, dt), reps=3, flush=flush)
                 Hl, Wl = avg.shape[2:]
-                carry_bytes = 4 * (left.numel() + right.numel() + (up.numel() if axis_h else 0))
+                # reads the average and the counts, writes the filled tiles
                 record_row(rows, f"fill_holes_carry[{tag}]", dtype_name,
-                           compare([(got, ref)], 1e-5), k_ms, p_ms, None,
-                           nbytes=avg.shape[0] * Hl * Wl * (2 * 4 + 4 + 2 * esize) + carry_bytes,
+                           compare([(got, ref)], 0.0), k_ms, p_ms, None,
+                           nbytes=avg.shape[0] * Hl * Wl * (2 * 4 + 4 + 2 * esize),
                            flops=0, op_dtype="float32",
-                           extra=dict(holes=holes, rows_with_a_carry=carried))
+                           extra=dict(holes=holes, rows_with_a_carry=carried, **fill_ops))
                 # --- the tiled ops against the global ones (within the halo budget)
                 if fname == "invalid" and axis_h:
                     continue  # the vertical clamp moves these landings by contract
@@ -3101,6 +3270,16 @@ PART_OPS_LAUNCHES = {
     "weighted_flow_project": {"base_scatter_payload_tile": 1, "fill_holes_carry": 1},
     "grid_sample_bilinear": {"grid_sample": 1},
 }
+# the ops whose fill is parallel/tiling.py's tiled fill: at most 2 device operations
+# from avg, cnt to the filled tiles on one card
+PART_OPS_FILL = ("flow_project", "depth_flow_project", "weighted_flow_project")
+# device operations of a partitioned N7 or N8 call with the fill, at most: K2's payload
+# entry (3), the whole-level gather (N8), the reduction, the divide and the fill (2) --
+# no PyTorch operation builds a payload (the last PyTorch-built gate took 153)
+PART_OPS_PAYLOAD_MAX = 30
+# and at least: the payload entry (3), the reduction, the divide and the fill (2); an
+# untiled call (4) would pass the cap, not this
+PART_OPS_PAYLOAD_MIN = 7
 # whole-level (gathers, reductions) per call, forward and backward
 PART_OPS_WHOLE = {
     "bilinear_warp": ((1, 0), (0, 0)), "bilinear_warp_ch": ((1, 0), (0, 0)),
@@ -3225,6 +3404,8 @@ def part_ops_run(torch, name, fn, keys, x, flow, grid, axis_h, cot_seed, profile
     from memcnet_tpu_torch.ops import cuda as K
     from memcnet_tpu_torch.parallel import gather_frames, shard_frames, spatial_tiling
     from memcnet_tpu_torch.parallel import partition as PT
+    from memcnet_tpu_torch.parallel import tiling as T
+    from memcnet_tpu_torch.probe import graph_ops
 
     dev = torch.device("cuda")
     args = [flow if k == "flow" else x[k] for k in keys]
@@ -3247,7 +3428,17 @@ def part_ops_run(torch, name, fn, keys, x, flow, grid, axis_h, cot_seed, profile
         K.reset_counters()
         PT.gathers.reset()
         PT.reductions.reset()
-        out = as_tuple(fn(*tiles))
+        fills, tiled_fill = [], T._tiled_fill
+
+        def spy(*a):  # the tiled fill's arguments, to count its device operations after
+            fills.append(a)
+            return tiled_fill(*a)
+
+        T._tiled_fill = spy
+        try:
+            out = as_tuple(fn(*tiles))
+        finally:
+            T._tiled_fill = tiled_fill
         torch.cuda.synchronize()
         launches = K.launch_counts()
         fwd = (PT.gathers.count, PT.reductions.count)
@@ -3259,6 +3450,8 @@ def part_ops_run(torch, name, fn, keys, x, flow, grid, axis_h, cot_seed, profile
         flat = [t.detach() for t in tiles]
         if profile:
             prof = profile_best(torch, lambda: fn(*flat))
+            # N7's and N8's device operations on the tiles, counted as CUDA-graph nodes
+            n_graph = graph_ops(lambda: fn(*flat)) if name in PART_OPS_FILL[1:] else None
             ms = timed_ms(torch, lambda: fn(*flat), reps=5)
             with WholeLevelCalls() as rec:
                 fn(*flat)
@@ -3267,6 +3460,12 @@ def part_ops_run(torch, name, fn, keys, x, flow, grid, axis_h, cot_seed, profile
             peak = peak_bytes(torch, lambda: fn(*flat))
     res = dict(launches={k: v for k, v in launches.items() if v}, whole_fwd=list(fwd),
                whole_bwd=list(bwd))
+    if (name in PART_OPS_FILL) != bool(fills):
+        raise CheckFailed(f"partitioned {name} {grid}: {len(fills)} tiled fills")
+    for avg, cnt, *rest in fills:
+        n_fill = fill_count(torch, lambda: tiled_fill(avg.detach(), cnt.detach(), *rest),
+                            f"partitioned {name} {grid}: the tiled fill")
+        res.update(fill_device_ops=n_fill["device_ops"], fill_device_ms=n_fill["device_ms"])
     want_launch = dict.fromkeys(launches, 0)
     want_launch.update(PART_OPS_LAUNCHES.get(name, {}))
     if launches != want_launch:
@@ -3294,6 +3493,13 @@ def part_ops_run(torch, name, fn, keys, x, flow, grid, axis_h, cot_seed, profile
                           f"({res['rel_err']:.3e} forward, {res['grad_rel_err']:.3e} VJP, "
                           f"of the scale)")
     if profile:
+        if n_graph is not None:
+            res.update(graph_device_ops=n_graph)
+            if not PART_OPS_PAYLOAD_MIN <= n_graph <= PART_OPS_PAYLOAD_MAX:
+                raise CheckFailed(f"partitioned {name} {grid}: {n_graph} device operations a "
+                                  f"call, {PART_OPS_PAYLOAD_MIN} to {PART_OPS_PAYLOAD_MAX}")
+        if prof and n_graph is not None and prof[0] < n_graph:
+            prof = None  # the profiler lost records of this call: not measured
         plain = [a.detach() for a in args]
         u = profile_best(torch, lambda: fn(*plain))
         res.update(ms=ms, gathers_ms=whole_ms["gather"], reductions_ms=whole_ms["reduce"],
@@ -3334,6 +3540,11 @@ def phase_partition_ops(torch, results):
                         f"{r['grad_rel_err']:.3e} of the scale; launches {r['launches']}; "
                         f"whole-level (gathers, reductions) {tuple(r['whole_fwd'])} forward, "
                         f"{tuple(r['whole_bwd'])} backward")
+                if "fill_device_ops" in r:
+                    line += (f"; tiled fill {r['fill_device_ops']} device ops, device ms "
+                             + ("not measured (the profiler lost records)"
+                                if r["fill_device_ms"] is None else
+                                f"{r['fill_device_ms']:.4f}"))
                 if "ms" in r:
                     def dev(ms, n):
                         return ("not measured (the profiler kept no record)" if ms is None
@@ -3426,11 +3637,16 @@ def main():
         log("phase 8: the parallel layer on the one card")
         phase_parallel(torch, results)
         torch.cuda.empty_cache()
-        log("phase 9: partitioned convolutions")
-        phase_partition(torch, results)
-        torch.cuda.empty_cache()
-        log("phase 10: the op library on partitioned frames")
-        phase_partition_ops(torch, results)
+        # phase 8 holds its own shapes; the recorder stays out of its timed calls
+        with ShapeRecorder(only=PARALLEL_SHAPE_ROWS) as rec:
+            log("phase 9: partitioned convolutions")
+            phase_partition(torch, results)
+            torch.cuda.empty_cache()
+            log("phase 10: the op library on partitioned frames")
+            phase_partition_ops(torch, results)
+        log("  K3's tile entry and K2's payload entries at every shape phases 9-10 launched "
+            "them at")
+        hold_recorded_shapes(torch, results, rec.seen, tag="parallel", origins=rec.origins)
     except Exception:  # every failure ends the run with no result line
         traceback.print_exc()
         with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
@@ -3544,9 +3760,13 @@ def main():
         by_path = {"serve_tiled": results["tiled_serve"]["launches"][name],
                    "serve_partitioned": part_launches(results, name),
                    "oplib_partitioned": oplib_part_launches(results, name)}
+        held_at = [r for r in results["parallel_shapes"] if r["kernel"] == "fill_tiles"]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "computes": computes, "launches": sum(by_path.values()),
-                        "launches_by_path": by_path,
+                        "computes": computes, "entry": TILE_ENTRY_NAMES[name],
+                        "launches": sum(by_path.values()), "launches_by_path": by_path,
+                        "device_ops_per_call": r.get("device_ops"),
+                        **({"phases_9_10_shape_rows_held": len(held_at)}
+                           if name == "fill_holes_carry" else {}),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "dtype": "bfloat16",

@@ -21,9 +21,14 @@ tree's CPU path).  The tile entries of partitioned frames (``--rows tile``)
 at 768x1344, B = 2, halo 64, on (data 1, tile 4) and (1, 2, 2): K5's level
 input on tiles at the top level (merged fst and up bit for bit against the
 untiled kernel), K2's tile entry on the +-20 px flow (counts exact against
-its plain version) and K2's payload entry on tile origins (P = 3 and 4),
-each with its device operations.  ``--rows`` picks groups of rows:
-projection, K1, K5, K4, tile (all by default).
+its plain version), K3's tile entry and the whole tiled fill from avg,
+cnt (bit for bit against the carry entry's plain version), the tiled
+flow_project with the fill, K2's payload entry on tile origins (P = 3 and
+4: built inside the scatter where the tree does so, else read, with and
+without its build) and N7 and N8 on partitioned frames, each with its
+device operations; the projection rows add K2's payload entry untiled and
+N7 and N8 whole.  ``--rows`` picks groups of rows: projection, K1, K5, K4,
+tile (all by default).
 
 With ``--other DIR`` (a checkout of another commit, e.g. the parent unpacked
 with ``git archive``), the same measurements run on that tree's kernels too,
@@ -40,7 +45,11 @@ design; each must give the entry's bits) and of K2's tile
 entry (``tile_sums_steps.cu``: its memset, scatter and fold apart, each
 beside the first design's, and the scatter as one 4-wide vector atomic into
 an interleaved buffer; the fold as built must equal the first design's bit
-for bit on the same sums) are timed in this tree's process, and ``mma_probe.cu`` shows how the tensor
+for bit on the same sums), and of K3's tile entry and K2's payload entry on
+tile origins (``fill_tiles_steps.cu``: the mask pass and the fill as built,
+with summaries, and with every carry given; the memset, the scatter that
+builds the payload, the first design's scatter of a built payload, the
+fold) are timed in this tree's process, and ``mma_probe.cu`` shows how the tensor
 cores add: 1 + 2^-k and 1 - 1 + 2^-k in one MMA, for which k the small term
 survives.  Results go to ``--out`` as JSON (default
 ``chiprun_out/kernel_ab/results.json``) and a table to standard output.
@@ -50,9 +59,11 @@ import argparse
 import ctypes
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
@@ -148,13 +159,15 @@ def measure(root, steps, groups=ROW_GROUPS):
     res = {}
     step_lib = build(_lib, "warp_steps") if steps and "K1" in groups else None
     level_lib = build(_lib, "level_steps") if steps and "K5" in groups else None
-    tile_libs = ((build(_lib, "level_tile_steps"), build(_lib, "tile_sums_steps"))
-                 if steps and "tile" in groups else (None, None))
+    tile_libs = ((build(_lib, "level_tile_steps"), build(_lib, "tile_sums_steps"),
+                  build(_lib, "fill_tiles_steps"))
+                 if steps and "tile" in groups else (None, None, None))
     if steps and "K4" in groups:
         res["mma probe"] = mma_probe(torch, build(_lib, "mma_probe"))
     for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         if "projection" in groups:
             projection_rows(torch, res, name, dt, flush, steps)
+            payload_rows(torch, res, name, dt, flush)
         if "K1" in groups:
             warp_rows(torch, res, name, dt, gen, flush, step_lib)
         if "K5" in groups:
@@ -309,16 +322,267 @@ def level_steps(torch, lib, fst, snd, cflow, want, flush):
     return ms
 
 
-def tile_entry_rows(torch, res, name, dt, flush, level_lib=None, sums_lib=None):
+def op_inputs(torch, dev, dt, B=2):
+    """N7's depth (quarters) and N8's frames at H x W, in ``dt``, from a
+    seed."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    depth = (torch.randint(1, 8, (B, 1, H, W), generator=gen, device=dev) * 0.25).to(dt)
+    f1 = torch.rand((B, 3, H, W), generator=gen, device=dev)
+    f2 = (f1 + 0.05 * torch.randn(f1.shape, generator=gen, device=dev)).clamp(0.0, 1.0)
+    return depth, f1.to(dt), f2.to(dt)
+
+
+THRESHOLD = 20.0 / 255.0
+
+
+def host_us(torch, fn, reps=50):
+    """µs of host time a call takes to enqueue its work (no synchronize
+    inside the loop): where it exceeds the device time the card waits."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def timed_row(torch, fn, flush, err=None, **extra):
+    """ms of ``fn`` after an L2 flush, its device operations and device ms,
+    and its host µs a call."""
+    n_ops, dev_ms, by_kernel = PROBE.device_ops(fn)
+    row = dict(ms=timed_ms(torch, fn, flush), launches=n_ops, device_ms=dev_ms, kernels=by_kernel,
+               host_us=host_us(torch, fn), **extra)
+    if err is not None:
+        row["err"] = err
+    return row
+
+
+def payload_rows(torch, res, name, dt, flush):
+    """K2's payload entry untiled at B = 2, 768x1344 on the +-20 px flow:
+    this PR's tree builds N7's and N8's payloads inside the scatter; an
+    earlier tree's entry reads a payload that PyTorch built (its row times
+    the entry alone, and its ``with build`` row the build and the entry);
+    each with its last plane checked exactly against the tree's plain
+    version.  Then N7 and N8 whole with the fill."""
+    from memcnet_tpu_torch.ops import projection
+    from memcnet_tpu_torch.ops.cuda import project_kernel as P
+
+    dev = torch.device("cuda")
+    flow = PROBE.synthetic_flow(2, dev).to(dt)
+    depth, f1, f2 = op_inputs(torch, dev, dt)
+    fused = hasattr(P, "op_payload")
+    for planes, op, ins in ((3, "depth", (depth,)), (4, "gated", (f1, f2))):
+        def build():
+            return projection.depth_payload(flow, depth) if op == "depth" else \
+                projection.weighted_payload(flow, f1, f2, THRESHOLD)
+
+        if fused:
+            def entry():
+                return P.launch_payload(op, flow, ins, THRESHOLD, False)
+            ref = P.op_stage_reference(op, flow, ins, THRESHOLD, False)
+        else:
+            payload = build()
+
+            def entry():
+                return P.launch_payload(flow, payload, False)
+
+            def with_build():
+                return P.launch_payload(flow, build(), False)
+            ref = P.payload_stage_reference(flow, payload, False)
+        exact = bool(torch.equal(entry()[0][:, -1], ref[0][:, -1]))
+        res[f"K2 payload P={planes} {name}"] = timed_row(torch, entry, flush, last_plane_exact=exact)
+        if not fused:
+            res[f"K2 payload P={planes} with build {name}"] = timed_row(torch, with_build, flush)
+    for op_name, fn in (("N7", lambda: projection.depth_flow_project(flow, depth, fillhole=True)),
+                        ("N8", lambda: projection.weighted_flow_project(flow, f1, f2,
+                                                                        fillhole=True))):
+        res[f"{op_name} untiled, fill {name}"] = timed_row(torch, fn, flush)
+
+
+def tile_op_rows(torch, res, name, dt, flush, fill_lib=None):
+    """At 768x1344, B = 2, halo 64, on (1, 4) and (1, 2, 2), the +-20 px
+    flow: K3's tile entry (this PR's: from avg, cnt alone; an earlier
+    tree's carry entry: its carries made before it, untimed) and the whole
+    tiled fill, each against the carry entry's plain version with the
+    carries of ``_carry``, bit for bit; the tiled flow_project with the
+    fill; and on (1, 4) K2's payload entry on tile origins (P = 3 and 4:
+    this PR's builds the payload, an earlier tree's reads it, with and
+    without its build), and N7 and N8 on partitioned frames with the fill."""
+    from memcnet_tpu_torch.ops import projection
+    from memcnet_tpu_torch.ops.cuda import project_kernel as P
+    from memcnet_tpu_torch.ops.frame import TileFrame
+    from memcnet_tpu_torch.parallel import (active_partition, make_mesh, make_mesh_2d,
+                                            shard_frames, spatial_tiling)
+    from memcnet_tpu_torch.parallel import tiling as T
+
+    dev = torch.device("cuda")
+    devs = [dev] * 4
+    flow = PROBE.synthetic_flow(2, dev).to(dt)
+    depth, f1, f2 = op_inputs(torch, dev, dt)
+    new = hasattr(P, "launch_fill_tiles")
+    for grid, axis_h in TILE_GRIDS:
+        mesh = make_mesh(4, devices=devs) if grid == "tile4" else make_mesh_2d(4, devices=devs)
+        avg, cnt, ring = T._tiled_average(mesh, flow, TILE_HALO, "tile", axis_h, None)
+        has = cnt > 0.0
+        carries = [T._carry(T._edge_message(has, avg, 2, last=True), ring, "tile", 1),
+                   T._carry(T._edge_message(has, avg, 2, last=False), ring, "tile", -1),
+                   T._carry(T._edge_message(has, avg, 1, last=True), ring, axis_h, 1)
+                   if axis_h else None]
+        ref = P.carry_fill_reference(avg, cnt, *carries, dt)
+        if new:
+            stacks = (ring.stacked("tile"), ring.stacked(axis_h) if axis_h else None)
+
+            def entry():
+                return P.launch_fill_tiles(avg, cnt, stacks, None, None, None, dt)
+        else:
+            a, c = avg.contiguous(), cnt.contiguous()
+
+            def entry():
+                return P.launch_carry_fill(a, c, *carries, dt)
+
+        def whole():
+            return T._tiled_fill(avg, cnt, ring, "tile", axis_h, dt)
+
+        res[f"K3 tile entry {grid} {name}"] = timed_row(
+            torch, entry, flush, bit_equal=bool(torch.equal(entry(), ref)))
+        res[f"K3 tiled fill, avg and cnt in {grid} {name}"] = timed_row(
+            torch, whole, flush, bit_equal=bool(torch.equal(whole(), ref)))
+        if fill_lib is not None:
+            res[f"K3 tile entry {grid} {name}"]["steps"] = fill_tiles_steps(
+                torch, fill_lib, avg, cnt, ring, axis_h, carries, ref, flush)
+        res[f"tiled flow_project, fill {grid} {name}"] = timed_row(
+            torch, lambda: T.tiled_flow_project(mesh, flow, halo=TILE_HALO, fillhole=True,
+                                                axis_h=axis_h), flush)
+        del avg, cnt, carries, ref
+        with spatial_tiling(mesh, halo=TILE_HALO, axis_h=axis_h):
+            shard_frames(mesh, torch.zeros((1, 1, H, W), device=dev))
+            ft, dtl, t1, t2 = shard_frames(mesh, flow, depth, f1, f2)
+            p = active_partition()
+            n = ft.shape[0]
+            S, org = p.samples(n), p.origins((H, W), n, dev)
+            whole2 = p.gather(t2, (H, W))
+            fr = TileFrame(p, (H, W))
+            if grid == "tile4":
+                for planes, op, ins in ((3, "depth", (dtl,)), (4, "gated", (t1, whole2))):
+                    def build():
+                        return projection.depth_payload(ft, dtl) if op == "depth" else \
+                            projection.weighted_payload(ft, t1, t2, THRESHOLD, fr)
+
+                    if new:
+                        def tile_entry():
+                            return P.launch_payload_tile(op, ft, ins, THRESHOLD, org, S, H, W)
+                        got, ref = tile_entry(), P.payload_tile_reference(
+                            op, ft, ins, THRESHOLD, org, S, H, W)
+                    else:
+                        payload = build()
+
+                        def tile_entry():
+                            return P.launch_payload_tile(ft, payload, org, S, H, W)
+
+                        def with_build():
+                            return P.launch_payload_tile(ft, build(), org, S, H, W)
+                        got, ref = tile_entry(), P.payload_tile_sums_reference(ft, payload, org,
+                                                                               S, H, W)
+                    key = f"K2 payload tile P={planes} tile4 {name}"
+                    res[key] = timed_row(torch, tile_entry, flush,
+                                         err=float((got - ref).abs().max()),
+                                         last_plane_exact=bool(torch.equal(got[:, -1],
+                                                                           ref[:, -1])))
+                    if not new:
+                        res[f"K2 payload tile P={planes} with build tile4 {name}"] = timed_row(
+                            torch, with_build, flush)
+                    elif fill_lib is not None:
+                        res[key]["steps"] = payload_tile_steps(
+                            torch, fill_lib, op, ft, ins, projection, build(), org, S, got, flush)
+                    del got, ref
+            for op_name, fn in (
+                    ("N7", lambda: projection.depth_flow_project(ft, dtl, fillhole=True)),
+                    ("N8", lambda: projection.weighted_flow_project(ft, t1, t2, fillhole=True))):
+                res[f"{op_name} partitioned, fill {grid} {name}"] = timed_row(torch, fn, flush)
+        del ft, dtl, t1, t2, whole2
+
+
+def fill_tiles_steps(torch, lib, avg, cnt, ring, axis_h, carries, ref, flush):
+    """ms of each step of K3's tile entry (``fill_tiles_steps.cu``) on the
+    entry's own inputs: the mask pass and the fill as built (no summaries),
+    with summaries (a memset, atomicOr), and the fill with every carry given
+    (the carry entry's design); each fill must give the plain version's
+    bits."""
+    from memcnet_tpu_torch.ops.cuda import _lib
+    from memcnet_tpu_torch.ops.cuda import project_kernel as P
+
+    n, _, Hl, Wl = avg.shape
+    a, c = avg.contiguous(), cnt.contiguous()
+    masks = torch.empty(sum(math.prod(s) for s in P.mask_shapes(n, Hl, Wl)), dtype=torch.int32,
+                        device=avg.device)
+    out = torch.empty((n, 2, Hl, Wl), dtype=ref.dtype, device=avg.device)
+    (tw, iw), (th, ih) = ring.stacked("tile"), ring.stacked(axis_h) if axis_h else (1, 1)
+    cs = [None if x is None else x.contiguous() for x in carries]
+
+    def run(step):
+        err = lib.memc_fill_tiles_step(step, a.data_ptr(), c.data_ptr(), masks.data_ptr(),
+                                       out.data_ptr(), n, Hl, Wl, tw, iw, th, ih,
+                                       *[None if x is None else x.data_ptr() for x in cs],
+                                       _lib.dtype_code(ref.dtype),
+                                       torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"fill tiles step {step}: CUDA error {err}")
+
+    labels = {0: "memset of the summaries", 1: "mask pass with summaries (atomicOr)",
+              2: "fill with summaries", 3: "mask pass as built (no summaries)",
+              4: "fill as built (no summaries)", 5: "fill with every carry given"}
+    for steps in ((3, 4), (0, 1, 2), (0, 1, 5)):
+        for step in steps:
+            run(step)
+        if not torch.equal(out, ref):
+            raise RuntimeError(f"fill tiles steps {steps}: not the plain version's bits")
+    return {labels[k]: timed_ms(torch, lambda: run(k), flush) for k in labels}
+
+
+def payload_tile_steps(torch, lib, op, ft, ins, projection, payload, org, S, want, flush):
+    """ms of each step of K2's payload entry on tile origins
+    (``fill_tiles_steps.cu``): the memset, the scatter that builds the
+    payload (as built), the first design's scatter of a built payload, the
+    fold; both scatters then the fold must give the entry's last plane."""
+    from memcnet_tpu_torch.ops.cuda import _lib
+    from memcnet_tpu_torch.ops.cuda import project_kernel as P
+
+    n, _, h, w = ft.shape
+    planes = 4 if op == "gated" else 3
+    sums = torch.empty((S, planes, H, W), device=ft.device)
+    out = torch.empty_like(sums)
+    ins = [x.float().contiguous() for x in ins]
+    payload = payload.contiguous()
+
+    def run(step):
+        err = lib.memc_payload_tile_step(
+            step, P.PAYLOAD_OPS[op], ft.data_ptr(), ins[0].data_ptr(), ins[-1].data_ptr(),
+            THRESHOLD, payload.data_ptr(), org.data_ptr(), sums.data_ptr(), out.data_ptr(), n, h,
+            w, S, H, W, _lib.dtype_code(ft.dtype), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"payload tile step {step}: CUDA error {err}")
+
+    for steps in ((0, 1, 3), (0, 2, 3)):
+        for step in steps:
+            run(step)
+        if not torch.equal(out[:, -1], want[:, -1]):
+            raise RuntimeError(f"payload tile steps {steps}: the last plane differs")
+    labels = {0: "memset of S", 1: "scatter building the payload (as built)",
+              2: "scatter of a built payload (first design)", 3: "fold"}
+    return {labels[k]: timed_ms(torch, lambda: run(k), flush) for k in labels}
+
+
+def tile_entry_rows(torch, res, name, dt, flush, level_lib=None, sums_lib=None, fill_lib=None):
     """The tile entries at 768x1344, B = 2, halo 64 in the measured tree:
     K5's level input on the tiles of the top level, (1, 4) and (1, 2, 2),
     the coarse flow of probe.level_flow clipped to +-10 px (its merged fst
     and up must equal the untiled kernel's bit for bit); K2's tile entry on
     (1, 4) and (1, 2, 2) with the +-20 px flow of probe.synthetic_flow (its
-    counts must equal its plain version's); K2's payload entry on tile
-    origins on (1, 4), P = 3 and 4 (counts exact).  Each with its device
+    counts must equal its plain version's).  Each with its device
     operations; with ``level_lib``, K5's tile entry in variants, and with
-    ``sums_lib``, K2's tile entry in steps."""
+    ``sums_lib``, K2's tile entry in steps; then ``tile_op_rows`` (with
+    ``fill_lib``, K3's tile entry and K2's payload tile entry in steps)."""
     from memcnet_tpu_torch.ops.cuda import gather_kernel as G
     from memcnet_tpu_torch.ops.cuda import project_kernel as P
     from memcnet_tpu_torch.parallel import (active_partition, make_mesh, make_mesh_2d,
@@ -371,26 +635,8 @@ def tile_entry_rows(torch, res, name, dt, flush, level_lib=None, sums_lib=None):
             res[f"K2 tile sums {grid} {name}"]["steps"] = tile_sums_steps(
                 torch, sums_lib, fl, org, geom, got, flush)
         del got, ref
-    mesh = make_mesh(4, devices=devs)
-    with spatial_tiling(mesh, halo=TILE_HALO):
-        shard_frames(mesh, torch.zeros((1, 1, H, W), device=dev))
-        p = active_partition()
-        ft = p.split(flow)
-        n = ft.shape[0]
-        S, org = p.samples(n), p.origins((H, W), n, dev)
-        gen_p = torch.Generator(device=dev).manual_seed(17)
-        for planes in (3, 4):
-            pt = torch.rand((n, planes, *ft.shape[2:]), generator=gen_p, device=dev)
-            pt[:, -1] = (pt[:, -1] > 0.3).float()
-            got = P.launch_payload_tile(ft, pt, org, S, H, W)
-            ref = P.payload_tile_sums_reference(ft, pt, org, S, H, W)
-            n_ops, dev_ms, by_kernel = PROBE.device_ops(
-                lambda: P.launch_payload_tile(ft, pt, org, S, H, W))
-            res[f"K2 payload tile P={planes} tile4 {name}"] = dict(
-                ms=timed_ms(torch, lambda: P.launch_payload_tile(ft, pt, org, S, H, W), flush),
-                err=float((got - ref).abs().max()), launches=n_ops, device_ms=dev_ms,
-                kernels=by_kernel, counts_equal=bool(torch.equal(got[:, -1], ref[:, -1])))
-            del got, ref, pt
+    del flow
+    tile_op_rows(torch, res, name, dt, flush, fill_lib)
 
 
 def level_tile_steps(torch, lib, args, want, flush):
@@ -513,6 +759,13 @@ def build(_lib, name):
         lib.memc_tile_sums_step.argtypes = [i, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
         lib.memc_tile_sums_step.restype = i
         lib.memc_tile_sums_vec_atomic.restype = i
+    elif name == "fill_tiles_steps":
+        lib.memc_fill_tiles_step.argtypes = [i, vp, vp, vp, vp, i, i, i, i, i, i, i, vp, vp, vp, i,
+                                             vp]
+        lib.memc_fill_tiles_step.restype = i
+        lib.memc_payload_tile_step.argtypes = [i, i, vp, vp, vp, ctypes.c_float, vp, vp, vp, vp, i,
+                                               i, i, i, i, i, i, vp]
+        lib.memc_payload_tile_step.restype = i
     else:
         lib.memc_mma_probe.argtypes = [vp, vp, vp, vp]
         lib.memc_mma_probe.restype = i
@@ -601,7 +854,7 @@ def main():
     for r in runs["this"][1:]:
         r.pop("mma probe", None)
     table = {}
-    for key in runs["this"][0]:
+    for key in dict.fromkeys(k for rs in runs.values() for r in rs for k in r):
         row = {}
         for name, rs in runs.items():
             rs = [r[key] for r in rs if key in r]  # rows only one of the trees has
@@ -617,7 +870,7 @@ def main():
             for k, v in rs[0].items():  # a row's own checks and shapes
                 if k not in ("ms", "err", "launches", "device_ms", "kernels", "steps", "by_kernel"):
                     row[f"{name}_{k}"] = v
-        if "steps" in runs["this"][0][key]:
+        if "steps" in runs["this"][0].get(key, {}):
             row["steps_ms"] = runs["this"][0][key]["steps"]
         table[key] = row
     os.makedirs(os.path.dirname(args.out), exist_ok=True)

@@ -34,17 +34,20 @@
 //                      mirror of the up search in the same column masks);
 //                      every pixel is written in the flow's type.
 //
-// K2's payload entry (memc_project_payload) serves the depth-weighted and
-// the brightness-gated projections (memcnet_tpu/ops/projection.py::
+// K2's payload entry (memc_project_payload) serves the depth-weighted (N7)
+// and the brightness-gated (N8) projections (memcnet_tpu/ops/projection.py::
 // depth_flow_project and weighted_flow_project, whose _scatter4 runs
 // scatter_bands on a payload of P = 3 or 4 planes): the same memset, a
-// scatter of a float32 payload of P planes (built by PyTorch; zero where a
-// gate fails) into the landing cells the flow sets, and the same fold, which
-// divides planes 0 .. P-2 by plane P-1 where it is > 0 and takes "has a
-// value" from plane P-1 > 0 (a sum of depths, or a count of gated pixels).
+// scatter that builds each source pixel's payload itself from the op's
+// inputs (DepthPayload: the flow and the depth; GatedPayload: the flow,
+// frame1 at the pixel and frame2 at the truncated, clamped p + 2 f, the gate
+// err <= threshold) and adds it at the landing cell the flow sets, and the
+// same fold, which divides planes 0 .. P-2 by plane P-1 where it is > 0 and
+// takes "has a value" from plane P-1 > 0 (a sum of depths, or a count of
+// gated pixels).  No payload is written to or read from device memory.
 //
-// Bound on the H100: memory -- the flow (and the payload) read once, the
-// result written once;
+// Bound on the H100: memory -- the flow (and the op's inputs) read once,
+// the result written once;
 // S (24.8 MB for B = 2 at 768x1344) and the average stay in the 50 MB L2.
 // The TPU kernels' band plans and bucket walk turned a scatter into vector
 // shifted adds and their cross-band carry relied on grid steps running in
@@ -72,19 +75,30 @@
 //   K2  memc_project_payload_tile: the payload entry on tile origins, for the
 //       depth-weighted and gated projections on partitioned frames (whose
 //       JAX ops GSPMD runs on frame_sharding-placed arrays): a memset,
-//       project_payload_tile_scatter_kernel (each owned pixel of a tile lands
-//       at the frame's cell, tile origin + local position in float32, and its
-//       P planes are atomicAdded into its sample's whole-frame buffer, every
-//       stacked tile of a sample into the same one) and project_raw_fold_kernel
-//       over the P planes (the +1 folds at the frame's own border, so a
-//       clamped right or bottom neighbour takes its contribution twice, as in
-//       the untiled op).  No divide: parallel/partition.py's reduce gives each
-//       tile its owned part of the sums first.
-//   K3  memc_project_fill_carry: a memset, project_mask_kernel (the has-value
-//       masks of a cropped tile from its count) and project_fill_kernel with
-//       carries: where a tile's own bit search finds nothing, the nearest
-//       value from the tiles to the left, to the right and (H tiled) above,
-//       per row or column, takes its place.  No down search.
+//       project_op_scatter_kernel on tile origins (each owned pixel of a tile
+//       lands at the frame's cell, tile origin + local position in float32,
+//       builds its payload as the untiled entry does -- the gate reads frame2's
+//       whole level -- and atomicAdds its P planes into its sample's
+//       whole-frame buffer, every stacked tile of a sample into the same one;
+//       a (columns, rows, tiles) grid with 32-bit offsets in a tile) and
+//       project_raw_fold_kernel over the P planes (the +1 folds at the frame's
+//       own border, so a clamped right or bottom neighbour takes its
+//       contribution twice, as in the untiled op).  No divide:
+//       parallel/partition.py's reduce gives each tile its owned part of the
+//       sums first.
+//   K3  memc_project_fill_tiles: the whole tiled fill of the cropped tiles
+//       (the JAX _tiled_fill and chained_scan) in two launches:
+//       project_mask_kernel (the has-value masks of every tile from its
+//       counts; no summary words, so no memset and no atomics: a search
+//       reads the words of a line one by one) and project_fill_tiles_kernel:
+//       where a tile's own search finds nothing, the thread walks the tiles
+//       stacked in the same batch (parallel/ring.py: (outer, t, inner), the
+//       neighbour k tiles before b at b - k inner), nearest first and no
+//       further than the frame's edge, and takes the last (first) projected
+//       pixel of the same row (column) there -- what parallel/tiling.py::
+//       _carry's ring hops pick, without them.  An axis across ranks takes
+//       its carries (_edge_message + _carry over the ring) as arguments
+//       instead.  No down search.
 #include "common.cuh"
 
 namespace memc {
@@ -132,31 +146,109 @@ project_scatter_kernel(const T* __restrict__ flow, float* __restrict__ sums, int
   atomicAdd(s + 2 * HW, 1.f);
 }
 
-// The payload entry's scatter: the landing cell of project_scatter_kernel,
-// and the P float32 planes of the payload added there.
-template <typename T, int P>
+// -- the payloads of N7 and N8, built where they are scattered -----------------
+//
+// op(b, p, HW, fx, fy, gx, gy, s, Hg, Wg, v): the payload of source pixel p
+// of row b (H W = HW pixels a row), at the frame's position (gx, gy) of
+// sample s's Hg x Wg frame, whose landing is valid; false where a gate fails.
+
+enum PayloadOp : int { kDepthOp = 0, kGatedOp = 1 };
+
+// N7 (ops/cuda/project_kernel.py::depth_payload): (-fx d, -fy d, d) in
+// float32, d the pixel's depth.
+template <typename A>
+struct DepthPayload {
+  static constexpr int P = 3;
+  const A* depth;  // (B, 1, H, W), the flow's rows
+  __device__ __forceinline__ bool operator()(int b, int p, int HW, float fx, float fy, int, int,
+                                             int, int, int, float* v) const {
+    const float d = to_f32(depth[static_cast<int64_t>(b) * HW + p]);
+    v[0] = -fx * d;
+    v[1] = -fy * d;
+    v[2] = d;
+    return true;
+  }
+};
+
+// N8 (ops/cuda/project_kernel.py::brightness_error and gated_payload): err =
+// d0/3 + d1/3 + d2/3 + 1e-8 in that order, with true division, dc = |frame1(p) -
+// frame2(nn)| per channel, nn = trunc(clamp(p + 2 f)) in frame2's whole
+// level; the gate err <= threshold (the threshold rounded to float32 by the
+// caller); (-fx, -fy, err, 1).  The sums are rounded where the plain version
+// rounds them: no fma contraction.
+template <typename A>
+struct GatedPayload {
+  static constexpr int P = 4;
+  const A* frame1;  // (B, 3, H, W), the flow's rows
+  const A* frame2;  // (S, 3, Hg, Wg), each sample's whole level
+  float threshold;
+  __device__ __forceinline__ bool operator()(int b, int p, int HW, float fx, float fy, int gx,
+                                             int gy, int s, int Hg, int Wg, float* v) const {
+    const float x3 = fminf(fmaxf(__fadd_rn(static_cast<float>(gx), __fmul_rn(2.f, fx)), 0.f),
+                           static_cast<float>(Wg - 1));
+    const float y3 = fminf(fmaxf(__fadd_rn(static_cast<float>(gy), __fmul_rn(2.f, fy)), 0.f),
+                           static_cast<float>(Hg - 1));
+    const int64_t HWg = static_cast<int64_t>(Hg) * Wg;
+    const A* a = frame1 + static_cast<int64_t>(b) * 3 * HW + p;
+    const A* c = frame2 + static_cast<int64_t>(s) * 3 * HWg +
+                 static_cast<int64_t>(__float2int_rz(y3)) * Wg + __float2int_rz(x3);
+    const float d0 = fabsf(to_f32(a[0]) - to_f32(c[0]));
+    const float d1 = fabsf(to_f32(a[HW]) - to_f32(c[HWg]));
+    const float d2 = fabsf(to_f32(a[2 * HW]) - to_f32(c[2 * HWg]));
+    const float err = __fadd_rn(
+        __fadd_rn(__fadd_rn(__fdiv_rn(d0, 3.f), __fdiv_rn(d1, 3.f)), __fdiv_rn(d2, 3.f)), 1e-8f);
+    if (!(err <= threshold)) return false;
+    v[0] = -fx;
+    v[1] = -fy;
+    v[2] = err;
+    v[3] = 1.f;
+    return true;
+  }
+};
+
+// K2's payload scatter, the payload built by ``op``: one thread per source
+// pixel of B rows of H x W.  Block (32, 8) over 32 columns x 8 rows, grid
+// (words_for(W), ceil(H / 8), B): no division, 32-bit offsets in a row.
+// Untiled (origins null): row b is sample b's whole frame (S = B, Hg x Wg =
+// H x W).  On tile origins (B x 4 int32: y0, x0, own_h, own_w, one address
+// for the whole block): row b is a stacked tile of sample b % S's Hg x Wg
+// frame at (y0, x0), and a pixel past its owned (own_h, own_w) is padding and
+// adds nothing.  A valid landing (float32 frame position + f in the frame;
+// NaN fails) adds the P planes at the frame's base cell of its sample's
+// whole-frame sums.
+template <typename T, class Op>
 __global__ void __launch_bounds__(256)
-project_payload_scatter_kernel(const T* __restrict__ flow, const float* __restrict__ payload,
-                               float* __restrict__ sums, int H, int W, int64_t HW,
-                               int64_t total) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int64_t b = idx / HW;
-  const int64_t p = idx - b * HW;
-  const int y = static_cast<int>(p / W);
-  const int x = static_cast<int>(p - static_cast<int64_t>(y) * W);
-  const T* f = flow + 2 * b * HW + p;
-  const float x2 = static_cast<float>(x) + to_f32(f[0]);
-  const float y2 = static_cast<float>(y) + to_f32(f[HW]);
-  if (!(x2 >= 0.f && y2 >= 0.f && x2 <= static_cast<float>(W - 1) &&
-        y2 <= static_cast<float>(H - 1)))
+project_op_scatter_kernel(const T* __restrict__ flow, Op op, const int* __restrict__ origins,
+                          float* __restrict__ sums, int H, int W, int S, int Hg, int Wg) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const int b = blockIdx.z;
+  int gx = x, gy = y, s = b;
+  if (origins != nullptr) {
+    const int* o = origins + 4 * b;
+    if (y >= o[2] || x >= o[3]) return;
+    gy = o[0] + y;
+    gx = o[1] + x;
+    s = b % S;
+  }
+  const int HW = H * W, p = y * W + x;
+  const T* f = flow + static_cast<int64_t>(b) * 2 * HW + p;
+  const float fx = to_f32(f[0]);
+  const float fy = to_f32(f[HW]);
+  const float x2 = static_cast<float>(gx) + fx;
+  const float y2 = static_cast<float>(gy) + fy;
+  if (!(x2 >= 0.f && y2 >= 0.f && x2 <= static_cast<float>(Wg - 1) &&
+        y2 <= static_cast<float>(Hg - 1)))
     return;
-  const int ix = clampi(__float2int_rz(x2), 0, W - 1);
-  const int iy = clampi(__float2int_rz(y2), 0, H - 1);
-  const float* v = payload + P * b * HW + p;
-  float* s = sums + P * b * HW + static_cast<int64_t>(iy) * W + ix;
+  float v[Op::P];
+  if (!op(b, p, HW, fx, fy, gx, gy, s, Hg, Wg, v)) return;
+  const int ix = clampi(__float2int_rz(x2), 0, Wg - 1);
+  const int iy = clampi(__float2int_rz(y2), 0, Hg - 1);
+  const int64_t HWg = static_cast<int64_t>(Hg) * Wg;
+  float* d = sums + static_cast<int64_t>(s) * Op::P * HWg + static_cast<int64_t>(iy) * Wg + ix;
 #pragma unroll
-  for (int c = 0; c < P; ++c) atomicAdd(s + c * HW, v[c * HW]);
+  for (int c = 0; c < Op::P; ++c) atomicAdd(d + c * HWg, v[c]);
 }
 
 // T (the x fold of S) at row y of one plane.
@@ -234,63 +326,80 @@ project_fold_kernel(const float* __restrict__ sums, OutT* __restrict__ out, ExT*
   if (word) atomicOr(col_sums + line * words_for(nh) + blockIdx.y / 32, 1u << (blockIdx.y % 32));
 }
 
+// The highest set bit of a line's mask words [0, w), as a pixel index, or
+// -1.  kSums: by the summary words (bit k of summary word j set = mask word
+// 32 j + k not empty), which name the nearest non-empty word at once; else
+// by reading the words down from w - 1.
+template <bool kSums>
+__device__ __forceinline__ int last_before(const uint32_t* __restrict__ words,
+                                           const uint32_t* __restrict__ wsum, int w) {
+  if (kSums) {
+    if (w <= 0) return -1;
+    int s = (w - 1) / 32;
+    uint32_t sm = wsum[s] & (kFullMask >> (31 - (w - 1) % 32));
+    while (!sm && s > 0) sm = wsum[--s];
+    if (!sm) return -1;
+    const int ww = s * 32 + 31 - __clz(static_cast<int>(sm));
+    return ww * 32 + 31 - __clz(static_cast<int>(words[ww]));
+  }
+  for (int ww = w - 1; ww >= 0; --ww) {
+    const uint32_t m = words[ww];
+    if (m) return ww * 32 + 31 - __clz(static_cast<int>(m));
+  }
+  return -1;
+}
+
+// The lowest set bit of a line's mask words [w, words_for(n)) of a line of n
+// pixels, or n.
+template <bool kSums>
+__device__ __forceinline__ int first_from(const uint32_t* __restrict__ words,
+                                          const uint32_t* __restrict__ wsum, int w, int n) {
+  const int nw = words_for(n);
+  if (w >= nw) return n;
+  if (kSums) {
+    const int nsum = words_for(nw);
+    int s = w / 32;
+    uint32_t sm = wsum[s] & (kFullMask << (w % 32));
+    while (!sm && s + 1 < nsum) sm = wsum[++s];
+    if (!sm) return n;
+    const int ww = s * 32 + __ffs(static_cast<int>(sm)) - 1;
+    return ww * 32 + __ffs(static_cast<int>(words[ww])) - 1;
+  }
+  for (int ww = w; ww < nw; ++ww) {
+    const uint32_t m = words[ww];
+    if (m) return ww * 32 + __ffs(static_cast<int>(m)) - 1;
+  }
+  return n;
+}
+
 // Nearest set bit below i in a line's mask words, or -1: the word of i
-// first, then the summary (bit k set = word k not empty) for the nearest
-// non-empty word.
+// first, then the words below it.
+template <bool kSums = true>
 __device__ __forceinline__ int nearest_below(const uint32_t* __restrict__ words,
                                              const uint32_t* __restrict__ wsum, int i) {
   const int w = i / 32;
   const uint32_t m = words[w] & ((1u << (i % 32)) - 1u);
   if (m) return w * 32 + 31 - __clz(static_cast<int>(m));
-  int s = w / 32;
-  uint32_t sm = wsum[s] & ((1u << (w % 32)) - 1u);
-  while (!sm && s > 0) sm = wsum[--s];
-  if (!sm) return -1;
-  const int ww = s * 32 + 31 - __clz(static_cast<int>(sm));
-  return ww * 32 + 31 - __clz(static_cast<int>(words[ww]));
+  return last_before<kSums>(words, wsum, w);
 }
 
 // Nearest set bit above i in a line of n bits, or n.
+template <bool kSums = true>
 __device__ __forceinline__ int nearest_above(const uint32_t* __restrict__ words,
                                              const uint32_t* __restrict__ wsum, int i, int n) {
   const int w = i / 32;
   const uint32_t m = words[w] & ~((2u << (i % 32)) - 1u);  // 2u << 31 wraps to 0
   if (m) return w * 32 + __ffs(static_cast<int>(m)) - 1;
-  const int nsum = words_for(words_for(n));
-  int s = w / 32;
-  uint32_t sm = wsum[s] & ~((2u << (w % 32)) - 1u);
-  while (!sm && s + 1 < nsum) sm = wsum[++s];
-  if (!sm) return n;
-  const int ww = s * 32 + __ffs(static_cast<int>(sm)) - 1;
-  return ww * 32 + __ffs(static_cast<int>(words[ww])) - 1;
-}
-
-// A carry in (B, 3, L) for line i of sample b, added where the search found
-// nothing (the missing direction added 0 before it, so the sum's order is
-// the plain version's).
-__device__ __forceinline__ void carry_in(const float* __restrict__ carry, int b, int i, int L,
-                                         bool missing, float* nx, float* ny, float* den) {
-  const float* c = carry + static_cast<int64_t>(3 * b) * L + i;
-  if (missing && c[0] > 0.f) {
-    *nx += c[L];
-    *ny += c[2 * L];
-    *den += 1.f;
-  }
+  return first_from<kSums>(words, wsum, w + 1, n);
 }
 
 // Block: 32 x 8 threads, one pixel each; grid (words_for(W), ceil(H / 8), B).
-// kDown adds the nearest value below (fix_down_scan_bug).  kCarry: where a
-// search finds nothing, the carry of its direction stands in for it: left
-// and right (B, 3, H) per row, up (B, 3, W) per column or null (the tile
-// entry's carries from the other tiles; plane 0 > 0 if there is a value,
-// planes 1 and 2 the value).
-template <typename T, bool kDown, bool kCarry>
+// kDown adds the nearest value below (fix_down_scan_bug).
+template <typename T, bool kDown>
 __global__ void __launch_bounds__(256)
 project_fill_kernel(const float* __restrict__ avg, const uint32_t* __restrict__ rows,
                     const uint32_t* __restrict__ row_sums, const uint32_t* __restrict__ cols,
-                    const uint32_t* __restrict__ col_sums, T* __restrict__ out, int H, int W,
-                    const float* __restrict__ left, const float* __restrict__ right,
-                    const float* __restrict__ up) {
+                    const uint32_t* __restrict__ col_sums, T* __restrict__ out, int H, int W) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int b = blockIdx.z;
@@ -317,21 +426,16 @@ project_fill_kernel(const float* __restrict__ avg, const uint32_t* __restrict__ 
   nx += l >= 0 ? ax[row + l] : 0.f;
   ny += l >= 0 ? ay[row + l] : 0.f;
   den += l >= 0 ? 1.f : 0.f;
-  if constexpr (kCarry) carry_in(left, b, y, H, l < 0, &nx, &ny, &den);
   const int r = nearest_above(rw, rs, x, W);
   nx += r < W ? ax[row + r] : 0.f;
   ny += r < W ? ay[row + r] : 0.f;
   den += r < W ? 1.f : 0.f;
-  if constexpr (kCarry) carry_in(right, b, y, H, r >= W, &nx, &ny, &den);
   const int64_t cline = static_cast<int64_t>(b) * W + x;
   const int u = nearest_below(cols + cline * nh, col_sums + cline * words_for(nh), y);
   const int64_t up_at = static_cast<int64_t>(u) * W + x;
   nx += u >= 0 ? ax[up_at] : 0.f;
   ny += u >= 0 ? ay[up_at] : 0.f;
   den += u >= 0 ? 1.f : 0.f;
-  if constexpr (kCarry) {
-    if (up != nullptr) carry_in(up, b, x, W, u < 0, &nx, &ny, &den);
-  }
   if (kDown) {
     const int d = nearest_above(cols + cline * nh, col_sums + cline * words_for(nh), y, H);
     const int64_t down = static_cast<int64_t>(d) * W + x;
@@ -384,41 +488,6 @@ project_tile_scatter_kernel(const T* __restrict__ flow, const int* __restrict__ 
   atomicAdd(s + 2 * HWe, 1.f);
 }
 
-// K2's payload entry on tile origins: one thread per source pixel of B
-// stacked tiles of H x W, each at its origin (y0, x0) in an Hg x Wg frame
-// and owning its first (own_h, own_w) positions (origins: B x 4 int32, y0,
-// x0, own_h, own_w); a pixel past them is a stacked tile's padding and adds
-// nothing.  An owned pixel's P planes land at the frame's cell in the
-// whole-frame buffer of its sample, b % S (the tile index is outermost).
-template <typename T, int P>
-__global__ void __launch_bounds__(256)
-project_payload_tile_scatter_kernel(const T* __restrict__ flow, const float* __restrict__ payload,
-                                    const int* __restrict__ origins, float* __restrict__ sums,
-                                    int H, int W, int S, int Hg, int Wg, int64_t total) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int64_t HW = static_cast<int64_t>(H) * W;
-  const int64_t b = idx / HW;
-  const int64_t p = idx - b * HW;
-  const int y = static_cast<int>(p / W);
-  const int x = static_cast<int>(p - static_cast<int64_t>(y) * W);
-  const int* o = origins + 4 * b;
-  if (y >= o[2] || x >= o[3]) return;
-  const T* f = flow + 2 * b * HW + p;
-  const float x2 = static_cast<float>(o[1] + x) + to_f32(f[0]);
-  const float y2 = static_cast<float>(o[0] + y) + to_f32(f[HW]);
-  if (!(x2 >= 0.f && y2 >= 0.f && x2 <= static_cast<float>(Wg - 1) &&
-        y2 <= static_cast<float>(Hg - 1)))
-    return;
-  const int ix = clampi(__float2int_rz(x2), 0, Wg - 1);
-  const int iy = clampi(__float2int_rz(y2), 0, Hg - 1);
-  const int64_t HWg = static_cast<int64_t>(Hg) * Wg;
-  const float* v = payload + P * b * HW + p;
-  float* s = sums + P * (b % S) * HWg + static_cast<int64_t>(iy) * Wg + ix;
-#pragma unroll
-  for (int c = 0; c < P; ++c) atomicAdd(s + c * HWg, v[c * HW]);
-}
-
 constexpr int kFoldRows = 16;  // rows a warp of project_raw_fold_kernel walks
 
 // Both +1 folds of each H x W plane of S at the plane's own edges, in the
@@ -458,29 +527,27 @@ project_raw_fold_kernel(const float* __restrict__ sums, float* __restrict__ out,
   }
 }
 
-// The has-value masks (count > 0) of (B, H, W) counts, as project_fold_kernel
-// writes them with the fill: block 32 x 8 over a tile of 32 columns x 32 rows,
-// grid (words_for(W), words_for(H), B).
+// The has-value masks (count > 0) of (B, H, W) counts at cnt[b c_sb + y c_sy
+// + x], as project_fold_kernel writes them with the fill, without summaries:
+// block 32 x 8 over a tile of 32 columns x 32 rows, grid (words_for(W),
+// words_for(H), B).  Every mask word is written (a ballot for a row word, the
+// tile's rows transposed in shared memory for a column word).
 __global__ void __launch_bounds__(kTile * kTileWarps)
-project_mask_kernel(const float* __restrict__ cnt, uint32_t* __restrict__ rows,
-                    uint32_t* __restrict__ row_sums, uint32_t* __restrict__ cols,
-                    uint32_t* __restrict__ col_sums, int H, int W) {
+project_mask_kernel(const float* __restrict__ cnt, int64_t c_sb, int c_sy,
+                    uint32_t* __restrict__ rows, uint32_t* __restrict__ cols, int H, int W) {
   __shared__ uint32_t tile_rows[kTile];
   const int lane = threadIdx.x;
   const int x = blockIdx.x * kTile + lane;
   const int b = blockIdx.z;
-  const int64_t HW = static_cast<int64_t>(H) * W;
+  const float* c = cnt + b * c_sb;
   for (int r = threadIdx.y; r < kTile; r += kTileWarps) {
     const int y = blockIdx.y * kTile + r;
-    const bool has = y < H && x < W && cnt[b * HW + static_cast<int64_t>(y) * W + x] > 0.f;
+    const bool has = y < H && x < W && c[y * c_sy + x] > 0.f;
     const uint32_t word = __ballot_sync(kFullMask, has);
     if (lane == 0) {
       tile_rows[r] = word;
       if (y < H) {
-        const int64_t line = static_cast<int64_t>(b) * H + y;
-        const int nw = words_for(W);
-        rows[line * nw + blockIdx.x] = word;
-        if (word) atomicOr(row_sums + line * words_for(nw) + blockIdx.x / 32, 1u << (blockIdx.x % 32));
+        rows[(static_cast<int64_t>(b) * H + y) * words_for(W) + blockIdx.x] = word;
       }
     }
   }
@@ -488,10 +555,118 @@ project_mask_kernel(const float* __restrict__ cnt, uint32_t* __restrict__ rows,
   if (threadIdx.y != 0 || x >= W) return;
   uint32_t word = 0;
   for (int r = 0; r < kTile; ++r) word |= ((tile_rows[r] >> lane) & 1u) << r;
-  const int64_t line = static_cast<int64_t>(b) * W + x;
-  const int nh = words_for(H);
-  cols[line * nh + blockIdx.y] = word;
-  if (word) atomicOr(col_sums + line * words_for(nh) + blockIdx.y / 32, 1u << (blockIdx.y % 32));
+  cols[(static_cast<int64_t>(b) * W + x) * words_for(H) + blockIdx.y] = word;
+}
+
+// A tile axis of the tiled fill: stacked in this process's batch (t tiles,
+// the neighbour k tiles before tile b at b - k inner, parallel/ring.py::
+// TileRing's (outer, t, inner)) when t > 1 and no carries are given; else
+// its carries come as arguments or it is not tiled.
+struct Stack {
+  int t, inner;
+};
+
+// The value a hole takes from one direction: found in its own tile (at
+// (own_y, own_x) of avg row ``ab``), or where it is not, the carry given in
+// (B, 3, L) per line (plane 0 > 0: there is a value), or the nearest stacked
+// tile's edge value.  Adds to (nx, ny, den) only what it finds: the plain
+// version's missing direction adds 0.
+struct Acc {
+  float nx = 0.f, ny = 0.f, den = 0.f;
+  __device__ __forceinline__ void add(const float* a, int a_sc, int at) {
+    nx += a[at];
+    ny += a[a_sc + at];
+    den += 1.f;
+  }
+  __device__ __forceinline__ void add_carry(const float* c, int64_t line, int L) {
+    const float* v = c + line;  // c: (B, 3, L), line = 3 b L + i
+    if (v[0] > 0.f) {
+      nx += v[L];
+      ny += v[2 * L];
+      den += 1.f;
+    }
+  }
+};
+
+// K3's tile entry: the hole fill of B cropped tiles of H x W, their float32
+// average at avg[b a_sb + c a_sc + y a_sy + x] and has-value masks (the
+// layouts of memc_project_sums's rows and cols; no summaries), out (B, 2, H,
+// W) in T.  Where a tile's own search finds nothing, the left and right
+// searches continue over ``sw`` (or take ``left`` / ``right``, (B, 3, H)) and
+// the up search over ``sh`` (or ``up``, (B, 3, W)).  Block: 32 x 8 threads,
+// one pixel each; grid (words_for(W), ceil(H / 8), B).
+template <typename T>
+__global__ void __launch_bounds__(256)
+project_fill_tiles_kernel(const float* __restrict__ avg, int64_t a_sb, int a_sc, int a_sy,
+                          const uint32_t* __restrict__ rows, const uint32_t* __restrict__ cols,
+                          T* __restrict__ out, int H, int W, Stack sw, Stack sh,
+                          const float* __restrict__ left, const float* __restrict__ right,
+                          const float* __restrict__ up) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int b = blockIdx.z;
+  if (x >= W || y >= H) return;
+  const int nw = words_for(W), nh = words_for(H);
+  const float* ab = avg + b * a_sb;
+  const int at = y * a_sy + x;
+  T* o = out + static_cast<int64_t>(b) * 2 * H * W + y * W + x;
+  const int64_t rline = static_cast<int64_t>(b) * H + y;
+  const uint32_t* rw = rows + rline * nw;
+  if ((rw[x / 32] >> (x % 32)) & 1u) {
+    o[0] = from_f32<T>(ab[at]);
+    o[H * W] = from_f32<T>(ab[a_sc + at]);
+    return;
+  }
+  // the plain version's order: ((0 + left) + right) + up
+  Acc acc;
+  const int l = nearest_below<false>(rw, nullptr, x);
+  if (l >= 0) {
+    acc.add(ab, a_sc, y * a_sy + l);
+  } else if (left != nullptr) {
+    acc.add_carry(left, 3LL * b * H + y, H);
+  } else if (sw.t > 1) {
+    for (int k = 1, bb = b - sw.inner; k <= b / sw.inner % sw.t; ++k, bb -= sw.inner) {
+      const int64_t line = static_cast<int64_t>(bb) * H + y;
+      const int e = last_before<false>(rows + line * nw, nullptr, nw);
+      if (e >= 0) {
+        acc.add(avg + bb * a_sb, a_sc, y * a_sy + e);
+        break;
+      }
+    }
+  }
+  const int r = nearest_above<false>(rw, nullptr, x, W);
+  if (r < W) {
+    acc.add(ab, a_sc, y * a_sy + r);
+  } else if (right != nullptr) {
+    acc.add_carry(right, 3LL * b * H + y, H);
+  } else if (sw.t > 1) {
+    for (int k = 1, bb = b + sw.inner; k < sw.t - b / sw.inner % sw.t; ++k, bb += sw.inner) {
+      const int64_t line = static_cast<int64_t>(bb) * H + y;
+      const int e = first_from<false>(rows + line * nw, nullptr, 0, W);
+      if (e < W) {
+        acc.add(avg + bb * a_sb, a_sc, y * a_sy + e);
+        break;
+      }
+    }
+  }
+  const int64_t cline = static_cast<int64_t>(b) * W + x;
+  const int u = nearest_below<false>(cols + cline * nh, nullptr, y);
+  if (u >= 0) {
+    acc.add(ab, a_sc, u * a_sy + x);
+  } else if (up != nullptr) {
+    acc.add_carry(up, 3LL * b * W + x, W);
+  } else if (sh.t > 1) {
+    for (int k = 1, bb = b - sh.inner; k <= b / sh.inner % sh.t; ++k, bb -= sh.inner) {
+      const int64_t line = static_cast<int64_t>(bb) * W + x;
+      const int e = last_before<false>(cols + line * nh, nullptr, nh);
+      if (e >= 0) {
+        acc.add(avg + bb * a_sb, a_sc, e * a_sy + x);
+        break;
+      }
+    }
+  }
+  o[0] = from_f32<T>(acc.den > 0.f ? acc.nx / acc.den : ab[at]);
+  o[H * W] = from_f32<T>(acc.den > 0.f ? acc.ny / acc.den : ab[a_sc + at]);
 }
 
 // The raw fold of `planes` H x W planes of S into out.
@@ -518,37 +693,6 @@ cudaError_t launch_tile_sums(const T* flow, const int* origins, float* sums, flo
   return launch_raw_fold(sums, out, 3 * B, static_cast<int>(He), static_cast<int>(We), st);
 }
 
-template <typename T, int P>
-cudaError_t launch_payload_tile(const T* flow, const float* payload, const int* origins,
-                                float* sums, float* out, int B, int H, int W, int S, int Hg,
-                                int Wg, cudaStream_t st) {
-  if (static_cast<int64_t>(Hg) * Wg > INT32_MAX || static_cast<int64_t>(S) * P > 65535)
-    return cudaErrorInvalidValue;
-  const int64_t planes = static_cast<int64_t>(S) * P * Hg * Wg;
-  cudaError_t err = cudaMemsetAsync(sums, 0, sizeof(float) * planes, st);
-  if (err != cudaSuccess) return err;
-  const int64_t total = static_cast<int64_t>(B) * H * W;
-  project_payload_tile_scatter_kernel<T, P><<<ceil_div(total, 256), 256, 0, st>>>(
-      flow, payload, origins, sums, H, W, S, Hg, Wg, total);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_raw_fold(sums, out, S * P, Hg, Wg, st);
-}
-
-template <typename T>
-cudaError_t launch_payload_tile_p(const void* flow, const void* payload, const void* origins,
-                                  void* sums, void* out, int B, int P, int H, int W, int S,
-                                  int Hg, int Wg, cudaStream_t st) {
-  auto* f = static_cast<const T*>(flow);
-  auto* v = static_cast<const float*>(payload);
-  auto* o = static_cast<const int*>(origins);
-  auto* s = static_cast<float*>(sums);
-  auto* r = static_cast<float*>(out);
-  if (P == 3) return launch_payload_tile<T, 3>(f, v, o, s, r, B, H, W, S, Hg, Wg, st);
-  if (P == 4) return launch_payload_tile<T, 4>(f, v, o, s, r, B, H, W, S, Hg, Wg, st);
-  return cudaErrorInvalidValue;
-}
-
 template <typename T>
 cudaError_t launch_sums(const T* flow, float* sums, void* out, uint32_t* rows, uint32_t* row_sums,
                         uint32_t* cols, uint32_t* col_sums, int B, int H, int W, bool fill,
@@ -565,27 +709,6 @@ cudaError_t launch_sums(const T* flow, float* sums, void* out, uint32_t* rows, u
   } else {
     project_fold_kernel<T, T, 3, false><<<grid, block, 0, st>>>(
         sums, static_cast<T*>(out), nullptr, nullptr, nullptr, nullptr, nullptr, H, W);
-  }
-  return cudaGetLastError();
-}
-
-template <typename T, int P>
-cudaError_t launch_payload(const T* flow, const float* payload, float* sums, void* out, T* ex,
-                           uint32_t* rows, uint32_t* row_sums, uint32_t* cols,
-                           uint32_t* col_sums, int B, int H, int W, bool fill, cudaStream_t st) {
-  const int64_t HW = static_cast<int64_t>(H) * W;
-  const int64_t total = B * HW;
-  project_payload_scatter_kernel<T, P><<<ceil_div(total, 256), 256, 0, st>>>(
-      flow, payload, sums, H, W, HW, total);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid(words_for(W), words_for(H), B), block(kTile, kTileWarps);
-  if (fill) {
-    project_fold_kernel<float, T, P, true><<<grid, block, 0, st>>>(
-        sums, static_cast<float*>(out), ex, rows, row_sums, cols, col_sums, H, W);
-  } else {
-    project_fold_kernel<T, T, P, false><<<grid, block, 0, st>>>(
-        sums, static_cast<T*>(out), ex, nullptr, nullptr, nullptr, nullptr, H, W);
   }
   return cudaGetLastError();
 }
@@ -610,26 +733,93 @@ inline cudaError_t zero_scratch(void* sums, void* row_sums, void* col_sums, void
   return cudaMemsetAsync(sums, 0, zero_bytes, st);
 }
 
-template <typename T>
-cudaError_t launch_payload_p(const void* flow, const void* payload, void* sums, void* out,
-                             void* ex, void* rows, void* row_sums, void* cols, void* col_sums,
-                             int B, int P, int H, int W, bool fill, cudaStream_t st) {
-  auto* f = static_cast<const T*>(flow);
-  auto* v = static_cast<const float*>(payload);
-  auto* s = static_cast<float*>(sums);
-  auto* r = static_cast<uint32_t*>(rows);
-  auto* rs = static_cast<uint32_t*>(row_sums);
-  auto* c = static_cast<uint32_t*>(cols);
-  auto* cs = static_cast<uint32_t*>(col_sums);
-  if (P == 3) {
-    return launch_payload<T, 3>(f, v, s, out, static_cast<T*>(ex), r, rs, c, cs, B, H, W, fill,
-                                st);
+// Where the payload scatter writes and what follows it.  Untiled (origins
+// null): S (B, P, H, W) zeroed by zero_scratch, then the fold-and-divide
+// into out (and ex, and with the fill the masks); on tile origins: S (S_, P,
+// Hg, Wg) zeroed here, then the raw fold into out.
+struct PayloadArgs {
+  const int* origins;
+  float* sums;
+  void* out;
+  void* ex;
+  uint32_t *rows, *row_sums, *cols, *col_sums;
+  int B, H, W, S, Hg, Wg;
+  bool fill;
+  cudaStream_t st;
+};
+
+template <typename T, class Op>
+cudaError_t launch_payload(const T* flow, const Op& op, const PayloadArgs& a) {
+  constexpr int P = Op::P;
+  if (3LL * a.H * a.W > INT32_MAX || a.B > 65535 || static_cast<int64_t>(a.S) * P > 65535)
+    return cudaErrorInvalidValue;
+  if (a.origins != nullptr) {
+    const size_t bytes = sizeof(float) * a.S * P * static_cast<int64_t>(a.Hg) * a.Wg;
+    const cudaError_t err = cudaMemsetAsync(a.sums, 0, bytes, a.st);
+    if (err != cudaSuccess) return err;
   }
-  if (P == 4) {
-    return launch_payload<T, 4>(f, v, s, out, static_cast<T*>(ex), r, rs, c, cs, B, H, W, fill,
-                                st);
+  project_op_scatter_kernel<T, Op>
+      <<<dim3(words_for(a.W), ceil_div(a.H, 8), a.B), dim3(32, 8), 0, a.st>>>(
+          flow, op, a.origins, a.sums, a.H, a.W, a.S, a.Hg, a.Wg);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (a.origins != nullptr)
+    return launch_raw_fold(a.sums, static_cast<float*>(a.out), a.S * P, a.Hg, a.Wg, a.st);
+  const dim3 grid(words_for(a.W), words_for(a.H), a.B), block(kTile, kTileWarps);
+  T* ex = static_cast<T*>(a.ex);
+  if (a.fill) {
+    project_fold_kernel<float, T, P, true><<<grid, block, 0, a.st>>>(
+        a.sums, static_cast<float*>(a.out), ex, a.rows, a.row_sums, a.cols, a.col_sums, a.H, a.W);
+  } else {
+    project_fold_kernel<T, T, P, false><<<grid, block, 0, a.st>>>(
+        a.sums, static_cast<T*>(a.out), ex, nullptr, nullptr, nullptr, nullptr, a.H, a.W);
   }
+  return cudaGetLastError();
+}
+
+// The payload of ``op`` on inputs of type A (depth; frame1 and frame2).
+template <typename T, typename A>
+cudaError_t launch_payload_op(int op, const void* flow, const void* in1, const void* in2,
+                              float threshold, const PayloadArgs& a) {
+  const auto* f = static_cast<const T*>(flow);
+  const auto* i1 = static_cast<const A*>(in1);
+  if (op == kDepthOp) return launch_payload(f, DepthPayload<A>{i1}, a);
+  if (op == kGatedOp && in2 != nullptr)
+    return launch_payload(f, GatedPayload<A>{i1, static_cast<const A*>(in2), threshold}, a);
   return cudaErrorInvalidValue;
+}
+
+inline cudaError_t launch_payload_types(int op, const void* flow, const void* in1,
+                                        const void* in2, float threshold, int dtype,
+                                        int in_dtype, const PayloadArgs& a) {
+  if (dtype == kFloat32 && in_dtype == kFloat32)
+    return launch_payload_op<float, float>(op, flow, in1, in2, threshold, a);
+  if (dtype == kFloat32 && in_dtype == kBFloat16)
+    return launch_payload_op<float, __nv_bfloat16>(op, flow, in1, in2, threshold, a);
+  if (dtype == kBFloat16 && in_dtype == kFloat32)
+    return launch_payload_op<__nv_bfloat16, float>(op, flow, in1, in2, threshold, a);
+  if (dtype == kBFloat16 && in_dtype == kBFloat16)
+    return launch_payload_op<__nv_bfloat16, __nv_bfloat16>(op, flow, in1, in2, threshold, a);
+  return cudaErrorInvalidValue;
+}
+
+// The tiled fill's two launches; masks: rows (B, H, words(W)), then cols
+// (B, W, words(H)).
+template <typename T>
+cudaError_t launch_fill_tiles(const float* avg, int64_t a_sb, int a_sc, int a_sy,
+                              const float* cnt, int64_t c_sb, int c_sy, uint32_t* masks, T* out,
+                              int B, int H, int W, Stack sw, Stack sh, const float* left,
+                              const float* right, const float* up, cudaStream_t st) {
+  const int nw = words_for(W), nh = words_for(H);
+  uint32_t* r = masks;
+  uint32_t* c = r + static_cast<int64_t>(B) * H * nw;
+  project_mask_kernel<<<dim3(nw, nh, B), dim3(kTile, kTileWarps), 0, st>>>(cnt, c_sb, c_sy, r, c,
+                                                                           H, W);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  project_fill_tiles_kernel<T><<<dim3(nw, ceil_div(H, 8), B), dim3(32, 8), 0, st>>>(
+      avg, a_sb, a_sc, a_sy, r, c, out, H, W, sw, sh, left, right, up);
+  return cudaGetLastError();
 }
 
 }  // namespace memc
@@ -669,30 +859,29 @@ MEMC_API int memc_project_sums(const void* flow, void* sums, void* out, void* ro
   return cudaErrorInvalidValue;
 }
 
-// K2's payload entry.  flow: (B, 2, H, W) in dtype; payload: (B, P, H, W)
-// float32, P = 3 or 4; sums: (B, P, H, W) float32 scratch.  out: (B, 2, H, W)
-// in dtype without fill, float32 (the average) with it, planes 0 and 1 of the
-// result; ex: (B, P-3, H, W) in dtype, planes 2 .. P-2 (null for P = 3); the
-// masks and their layout as memc_project_sums's, from plane P-1 > 0.
-MEMC_API int memc_project_payload(const void* flow, const void* payload, void* sums, void* out,
-                                  void* ex, void* rows, void* row_sums, void* cols,
-                                  void* col_sums, int B, int P, int H, int W, int dtype,
-                                  int fill, void* stream) {
+// K2's payload entry, the payload built from the op's inputs.  op 0 (N7):
+// in1 the depth (B, 1, H, W), P = 3; op 1 (N8): in1 frame1 and in2 frame2,
+// (B, 3, H, W) each, the gate err <= threshold, P = 4.  flow in dtype, the
+// inputs in in_dtype; sums: (B, P, H, W) float32 scratch.  out: (B, 2, H, W)
+// in dtype without fill, float32 (the average) with it, planes 0 and 1 of
+// the result; ex: (B, P-3, H, W) in dtype, planes 2 .. P-2 (null for P = 3);
+// the masks and their layout as memc_project_sums's, from plane P-1 > 0.
+MEMC_API int memc_project_payload(int op, const void* flow, const void* in1, const void* in2,
+                                  float threshold, void* sums, void* out, void* ex, void* rows,
+                                  void* row_sums, void* cols, void* col_sums, int B, int H,
+                                  int W, int dtype, int in_dtype, int fill, void* stream) {
   if (B == 0 || H == 0 || W == 0) return cudaSuccess;
-  if ((P != 3 && P != 4) || (P == 4 && ex == nullptr)) return cudaErrorInvalidValue;
+  const int P = op == memc::kGatedOp ? 4 : 3;
+  if (P == 4 && ex == nullptr) return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err = memc::zero_scratch(sums, row_sums, col_sums, rows, cols, B, P, H, W,
                                        fill != 0, st);
   if (err != cudaSuccess) return err;
-  if (dtype == memc::kFloat32) {
-    return memc::launch_payload_p<float>(flow, payload, sums, out, ex, rows, row_sums, cols,
-                                         col_sums, B, P, H, W, fill != 0, st);
-  }
-  if (dtype == memc::kBFloat16) {
-    return memc::launch_payload_p<__nv_bfloat16>(flow, payload, sums, out, ex, rows, row_sums,
-                                                 cols, col_sums, B, P, H, W, fill != 0, st);
-  }
-  return cudaErrorInvalidValue;
+  const memc::PayloadArgs a{nullptr, static_cast<float*>(sums), out, ex,
+                            static_cast<uint32_t*>(rows), static_cast<uint32_t*>(row_sums),
+                            static_cast<uint32_t*>(cols), static_cast<uint32_t*>(col_sums),
+                            B, H, W, B, H, W, fill != 0, st};
+  return memc::launch_payload_types(op, flow, in1, in2, threshold, dtype, in_dtype, a);
 }
 
 // avg: (B, 2, H, W) float32; the masks as above; out: (B, 2, H, W) in dtype.
@@ -711,20 +900,18 @@ MEMC_API int memc_project_fill(const void* avg, const void* rows, const void* ro
   if (dtype == memc::kFloat32) {
     auto* o = static_cast<float*>(out);
     if (down) {
-      memc::project_fill_kernel<float, true, false><<<grid, block, 0, st>>>(
-          a, r, rs, c, cs, o, H, W, nullptr, nullptr, nullptr);
+      memc::project_fill_kernel<float, true><<<grid, block, 0, st>>>(a, r, rs, c, cs, o, H, W);
     } else {
-      memc::project_fill_kernel<float, false, false><<<grid, block, 0, st>>>(
-          a, r, rs, c, cs, o, H, W, nullptr, nullptr, nullptr);
+      memc::project_fill_kernel<float, false><<<grid, block, 0, st>>>(a, r, rs, c, cs, o, H, W);
     }
   } else if (dtype == memc::kBFloat16) {
     auto* o = static_cast<__nv_bfloat16*>(out);
     if (down) {
-      memc::project_fill_kernel<__nv_bfloat16, true, false><<<grid, block, 0, st>>>(
-          a, r, rs, c, cs, o, H, W, nullptr, nullptr, nullptr);
+      memc::project_fill_kernel<__nv_bfloat16, true><<<grid, block, 0, st>>>(a, r, rs, c, cs, o,
+                                                                             H, W);
     } else {
-      memc::project_fill_kernel<__nv_bfloat16, false, false><<<grid, block, 0, st>>>(
-          a, r, rs, c, cs, o, H, W, nullptr, nullptr, nullptr);
+      memc::project_fill_kernel<__nv_bfloat16, false><<<grid, block, 0, st>>>(a, r, rs, c, cs, o,
+                                                                              H, W);
     }
   } else {
     return cudaErrorInvalidValue;
@@ -757,68 +944,64 @@ MEMC_API int memc_project_tile_sums(const void* flow, const void* origins, void*
   return cudaErrorInvalidValue;
 }
 
-// K2's payload entry on tile origins.  flow: (B, 2, H, W) tiles in dtype;
-// payload: (B, P, H, W) float32, P = 3 or 4; origins: (B, 4) int32 on the
-// device (y0, x0, own_h, own_w of each tile in the Hg x Wg frame); sums: (S,
-// P, Hg, Wg) float32 scratch; out: the same shape, float32: each sample's
-// whole-frame sums of its tiles' payloads with both +1 folds at the frame's
-// border, no divide.  B must be a multiple of S; tile b is of sample b % S.
-MEMC_API int memc_project_payload_tile(const void* flow, const void* payload,
-                                       const void* origins, void* sums, void* out, int B, int P,
-                                       int H, int W, int S, int Hg, int Wg, int dtype,
-                                       void* stream) {
+// K2's payload entry on tile origins, the payload built from the op's
+// inputs (as memc_project_payload: op 0 in1 the depth tiles; op 1 in1 the
+// frame1 tiles, in2 frame2's whole level (S, 3, Hg, Wg)).  flow: (B, 2, H,
+// W) tiles in dtype, the inputs in in_dtype; origins: (B, 4) int32 on the
+// device (y0, x0, own_h, own_w of each tile in the Hg x Wg frame); sums:
+// (S, P, Hg, Wg) float32 scratch; out: the same shape, float32: each
+// sample's whole-frame sums of its tiles' payloads with both +1 folds at the
+// frame's border, no divide.  B must be a multiple of S; tile b is of sample
+// b % S.
+MEMC_API int memc_project_payload_tile(int op, const void* flow, const void* in1,
+                                       const void* in2, float threshold, const void* origins,
+                                       void* sums, void* out, int B, int H, int W, int S, int Hg,
+                                       int Wg, int dtype, int in_dtype, void* stream) {
   if (B == 0 || H == 0 || W == 0) return cudaSuccess;
-  if (S < 1 || B % S != 0 || Hg < 1 || Wg < 1 || origins == nullptr)
+  if (S < 1 || B % S != 0 || Hg < 1 || Wg < 1 || origins == nullptr ||
+      static_cast<int64_t>(Hg) * Wg > INT32_MAX)
     return cudaErrorInvalidValue;
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == memc::kFloat32) {
-    return memc::launch_payload_tile_p<float>(flow, payload, origins, sums, out, B, P, H, W, S,
-                                              Hg, Wg, st);
-  }
-  if (dtype == memc::kBFloat16) {
-    return memc::launch_payload_tile_p<__nv_bfloat16>(flow, payload, origins, sums, out, B, P,
-                                                      H, W, S, Hg, Wg, st);
-  }
-  return cudaErrorInvalidValue;
+  const memc::PayloadArgs a{static_cast<const int*>(origins), static_cast<float*>(sums), out,
+                            nullptr, nullptr, nullptr, nullptr, nullptr, B, H, W, S, Hg, Wg,
+                            false, static_cast<cudaStream_t>(stream)};
+  return memc::launch_payload_types(op, flow, in1, in2, threshold, dtype, in_dtype, a);
 }
 
-// K3's carry entry.  avg: (B, 2, H, W) float32, the cropped tiles'
-// average; cnt: (B, H, W) float32, their counts; masks: int32 scratch of
-// row_sums, col_sums, rows, cols in that order (the layouts of
-// memc_project_sums); left, right: (B, 3, H) float32 carries per row; up:
-// (B, 3, W) per column, or null where H is not tiled; out: (B, 2, H, W) in
-// dtype.
-MEMC_API int memc_project_fill_carry(const void* avg, const void* cnt, void* masks,
-                                     const void* left, const void* right, const void* up,
-                                     void* out, int B, int H, int W, int dtype, void* stream) {
+// K3's tile entry: the tiled fill.  avg: float32, the cropped tiles' average
+// at avg[b a_sb + c a_sc + y a_sy + x] (c = 0, 1); cnt: float32, their
+// counts at cnt[b c_sb + y c_sy + x]; masks: int32 scratch of rows, then
+// cols (the layouts of memc_project_sums's; no summaries); out: (B, 2, H, W) in dtype.  The W axis: stacked as (t_w, inner_w) when
+// left and right are null and t_w > 1, else left and right (B, 3, H) float32
+// carries per row (both or neither); the H axis likewise with (t_h, inner_h)
+// or up (B, 3, W) per column; t = 1 and no carries: not tiled.
+MEMC_API int memc_project_fill_tiles(const void* avg, int64_t a_sb, int a_sc, int a_sy,
+                                     const void* cnt, int64_t c_sb, int c_sy, void* masks,
+                                     void* out, int B, int H, int W, int t_w, int inner_w,
+                                     int t_h, int inner_h, const void* left, const void* right,
+                                     const void* up, int dtype, void* stream) {
   if (B == 0 || H == 0 || W == 0) return cudaSuccess;
-  if (left == nullptr || right == nullptr) return cudaErrorInvalidValue;
+  auto stacks = [B](int t, int inner) {
+    return t >= 1 && inner >= 1 && B % (static_cast<int64_t>(t) * inner) == 0;
+  };
+  if ((left == nullptr) != (right == nullptr) || B > 65535 || 2LL * H * W > INT32_MAX ||
+      !stacks(t_w, inner_w) || !stacks(t_h, inner_h))
+    return cudaErrorInvalidValue;
+  const memc::Stack sw{left != nullptr ? 1 : t_w, inner_w}, sh{up != nullptr ? 1 : t_h, inner_h};
   const auto st = static_cast<cudaStream_t>(stream);
-  const int nw = memc::words_for(W), nh = memc::words_for(H);
-  auto* rs = static_cast<uint32_t*>(masks);
-  uint32_t* cs = rs + static_cast<int64_t>(B) * H * memc::words_for(nw);
-  uint32_t* r = cs + static_cast<int64_t>(B) * W * memc::words_for(nh);
-  uint32_t* c = r + static_cast<int64_t>(B) * H * nw;
-  // the summaries are ORed into; every mask word is written
-  cudaError_t err = cudaMemsetAsync(rs, 0, sizeof(uint32_t) * (r - rs), st);
-  if (err != cudaSuccess) return err;
-  memc::project_mask_kernel<<<dim3(nw, nh, B), dim3(memc::kTile, memc::kTileWarps), 0, st>>>(
-      static_cast<const float*>(cnt), r, rs, c, cs, H, W);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid(nw, memc::ceil_div(H, 8), B), block(32, 8);
   const auto* a = static_cast<const float*>(avg);
+  const auto* c = static_cast<const float*>(cnt);
+  auto* m = static_cast<uint32_t*>(masks);
   const auto* lf = static_cast<const float*>(left);
   const auto* rt = static_cast<const float*>(right);
   const auto* u = static_cast<const float*>(up);
   if (dtype == memc::kFloat32) {
-    memc::project_fill_kernel<float, false, true><<<grid, block, 0, st>>>(
-        a, r, rs, c, cs, static_cast<float*>(out), H, W, lf, rt, u);
-  } else if (dtype == memc::kBFloat16) {
-    memc::project_fill_kernel<__nv_bfloat16, false, true><<<grid, block, 0, st>>>(
-        a, r, rs, c, cs, static_cast<__nv_bfloat16*>(out), H, W, lf, rt, u);
-  } else {
-    return cudaErrorInvalidValue;
+    return memc::launch_fill_tiles(a, a_sb, a_sc, a_sy, c, c_sb, c_sy, m,
+                                   static_cast<float*>(out), B, H, W, sw, sh, lf, rt, u, st);
   }
-  return cudaGetLastError();
+  if (dtype == memc::kBFloat16) {
+    return memc::launch_fill_tiles(a, a_sb, a_sc, a_sy, c, c_sb, c_sy, m,
+                                   static_cast<__nv_bfloat16*>(out), B, H, W, sw, sh, lf, rt, u,
+                                   st);
+  }
+  return cudaErrorInvalidValue;
 }

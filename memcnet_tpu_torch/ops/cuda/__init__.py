@@ -8,7 +8,8 @@ tensors.
 
   warp_kernel     K1  filter-interpolation warp   (csrc/warp.cu)
   project_kernel  K2  projection scatter, folds and divide, and its payload
-                      entry for the depth-weighted and gated projections
+                      entry for the depth-weighted and gated projections,
+                      which builds their payloads inside the scatter
                   K3  projection hole fill, with the down search on request
                                                             (csrc/project.cu)
   conv_kernel     K4  small-C conv: bf16 on tensor cores, float32 direct  (csrc/conv.cu)
@@ -17,11 +18,11 @@ tensors.
 
 and the tile entries of the tiled warp and projection (parallel/tiling.py):
 K1's (``warp_kernel.warp_tile``), K2's (``project_kernel.tile_sums``) and
-K3's carry entry (``project_kernel.carry_fill``), and of SPyNet's level input
-on partitioned frames (parallel/partition.py): K5's
+K3's (``project_kernel.tile_fill``: the whole tiled fill), and of SPyNet's
+level input on partitioned frames (parallel/partition.py): K5's
 (``gather_kernel.level_input_tile``), and of the depth-weighted and gated
 projections on partitioned frames: K2's payload entry on tile origins
-(``project_kernel.payload_tile_sums``), each with its own counter.
+(``project_kernel.payload_tile``), each with its own counter.
 """
 
 from memcnet_tpu_torch.ops.cuda import (

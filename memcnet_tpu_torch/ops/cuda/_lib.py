@@ -128,7 +128,7 @@ def build():
 
 
 def _declare(lib):
-    vp, i = ctypes.c_void_p, ctypes.c_int
+    vp, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     lib.memc_error_string.argtypes = [i]
     lib.memc_error_string.restype = ctypes.c_char_p
     lib.memc_filter_interp_warp.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
@@ -137,17 +137,19 @@ def _declare(lib):
     lib.memc_filter_interp_warp_tile.restype = i
     lib.memc_project_sums.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
     lib.memc_project_sums.restype = i
-    lib.memc_project_payload.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
-                                         vp]
+    lib.memc_project_payload.argtypes = [i, vp, vp, vp, f, vp, vp, vp, vp, vp, vp, vp, i, i, i,
+                                         i, i, i, vp]
     lib.memc_project_payload.restype = i
     lib.memc_project_fill.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
     lib.memc_project_fill.restype = i
     lib.memc_project_tile_sums.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
     lib.memc_project_tile_sums.restype = i
-    lib.memc_project_payload_tile.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
+    lib.memc_project_payload_tile.argtypes = [i, vp, vp, vp, f, vp, vp, vp, i, i, i, i, i, i,
+                                              i, i, vp]
     lib.memc_project_payload_tile.restype = i
-    lib.memc_project_fill_carry.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
-    lib.memc_project_fill_carry.restype = i
+    lib.memc_project_fill_tiles.argtypes = [vp, i64, i, i, vp, i64, i, vp, vp, i, i, i, i, i, i,
+                                            i, vp, vp, vp, i, vp]
+    lib.memc_project_fill_tiles.restype = i
     lib.memc_conv2d_small.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
     lib.memc_conv2d_small.restype = i
     lib.memc_conv2d_igemm.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp]

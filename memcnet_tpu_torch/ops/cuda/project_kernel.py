@@ -11,9 +11,10 @@ operations: K2 -- a memset, ``project_scatter_kernel`` and
 ``project_fold_kernel`` -- counted as one launch of ``base_scatter``, and,
 with the fill, K3 -- ``project_fill_kernel`` -- counted as one launch of
 ``fill_holes``.  K2's payload entry (``payload_project``) serves the depth-
-weighted and brightness-gated projections (``ops/projection.py``): the same
-three operations on a float32 payload of P = 3 or 4 planes, also counted as
-one launch of ``base_scatter``.
+weighted (N7) and brightness-gated (N8) projections (``ops/projection.py``):
+the same three operations on a payload of P = 3 or 4 planes that the
+scatter builds itself from the op's inputs, also counted as one launch of
+``base_scatter``.
 
 Function, per source pixel p with flow f: it lands at p + f, in float32
 whatever the flow's type, and if that is inside [0, W-1] x [0, H-1] it adds
@@ -28,9 +29,11 @@ my_lib_kernel.cu:1799; with the JAX opt-in ``fix_down_scan_bug`` K3 also
 takes the nearest value below).  The result is cast to the flow's type once.
 
 The payload entry: the flow sets the landing cells as above, and the P
-planes of the payload (zero where a gate fails) are scattered there, folded,
-and planes 0 .. P-2 divided by plane P-1 where it is > 0; with the fill,
-"has a value" is plane P-1 > 0 (a sum of depths or a count of gated pixels).
+planes of each source pixel's payload (``op_payload``: N7's (-f d, d) from
+the depth, N8's (-f, err, 1) where its gate holds, from frame1 at the pixel
+and frame2 at p + 2 f) are scattered there, folded, and planes 0 .. P-2
+divided by plane P-1 where it is > 0; with the fill, "has a value" is plane
+P-1 > 0 (a sum of depths or a count of gated pixels).
 
 What bounds it on the H100: memory (read the flow, write the result).  Its
 design: float ``atomicAdd`` into S, which stays in L2; one gather pass per
@@ -51,21 +54,25 @@ a memset, ``project_tile_scatter_kernel``, ``project_raw_fold_kernel``,
 counted by ``tile_scatter_counter``) scatters each tile's (-fx, -fy, 1),
 the flow clamped to the halo budget and gated in whole-frame coordinates,
 into its extended buffer and folds the +1 neighbours at that buffer's edges,
-with no divide: the spill exchange comes first.  K3's (``carry_fill``;
-``memc_project_fill_carry``: a memset, ``project_mask_kernel``,
-``project_fill_kernel`` with carries, counted by ``carry_counter``) fills a
-cropped tile, taking the carry from the other tiles wherever the tile's own
-search finds nothing: the nearest tile wins.
+with no divide: the spill exchange comes first.  K3's (``tile_fill``;
+``memc_project_fill_tiles``: ``project_mask_kernel`` and
+``project_fill_tiles_kernel``, two device operations, counted by
+``carry_counter``) is the whole tiled fill of the cropped tiles: wherever a
+tile's own search finds nothing, the thread walks the tiles stacked in the
+same batch (``stacked_neighbour``), nearest first and not past the frame's
+edge, and takes the last (first) projected pixel of its row (column) there;
+an axis across ranks gives its carries instead (``parallel/tiling.py``).
 
-K2's payload entry on tile origins (``payload_tile_sums``;
-``memc_project_payload_tile``: a memset, ``project_payload_tile_scatter_kernel``
-and ``project_raw_fold_kernel`` of P planes, counted by
+K2's payload entry on tile origins (``payload_tile``;
+``memc_project_payload_tile``: a memset, ``project_op_scatter_kernel`` on
+tile origins and ``project_raw_fold_kernel`` of P planes, counted by
 ``payload_tile_counter``) serves the depth-weighted and gated projections on
 partitioned frames (``ops/projection.py``), which the JAX package runs on
-``frame_sharding``-placed arrays: each owned pixel of a tile scatters its P
-planes at the frame's landing cell -- tile origin + local position, in
-float32 -- into its sample's whole-frame buffer, with no flow clamp and no
-halo; then both +1 folds at the frame's border.  The divide follows
+``frame_sharding``-placed arrays: each owned pixel of a tile builds its
+payload (the gate reads frame2's whole level) and scatters its P planes at
+the frame's landing cell -- tile origin + local position, in float32 --
+into its sample's whole-frame buffer, with no flow clamp and no halo; then
+both +1 folds at the frame's border.  The divide follows
 ``parallel/partition.py``'s reduce, which gives each tile its part.
 """
 
@@ -76,6 +83,7 @@ from collections import namedtuple
 import torch
 
 from memcnet_tpu_torch.ops.cuda import _lib
+from memcnet_tpu_torch.ops.frame import coords, take
 
 scatter_counter = _lib.LaunchCounter("base_scatter")  # K2
 fill_counter = _lib.LaunchCounter("fill_holes")       # K3
@@ -232,6 +240,64 @@ def payload_average(flow, payload):
     return S, out[:, :-1] / torch.where(den > 0.0, den, 1.0)[:, None], den
 
 
+def depth_payload(flow, depth):
+    """(-f d, d) in float32 (B, 3, H, W): what each source pixel of the
+    depth-weighted projection (N7) scatters."""
+    f, d = flow.float(), depth.float()
+    return torch.cat([-f * d, d], dim=1)
+
+
+def brightness_error(flow, frame1, whole2, origins=None):
+    """err (n, h, w) float32 of the gated projection (N8): mean over the 3
+    channels of |frame1(p) - frame2(nn)| + 1e-8, nn the pixel of p + 2f
+    clamped to the frame and truncated (my_lib.c:1959-1971), summed as d0/3 +
+    d1/3 + d2/3 + 1e-8 in that order; the coordinates in float32 whatever
+    the flow's type.  flow, frame1: n rows (``ops.frame.coords``); whole2:
+    frame2's whole level (samples, 3, H, W), row j of sample j % samples."""
+    f = flow.float()
+    n, _, h, w = f.shape
+    H, W = whole2.shape[-2:]
+    ys, xs = coords(n, h, w, origins, f.device)
+    x3 = (xs + 2.0 * f[:, 0]).clamp(0.0, W - 1.0).to(torch.int32)
+    y3 = (ys + 2.0 * f[:, 1]).clamp(0.0, H - 1.0).to(torch.int32)
+    diff = (frame1.float() - take(whole2.float(), y3, x3, W)).abs()
+    # a tensor divisor: PyTorch's CUDA division by a Python number multiplies
+    # by its reciprocal, which is not x / 3 in the last bit, and the gate
+    # would flip at the threshold
+    three = torch.full((), 3.0, device=diff.device)
+    return diff[:, 0] / three + diff[:, 1] / three + diff[:, 2] / three + 1e-8
+
+
+def gated_payload(flow, frame1, whole2, threshold, origins=None):
+    """(-fx, -fy, err, 1) in float32 (n, 4, h, w), zero where the gate
+    ``valid landing & err <= threshold`` (threshold compared in float32)
+    fails: what each source pixel of the gated projection (N8) scatters;
+    rows and whole2 as ``brightness_error``'s."""
+    f = flow.float()
+    n, _, h, w = f.shape
+    H, W = whole2.shape[-2:]
+    err = brightness_error(f, frame1, whole2, origins)
+    ys, xs = coords(n, h, w, origins, f.device)
+    x2, y2 = xs + f[:, 0], ys + f[:, 1]
+    gate = (x2 >= 0.0) & (y2 >= 0.0) & (x2 <= W - 1.0) & (y2 <= H - 1.0) & (err <= threshold)
+    payload = torch.cat([-f, err[:, None], torch.ones_like(err[:, None])], dim=1)
+    return torch.where(gate[:, None], payload, 0.0)
+
+
+# what the payload entries build: N7 from (depth,), N8 from (frame1, frame2)
+PAYLOAD_OPS = {"depth": 0, "gated": 1}
+PAYLOAD_INPUTS = {"depth": (1,), "gated": (3, 3)}  # channels of each input
+
+
+def op_payload(op, flow, ins, threshold=0.0, origins=None):
+    """The payload (n, P, h, w) float32 that K2's payload entries build for
+    ``op``: ``depth_payload`` or ``gated_payload`` of the rows ``flow`` and
+    ``ins``."""
+    if op == "depth":
+        return depth_payload(flow, ins[0])
+    return gated_payload(flow, ins[0], ins[1], threshold, origins)
+
+
 def fill_reference(avg, cnt, fix_down_scan_bug=False):
     """K3's TPU function, plain: nearest-projected-value scans (cummax over
     indices) and the mean over the directions found.  With
@@ -285,12 +351,18 @@ def fill_stage_reference(avg, masks, dtype, down=False):
 
 
 def payload_stage_reference(flow, payload, fillhole):
-    """Plain version of ``launch_payload``, same outputs."""
+    """What K2's payload entry gives from a finished payload, plain: (S,
+    result, extra, masks) as ``launch_payload`` returns them."""
     S, avg, den = payload_average(flow, payload)
     extra = avg[:, 2:].to(flow.dtype) if payload.shape[1] > 3 else None
     if fillhole:
         return S, avg[:, :2].contiguous(), extra, pack_masks(den > 0.0)
     return S, avg[:, :2].to(flow.dtype), extra, None
+
+
+def op_stage_reference(op, flow, ins, threshold, fillhole):
+    """Plain version of ``launch_payload``, same outputs."""
+    return payload_stage_reference(flow, op_payload(op, flow, ins, threshold), fillhole)
 
 
 # -- the card ------------------------------------------------------------------
@@ -344,27 +416,49 @@ def _sums(flow, fillhole):
     return scratch, out, ptrs
 
 
-def _payload_sums(flow, payload, fillhole):
-    """K2's payload entry.  Returns (scratch, result, extra, mask pointers)
-    as ``_sums``, with ``extra`` the planes 2 .. P-2 of the result (None for
-    P = 3)."""
+_KERNEL_TYPES = (torch.float32, torch.bfloat16)
+
+
+def _op_inputs(what, op, flow, ins):
+    """The op's inputs checked, in one type the kernel reads: float32 or
+    bf16 as they come, else float32 (the plain versions read them in
+    float32 too)."""
+    chans = PAYLOAD_INPUTS.get(op)
+    if chans is None or len(ins) != len(chans) or flow.dim() != 4 or flow.shape[1] != 2:
+        raise ValueError(f"{what}: takes a flow (n, 2, h, w) and the inputs of an op of "
+                         f"{sorted(PAYLOAD_INPUTS)}, got {tuple(flow.shape)}, {op!r} and "
+                         f"{len(ins)} inputs")
+    if ins[0].dtype not in _KERNEL_TYPES or any(t.dtype != ins[0].dtype for t in ins[1:]):
+        ins = [t.float() for t in ins]
+    out = []
+    for t, c in zip(ins, chans):
+        if t.dim() != 4 or t.shape[1] != c:
+            raise ValueError(f"{what}: {op} takes inputs of {chans} channels, got "
+                             f"{[tuple(t.shape) for t in ins]}")
+        out.append(t if t.is_contiguous() else t.contiguous())
+    return out
+
+
+def _payload_sums(op, flow, ins, threshold, fillhole):
+    """K2's payload entry, its payload built from ``ins`` by ``op``.
+    Returns (scratch, result, extra, mask pointers) as ``_sums``, with
+    ``extra`` the planes 2 .. P-2 of the result (None for P = 3)."""
     what = "project_payload"
     code = _lib.dtype_code(flow.dtype)
-    B, two, H, W = flow.shape
-    P = payload.shape[1]
-    if two != 2 or P not in (3, 4) or tuple(payload.shape) != (B, P, H, W) \
-            or payload.dtype != torch.float32:
-        raise ValueError(f"{what}: takes a flow (B, 2, H, W) and a float32 payload (B, 3 or 4, "
-                         f"H, W), got {tuple(flow.shape)} and {payload.dtype} "
-                         f"{tuple(payload.shape)}")
-    _lib.check_cuda_args(what, flow, payload)
+    ins = _op_inputs(what, op, flow, ins)
+    B, _, H, W = flow.shape
+    if any(t.shape[0] != B or t.shape[2:] != flow.shape[2:] for t in ins):
+        raise ValueError(f"{what}: inputs {[tuple(t.shape) for t in ins]} for a flow "
+                         f"{tuple(flow.shape)}")
+    _lib.check_cuda_args(what, flow, *ins)
+    P = 4 if op == "gated" else 3
     scratch, out, ptrs = _buffers(flow, fillhole, P)
     extra = torch.empty((B, P - 3, H, W), dtype=flow.dtype, device=flow.device) if P > 3 \
         else None
     err = _lib.lib().memc_project_payload(
-        flow.data_ptr(), payload.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        None if extra is None else extra.data_ptr(), *ptrs, B, P, H, W, code, int(fillhole),
-        _lib.stream_ptr(flow))
+        PAYLOAD_OPS[op], flow.data_ptr(), ins[0].data_ptr(), ins[-1].data_ptr(), threshold,
+        scratch.data_ptr(), out.data_ptr(), None if extra is None else extra.data_ptr(), *ptrs,
+        B, H, W, code, _lib.dtype_code(ins[0].dtype), int(fillhole), _lib.stream_ptr(flow))
     _lib.check(err, what)
     scatter_counter.count += 1
     return scratch, out, extra, ptrs
@@ -405,15 +499,15 @@ def launch_sums(flow, fillhole):
     return S, out, masks
 
 
-def launch_payload(flow, payload, fillhole):
-    """K2's payload entry alone, for checks: the memset, the payload scatter
-    and the fold-and-divide.  Returns (S, result, extra, masks) as
-    ``payload_stage_reference`` does."""
-    scratch, out, extra, _ = _payload_sums(flow, payload, fillhole)
+def launch_payload(op, flow, ins, threshold, fillhole):
+    """K2's payload entry alone, for checks: the memset, the scatter that
+    builds ``op``'s payload from ``ins`` and the fold-and-divide.  Returns
+    (S, result, extra, masks) as ``op_stage_reference`` does."""
+    scratch, out, extra, _ = _payload_sums(op, flow, ins, threshold, fillhole)
     if not fillhole:
         return scratch, out, extra, None
-    B, P, H, W = payload.shape
-    S, masks = _views(scratch, B, H, W, P)
+    B, _, H, W = flow.shape
+    S, masks = _views(scratch, B, H, W, 4 if op == "gated" else 3)
     return S, out, extra, masks
 
 
@@ -464,13 +558,15 @@ def flow_project(flow, fillhole=False, fix_down_scan_bug=False):
     return _ProjectFunction.apply(flow.contiguous(), fillhole, fix_down_scan_bug)
 
 
-def payload_project(flow, payload, fillhole=False):
-    """K2's payload entry and, with the fill, K3 (no down search), on CUDA
-    tensors: (planes 0 and 1 of the result in the flow's type, planes
-    2 .. P-2 in the flow's type or None).  No gradient: the ops of
-    ``ops/projection.py`` wrap it in their own ``autograd.Function``s."""
+def payload_project(op, flow, ins, threshold=0.0, fillhole=False):
+    """K2's payload entry, ``op``'s payload built from ``ins`` (N7: the
+    depth; N8: frame1 and frame2, the gate err <= threshold) and, with the
+    fill, K3 (no down search), on CUDA tensors: (planes 0 and 1 of the result
+    in the flow's type, planes 2 .. P-2 in the flow's type or None).  No
+    gradient: the ops of ``ops/projection.py`` wrap it in their own
+    ``autograd.Function``s."""
     # the fill reads the masks in K2's scratch: keep it until then
-    scratch, out, extra, mask_ptrs = _payload_sums(flow.contiguous(), payload.contiguous(),
+    scratch, out, extra, mask_ptrs = _payload_sums(op, flow.contiguous(), ins, threshold,
                                                    fillhole)
     if fillhole:
         out = _fill(out, mask_ptrs, flow.dtype)
@@ -581,58 +677,113 @@ def carry_fill_reference(avg, cnt, left, right, up, dtype):
     return torch.where(hole[:, None], filled, a32).to(dtype)
 
 
-def launch_carry_fill(avg, cnt, left, right, up, dtype):
-    """K3's carry entry on CUDA tensors: the memset, the masks and the fill
-    with carries.  Returns (n, 2, Hl, Wl) in ``dtype``."""
-    what = "project_fill_carry"
+def stacked_neighbour(n, t, inner, k):
+    """(n,) int64: the tile k places before each of n tiles stacked into the
+    batch along one axis as (outer, t, inner) (k < 0: -k places after), or
+    -1 past the frame's edge: b - k inner where tile index b // inner % t,
+    less k, is a tile.  The map K3's tile entry walks; ``TileRing.shift(x,
+    axis, k)`` gives each tile x at this index where it is not -1, and wraps
+    around where it is."""
+    b = torch.arange(n)
+    i = b // inner % t - k
+    return torch.where((i >= 0) & (i < t), b - k * inner, -1)
+
+
+def fill_tiles_masks(masks, n, H, W):
+    """``Masks`` views of K3's tile entry's scratch, laid out rows, then cols;
+    it has no summaries (None)."""
+    shapes = mask_shapes(n, H, W)
+    nr = math.prod(shapes.rows)
+    return Masks(masks[:nr].view(shapes.rows), None, masks[nr:].view(shapes.cols), None)
+
+
+@functools.lru_cache(maxsize=32)
+def _fill_tiles_words(n, H, W):
+    shapes = mask_shapes(n, H, W)
+    return math.prod(shapes.rows) + math.prod(shapes.cols)
+
+
+def launch_fill_tiles(avg, cnt, stacks, left, right, up, dtype, with_masks=False):
+    """K3's tile entry on CUDA tensors: the has-value masks of every tile,
+    then the fill, in two device operations.  avg (n, 2, Hl, Wl) and cnt (n, Hl, Wl) float32 with unit x
+    strides, views as they come.  ``stacks`` (W axis, H axis): (t, inner) of
+    an axis stacked in the batch, along which the searches that find
+    nothing in their tile go on, or None; ``left``, ``right`` (n, 3, Hl) and
+    ``up`` (n, 3, Wl): the carries of an axis across ranks, None elsewhere.
+    Returns (n, 2, Hl, Wl) in ``dtype`` and, ``with_masks``, for checks,
+    the ``Masks`` it built."""
+    what = "project_fill_tiles"
     code = _lib.dtype_code(dtype)
     n, K, Hl, Wl = avg.shape
-    ins = [t.float().contiguous() for t in (avg, cnt, left, right)]
-    ups = [] if up is None else [up.float().contiguous()]
-    want = [(n, 2, Hl, Wl), (n, Hl, Wl), (n, 3, Hl), (n, 3, Hl)] + [(n, 3, Wl)] * len(ups)
-    got = [tuple(t.shape) for t in ins + ups]
-    if got != want:
-        raise ValueError(f"{what}: shapes {got}, want {want}")
-    _lib.check_cuda_args(what, *ins, *ups)
-    shapes = mask_shapes(n, Hl, Wl)
-    masks = torch.empty(sum(math.prod(s) for s in shapes), dtype=torch.int32, device=avg.device)
+    if K != 2 or avg.dtype != torch.float32 or cnt.dtype != torch.float32 \
+            or cnt.shape != (n, Hl, Wl) or cnt.device != avg.device:
+        raise ValueError(f"{what}: takes a float32 average (n, 2, h, w) and counts (n, h, w) on "
+                         f"one device, got {avg.dtype} {tuple(avg.shape)} and {cnt.dtype} "
+                         f"{tuple(cnt.shape)}")
+    if avg.stride(3) != 1 or max(avg.stride()[1:]) >= 2 ** 31:
+        avg = avg.contiguous()
+    if cnt.stride(2) != 1 or cnt.stride(1) >= 2 ** 31:
+        cnt = cnt.contiguous()
+    ptrs = []
+    for c, length in ((left, Hl), (right, Hl), (up, Wl)):
+        if c is not None:
+            c = c.float().contiguous()
+            if c.shape != (n, 3, length) or c.device != avg.device:
+                raise ValueError(f"{what}: a carry {tuple(c.shape)} on {c.device}, want "
+                                 f"{(n, 3, length)} on {avg.device}")
+            ptrs.append(c)  # kept alive until the launch
+    if (left is None) != (right is None):
+        raise ValueError(f"{what}: left and right carries both or neither")
+    (tw, iw), (th, ih) = (s or (1, 1) for s in stacks)
+    masks = torch.empty(_fill_tiles_words(n, Hl, Wl), dtype=torch.int32, device=avg.device)
     out = torch.empty((n, 2, Hl, Wl), dtype=dtype, device=avg.device)
-    err = _lib.lib().memc_project_fill_carry(
-        ins[0].data_ptr(), ins[1].data_ptr(), masks.data_ptr(), ins[2].data_ptr(),
-        ins[3].data_ptr(), ups[0].data_ptr() if ups else None, out.data_ptr(), n, Hl, Wl, code,
-        _lib.stream_ptr(avg))
+    it = iter(ptrs)
+    carries = [None if c is None else next(it).data_ptr() for c in (left, right, up)]
+    err = _lib.lib().memc_project_fill_tiles(
+        avg.data_ptr(), avg.stride(0), avg.stride(1), avg.stride(2), cnt.data_ptr(),
+        cnt.stride(0), cnt.stride(1), masks.data_ptr(), out.data_ptr(), n, Hl, Wl, tw, iw, th, ih,
+        *carries, code, _lib.stream_ptr(avg))
     _lib.check(err, what)
     carry_counter.count += 1
-    return out
+    return (out, fill_tiles_masks(masks, n, Hl, Wl)) if with_masks else out
 
 
-class _CarryFillFunction(torch.autograd.Function):
-    """K3's carry entry; backward is autograd of ``carry_fill_reference``."""
+class _TileFillFunction(torch.autograd.Function):
+    """K3's tile entry; backward is autograd of ``plain``, the tiled fill's
+    plain composition (``parallel/tiling.py``), so the gradient reaches the
+    averages of the tiles a carry came from."""
 
     @staticmethod
-    def forward(ctx, avg, cnt, left, right, up, dtype):
-        ctx.dtype, ctx.has_up = dtype, up is not None
-        ctx.save_for_backward(avg, cnt, left, right, *([up] if up is not None else []))
-        return launch_carry_fill(avg, cnt, left, right, up, dtype)
+    def forward(ctx, avg, cnt, left, right, up, stacks, dtype, plain):
+        ctx.plain = plain
+        ctx.given = [c is not None for c in (left, right, up)]
+        ctx.save_for_backward(avg, cnt, *[c for c in (left, right, up) if c is not None])
+        return launch_fill_tiles(avg, cnt, stacks, left, right, up, dtype)
 
     @staticmethod
     def backward(ctx, g):
-        avg, cnt, left, right, *up = ctx.saved_tensors
-        needs = [ctx.needs_input_grad[0], False, ctx.needs_input_grad[2],
-                 ctx.needs_input_grad[3]] + ([ctx.needs_input_grad[4]] if up else [])
-        grads = _lib.reference_grads(
-            lambda a, c, lf, rt, *u: carry_fill_reference(a, c, lf, rt, u[0] if u else None,
-                                                          ctx.dtype),
-            [avg, cnt, left, right, *up], needs, [g])
-        return grads[0], None, grads[2], grads[3], grads[4] if up else None, None
+        avg, cnt, *given = ctx.saved_tensors
+        needs = [ctx.needs_input_grad[0], False] + [
+            ctx.needs_input_grad[2 + k] for k, has in enumerate(ctx.given) if has]
+
+        def plain(a, c, *cs):
+            it = iter(cs)
+            return ctx.plain(a, c, *[next(it) if has else None for has in ctx.given])
+
+        grads = iter(_lib.reference_grads(plain, [avg, cnt, *given], needs, [g]))
+        ga, _ = next(grads), next(grads)
+        carries = [next(grads) if has else None for has in ctx.given]
+        return (ga, None, *carries, None, None, None)
 
 
-def carry_fill(avg, cnt, left, right, up, dtype):
-    """K3's carry entry on CUDA tensors, its plain version on CPU tensors."""
-    ts = [avg, cnt, left, right] + ([up] if up is not None else [])
+def tile_fill(avg, cnt, stacks, left, right, up, dtype, plain):
+    """K3's tile entry on CUDA tensors (``launch_fill_tiles``), on CPU
+    tensors ``plain(avg, cnt, left, right, up)``: the tiled fill's plain
+    composition, which makes the carries that are None."""
+    ts = [avg, cnt] + [c for c in (left, right, up) if c is not None]
     if _lib.on_cuda(*ts):
-        return _CarryFillFunction.apply(avg, cnt, left, right, up, dtype)
-    return carry_fill_reference(avg, cnt, left, right, up, dtype)
+        return _TileFillFunction.apply(avg, cnt, left, right, up, stacks, dtype, plain)
+    return plain(avg, cnt, left, right, up)
 
 
 def payload_tile_sums_reference(flow, payload, origins, samples, H, W):
@@ -665,28 +816,46 @@ def payload_tile_sums_reference(flow, payload, origins, samples, H, W):
     return fold(scatter_reference(by_sample(payload.float()), by_sample(lin), (H, W)))
 
 
-def launch_payload_tile(flow, payload, origins, samples, H, W):
+# the scatter of a finished payload on tile origins, plain, under the name
+# tests/test_torch_partition_ops.py calls it by
+payload_tile_sums = payload_tile_sums_reference
+
+
+def payload_tile_reference(op, flow, ins, threshold, origins, samples, H, W):
+    """Plain version of ``launch_payload_tile``: ``payload_tile_sums_reference``
+    of ``op_payload``."""
+    payload = op_payload(op, flow, ins, threshold, origins)
+    return payload_tile_sums_reference(flow, payload, origins, samples, H, W)
+
+
+def launch_payload_tile(op, flow, ins, threshold, origins, samples, H, W):
     """K2's payload entry on tile origins on CUDA tensors: the memset, the
-    scatter and the folds.  Returns (samples, P, H, W) float32."""
+    scatter that builds ``op``'s payload (N7: ins (depth tiles,); N8: ins
+    (frame1 tiles, frame2's whole level (samples, 3, H, W)), the gate err <=
+    threshold) and the folds.  Returns (samples, P, H, W) float32."""
     what = "project_payload_tile"
     code = _lib.dtype_code(flow.dtype)
-    n, two, h, w = flow.shape
-    P = payload.shape[1]
-    org = origins.to(torch.int32).contiguous()
-    if two != 2 or P not in (3, 4) or tuple(payload.shape) != (n, P, h, w) \
-            or payload.dtype != torch.float32 or tuple(org.shape) != (n, 4) \
-            or samples < 1 or n % samples:
-        raise ValueError(f"{what}: takes flow (n, 2, h, w), a float32 payload (n, 3 or 4, h, w), "
-                         f"origins (n, 4) and n a multiple of the samples, got "
-                         f"{tuple(flow.shape)}, {payload.dtype} {tuple(payload.shape)}, "
-                         f"{tuple(origins.shape)} and {samples}")
-    flow, payload = flow.contiguous(), payload.contiguous()
-    _lib.check_cuda_args(what, flow, payload, org)
+    n, _, h, w = flow.shape
+    ins = _op_inputs(what, op, flow, ins)
+    org = origins if origins.dtype == torch.int32 and origins.is_contiguous() else \
+        origins.to(torch.int32).contiguous()
+    whole = op == "gated"  # N8's second input: frame2's whole level
+    if ins[0].shape[0] != n or ins[0].shape[2:] != flow.shape[2:] \
+            or (whole and (ins[1].shape[0] != samples or ins[1].shape[2:] != (H, W))) \
+            or org.shape != (n, 4) or samples < 1 or n % samples:
+        raise ValueError(f"{what}: takes flow (n, 2, h, w), the op's inputs on its rows (and "
+                         f"N8's frame2 whole, (samples, 3, H, W)), origins (n, 4) and n a "
+                         f"multiple of the samples, got {tuple(flow.shape)}, "
+                         f"{[tuple(t.shape) for t in ins]}, {tuple(origins.shape)} and {samples}")
+    flow = flow if flow.is_contiguous() else flow.contiguous()
+    _lib.check_cuda_args(what, flow, org, *ins)
+    P = 4 if op == "gated" else 3
     sums = torch.empty((samples, P, H, W), dtype=torch.float32, device=flow.device)
     out = torch.empty_like(sums)
     err = _lib.lib().memc_project_payload_tile(
-        flow.data_ptr(), payload.data_ptr(), org.data_ptr(), sums.data_ptr(), out.data_ptr(), n,
-        P, h, w, samples, H, W, code, _lib.stream_ptr(flow))
+        PAYLOAD_OPS[op], flow.data_ptr(), ins[0].data_ptr(), ins[-1].data_ptr(), threshold,
+        org.data_ptr(), sums.data_ptr(), out.data_ptr(), n, h, w, samples, H, W, code,
+        _lib.dtype_code(ins[0].dtype), _lib.stream_ptr(flow))
     _lib.check(err, what)
     payload_tile_counter.count += 1
     return out
@@ -694,26 +863,31 @@ def launch_payload_tile(flow, payload, origins, samples, H, W):
 
 class _PayloadTileFunction(torch.autograd.Function):
     """K2's payload entry on tile origins; backward is autograd of
-    ``payload_tile_sums_reference``."""
+    ``payload_tile_reference`` (for N8 the gradient of frame2's whole level
+    flows on through ``Partition.gather``)."""
 
     @staticmethod
-    def forward(ctx, flow, payload, origins, geom):
+    def forward(ctx, flow, origins, geom, *ins):
         ctx.geom = geom
-        ctx.save_for_backward(flow, payload, origins)
-        return launch_payload_tile(flow, payload, origins, *geom)
+        ctx.save_for_backward(flow, origins, *ins)
+        return launch_payload_tile(geom[0], flow, ins, geom[1], origins, *geom[2:])
 
     @staticmethod
     def backward(ctx, g):
-        flow, payload, origins = ctx.saved_tensors
+        flow, origins, *ins = ctx.saved_tensors
+        op, threshold, *rest = ctx.geom
+        needs = [ctx.needs_input_grad[0]] + list(ctx.needs_input_grad[3:])
         grads = _lib.reference_grads(
-            lambda f, p: payload_tile_sums_reference(f, p, origins, *ctx.geom), [flow, payload],
-            ctx.needs_input_grad[:2], [g])
-        return (*grads, None, None)
+            lambda f, *i: payload_tile_reference(op, f, i, threshold, origins, *rest),
+            [flow, *ins], needs, [g])
+        return (grads[0], None, None, *grads[1:])
 
 
-def payload_tile_sums(flow, payload, origins, samples, H, W):
+def payload_tile(op, flow, ins, threshold, origins, samples, H, W):
     """K2's payload entry on tile origins on CUDA tensors, its plain version
-    on CPU tensors."""
-    if _lib.on_cuda(flow, payload, origins):
-        return _PayloadTileFunction.apply(flow, payload, origins, (samples, H, W))
-    return payload_tile_sums_reference(flow, payload, origins, samples, H, W)
+    on CPU tensors: the whole-frame sums (samples, P, H, W) of ``op``'s
+    payload (N7: ins (depth tiles,); N8: ins (frame1 tiles, frame2's whole
+    level), threshold the gate's)."""
+    if _lib.on_cuda(flow, origins, *ins):
+        return _PayloadTileFunction.apply(flow, origins, (op, threshold, samples, H, W), *ins)
+    return payload_tile_reference(op, flow, ins, threshold, origins, samples, H, W)

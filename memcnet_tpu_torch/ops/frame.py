@@ -18,7 +18,8 @@ objects with one interface:
   samples_of(n)
                whole frames behind n rows (tile j is of sample j % samples)
   origins(n, device)
-               (tiles) (n, 4) int32 global origin (y0, x0) and owned (h, w)
+               (tiles) (n, 4) int32 global origin (y0, x0) and owned (h, w);
+               None for whole frames
   coords(n, h, w, device)
                (ys (n | 1, h, 1), xs (n | 1, 1, w)) float32 global positions
   owned(x)     (n, h, w) bool of the pixels the rows x own, or None (all)
@@ -38,18 +39,36 @@ import torch
 import torch.nn.functional as F
 
 
+def coords(n, h, w, origins, device):
+    """(ys (n | 1, h, 1), xs (n | 1, 1, w)) float32: the frame positions of
+    n rows of h x w, whole frames (``origins`` None) or tiles at ``origins``
+    (n, 4) int32 (y0, x0, own_h, own_w)."""
+    ys = torch.arange(h, device=device).view(1, h, 1)
+    xs = torch.arange(w, device=device).view(1, 1, w)
+    if origins is not None:
+        o = origins.long()
+        ys, xs = o[:, 0].view(n, 1, 1) + ys, o[:, 1].view(n, 1, 1) + xs
+    return ys.float(), xs.float()
+
+
+def take(src, iy, ix, W):
+    """src (samples, C, H, W) at the cells (iy, ix) (n, h, w) of n rows, row
+    j of sample j % samples (the tile index outermost): (n, C, h, w)."""
+    n, h, w = iy.shape
+    S, C = src.shape[:2]
+    T = n // S
+    lin = (iy.long() * W + ix.long()).reshape(T, S, h * w).transpose(0, 1)
+    lin = lin.reshape(S, 1, T * h * w).expand(S, C, T * h * w)
+    got = src.reshape(S, C, -1).gather(2, lin)
+    return got.view(S, C, T, h, w).permute(2, 0, 1, 3, 4).reshape(n, C, h, w)
+
+
 class _Frame:
     """Reads and writes at the frame's global cells, per sample (row j is of
     sample j % samples, the tile index outermost)."""
 
     def take(self, src, iy, ix):
-        n, h, w = iy.shape
-        S, C = src.shape[:2]
-        T = n // S
-        lin = (iy.long() * self.size[1] + ix.long()).reshape(T, S, h * w).transpose(0, 1)
-        lin = lin.reshape(S, 1, T * h * w).expand(S, C, T * h * w)
-        got = src.reshape(S, C, -1).gather(2, lin)
-        return got.view(S, C, T, h, w).permute(2, 0, 1, 3, 4).reshape(n, C, h, w)
+        return take(src, iy, ix, self.size[1])
 
     def flat(self, lin, K):
         n = lin.shape[0]
@@ -69,9 +88,11 @@ class WholeFrame(_Frame):
     def samples_of(self, n):
         return n
 
+    def origins(self, n, device):
+        return None
+
     def coords(self, n, h, w, device):
-        return (torch.arange(h, dtype=torch.float32, device=device).view(1, h, 1),
-                torch.arange(w, dtype=torch.float32, device=device).view(1, 1, w))
+        return coords(n, h, w, None, device)
 
     def owned(self, x):
         return None
@@ -101,10 +122,7 @@ class TileFrame(_Frame):
         return self.part.origins(self.size, n, device)
 
     def coords(self, n, h, w, device):
-        o = self.origins(n, device).long()
-        ys = o[:, 0].view(n, 1, 1) + torch.arange(h, device=device).view(1, h, 1)
-        xs = o[:, 1].view(n, 1, 1) + torch.arange(w, device=device).view(1, 1, w)
-        return ys.float(), xs.float()
+        return coords(n, h, w, self.origins(n, device), device)
 
     def owned(self, x):
         m = self.part.mask(x, self.size)

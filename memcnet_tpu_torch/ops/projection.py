@@ -23,8 +23,11 @@ The depth-weighted (N7, DepthFlowProjectionLayer, my_lib.c:1637-1877) and
 brightness-gated (N8, WeightedFlowProjectionLayer, my_lib.c:1879-2160)
 projections scatter other payloads through the same machinery: K2's payload
 entry and, with the fill, K3 without the down search, on CUDA tensors; their
-plain compositions on CPU tensors.  Each payload is built in float32 by
-PyTorch in front of the kernel, as the JAX package builds it in XLA.
+plain compositions on CPU tensors.  The kernel builds each source pixel's
+payload where it scatters it, from the op's inputs (the flow and the depth;
+the flow, frame1 and frame2 for the gate), in the float32 arithmetic of
+``project_kernel.depth_payload`` and ``gated_payload``, which the JAX
+package runs in XLA in front of its scatter.
 
 Under an active ``parallel.spatial_tiling`` context ``flow_project``
 dispatches to the tiled projection (``parallel/tiling.py``), whose tile-local
@@ -36,15 +39,16 @@ they run whole, and on sharded frames they run as the JAX ops do on
 ``frame_sharding``-placed arrays, where GSPMD reduces their scatters over
 the whole frame.  Each tile scatters its payload at the frame's landing
 cells into a whole-frame buffer per sample (K2's payload entry on tile
-origins, ``project_kernel.payload_tile_sums``), ``Partition.reduce`` gives
-each tile its part, the tile divides, and the fill is the tiled
-projection's (K3's carry entry); the gate's frame2 and the depth
-projection's hand backward read their planes whole (``Partition.gather``).
+origins, ``project_kernel.payload_tile``), ``Partition.reduce`` gives each
+tile its part, the tile divides, and the fill is the tiled projection's
+(K3's tile entry); the gate's frame2 and the depth projection's hand
+backward read their planes whole (``Partition.gather``).
 """
 
 import torch
 
 from memcnet_tpu_torch.ops.cuda import _lib, project_kernel
+from memcnet_tpu_torch.ops.cuda.project_kernel import depth_payload
 from memcnet_tpu_torch.ops.frame import WholeFrame, frame_of
 
 
@@ -81,12 +85,6 @@ def flow_project(flow, *, fillhole=False, fix_down_scan_bug=False):
 
 
 # -- N7: the depth-weighted projection -------------------------------------------
-
-
-def depth_payload(flow, depth):
-    """(-f d, d) in float32 (B, 3, H, W): what each source pixel scatters."""
-    f, d = flow.float(), depth.float()
-    return torch.cat([-f * d, d], dim=1)
 
 
 def _landing(flow32, fr):
@@ -169,9 +167,8 @@ class _DepthTilesCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, flow, depth, fr):
         n = flow.shape[0]
-        sums = project_kernel.payload_tile_sums(
-            flow.contiguous(), depth_payload(flow, depth), fr.origins(n, flow.device),
-            fr.samples_of(n), *fr.size)
+        sums = project_kernel.payload_tile("depth", flow, (depth,), 0.0,
+                                           fr.origins(n, flow.device), fr.samples_of(n), *fr.size)
         t = fr.rows(sums)
         cnt = t[:, 2]
         avg = t[:, :2] / torch.where(cnt > 0.0, cnt, 1.0)[:, None]
@@ -192,8 +189,7 @@ def _fill_tiles(avg, cnt, dtype, fr):
     from memcnet_tpu_torch.parallel.tiling import _tiled_fill
 
     t = active_tiling()
-    return _tiled_fill(avg.contiguous(), cnt, fr.part.ring(avg.shape[0]), t.axis, t.axis_h,
-                       dtype)
+    return _tiled_fill(avg, cnt, fr.part.ring(avg.shape[0]), t.axis, t.axis_h, dtype)
 
 
 class _DepthProjectFunction(torch.autograd.Function):
@@ -204,7 +200,7 @@ class _DepthProjectFunction(torch.autograd.Function):
     def forward(ctx, flow, depth, fillhole):
         ctx.save_for_backward(flow, depth)
         ctx.fillhole = fillhole
-        out, _ = project_kernel.payload_project(flow, depth_payload(flow, depth), fillhole)
+        out, _ = project_kernel.payload_project("depth", flow, (depth,), fillhole=fillhole)
         return out
 
     @staticmethod
@@ -241,39 +237,22 @@ def depth_flow_project(flow, depth, *, fillhole=False):
 
 
 def brightness_error(flow, frame1, frame2, fr=None):
-    """err (B, H, W) float32: mean over the 3 channels of |frame1(p) -
-    frame2(nn)| + 1e-8, nn the pixel of p + 2f clamped to the frame and
-    truncated (my_lib.c:1959-1971), summed as d0/3 + d1/3 + d2/3 + 1e-8 in
-    that order; the coordinates in float32 whatever the flow's type.  On
-    the rows of ``fr`` (whole frames by default): frame2 whole, frame1 and
-    err on the rows."""
+    """err (B, H, W) float32 (``project_kernel.brightness_error``) on the
+    rows of ``fr`` (whole frames by default): frame2 whole, frame1 and err
+    on the rows."""
     fr = fr or WholeFrame(flow)
-    f = flow.float()
-    n, _, h, w = f.shape
-    H, W = fr.size
-    ys, xs = fr.coords(n, h, w, f.device)
-    x3 = (xs + 2.0 * f[:, 0]).clamp(0.0, W - 1.0).to(torch.int32)
-    y3 = (ys + 2.0 * f[:, 1]).clamp(0.0, H - 1.0).to(torch.int32)
-    samp = fr.take(fr.whole(frame2).float(), y3, x3)
-    diff = (frame1.float() - samp).abs()
-    # a tensor divisor: PyTorch's CUDA division by a Python number multiplies
-    # by its reciprocal, which is not x / 3 in the last bit, and the gate
-    # would flip at the threshold
-    three = torch.full((), 3.0, device=diff.device)
-    return diff[:, 0] / three + diff[:, 1] / three + diff[:, 2] / three + 1e-8
+    return project_kernel.brightness_error(flow, frame1, fr.whole(frame2),
+                                           fr.origins(flow.shape[0], flow.device))
 
 
 def weighted_payload(flow, frame1, frame2, threshold, fr=None):
     """(-fx, -fy, err, 1) in float32 (B, 4, H, W), zero where the gate
     ``valid landing & err <= threshold`` (threshold compared in float32)
-    fails; on the rows of ``fr``, whole frames by default."""
+    fails (``project_kernel.gated_payload``); on the rows of ``fr``, whole
+    frames by default."""
     fr = fr or WholeFrame(flow)
-    f = flow.float()
-    err = brightness_error(f, frame1, frame2, fr)
-    valid, _, _ = _landing(f, fr)
-    gate = valid & (err <= threshold)
-    payload = torch.cat([-f, err[:, None], torch.ones_like(err[:, None])], dim=1)
-    return torch.where(gate[:, None], payload, 0.0)
+    return project_kernel.gated_payload(flow, frame1, fr.whole(frame2), threshold,
+                                        fr.origins(flow.shape[0], flow.device))
 
 
 def weighted_reference(flow, frame1, frame2, *, threshold=20.0 / 255.0, fillhole=False):
@@ -287,14 +266,13 @@ def weighted_reference(flow, frame1, frame2, *, threshold=20.0 / 255.0, fillhole
 
 
 def weighted_tiles(flow, frame1, frame2, threshold, fillhole, fr):
-    """The gated projection on the tiles of ``fr``: the gate against
-    frame2's whole level, K2's payload entry on tile origins (its plain
-    version on CPU tensors), ``Partition.reduce``, the divide and the tiled
-    fill; autograd of each step backward."""
+    """The gated projection on the tiles of ``fr``: K2's payload entry on
+    tile origins (its plain version on CPU tensors), the gate against
+    frame2's whole level inside it, ``Partition.reduce``, the divide and the
+    tiled fill; autograd of each step backward."""
     n = flow.shape[0]
-    payload = weighted_payload(flow, frame1, frame2, threshold, fr)
-    sums = project_kernel.payload_tile_sums(flow.contiguous(), payload, fr.origins(n, flow.device),
-                                            fr.samples_of(n), *fr.size)
+    sums = project_kernel.payload_tile("gated", flow, (frame1, fr.whole(frame2)), threshold,
+                                       fr.origins(n, flow.device), fr.samples_of(n), *fr.size)
     t = fr.rows(sums)
     den = t[:, 3]
     avg = t[:, :3] / torch.where(den > 0.0, den, 1.0)[:, None]
@@ -303,7 +281,7 @@ def weighted_tiles(flow, frame1, frame2, threshold, fillhole, fr):
 
 
 class _WeightedProjectFunction(torch.autograd.Function):
-    """The gate in PyTorch, K2's payload entry (4 planes) then, with the
+    """K2's payload entry (4 planes, the gate inside it) then, with the
     fill, K3 on the flow; backward is autograd of ``weighted_reference``
     (the JAX op's autodiff)."""
 
@@ -311,8 +289,8 @@ class _WeightedProjectFunction(torch.autograd.Function):
     def forward(ctx, flow, frame1, frame2, threshold, fillhole):
         ctx.save_for_backward(flow, frame1, frame2)
         ctx.threshold, ctx.fillhole = threshold, fillhole
-        return project_kernel.payload_project(
-            flow, weighted_payload(flow, frame1, frame2, threshold), fillhole)
+        return project_kernel.payload_project("gated", flow, (frame1, frame2), threshold,
+                                              fillhole)
 
     @staticmethod
     def backward(ctx, g, gw):

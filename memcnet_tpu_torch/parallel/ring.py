@@ -138,6 +138,15 @@ class TileRing:
         t = self.mesh.shape[axis]
         return outer, t, self.n // (outer * t)
 
+    def stacked(self, axis):
+        """(t, inner) of an axis stacked in this process's batch -- the tile
+        k places before tile b is b - k inner, up to the frame's edge
+        (``project_kernel.stacked_neighbour``) -- or None across ranks."""
+        if self.mesh.is_across(axis):
+            return None
+        _, t, inner = self._factors(axis)
+        return t, inner
+
     def index(self, axis, device):
         """Each sample's tile index along ``axis``, (n,) int64."""
         if self.mesh.is_across(axis):

@@ -26,7 +26,7 @@ carries the ring shifts.  ``warp_tiles`` and ``project_tiles`` are the
 tile-local steps alone, which partitioned frames (``parallel.partition``)
 run with no split and no merge.  Their kernels are the tile entries of K1
 (``warp_kernel.warp_tile``), K2 (``project_kernel.tile_sums``) and K3
-(``project_kernel.carry_fill``) on CUDA tensors and their plain versions on
+(``project_kernel.tile_fill``) on CUDA tensors and their plain versions on
 CPU tensors.  Coordinates are float32
 whatever the activations' type; the JAX version builds them in
 ``flow.dtype``, up to 4 px off above 256 in bf16.  ``batch_axis`` is
@@ -189,15 +189,48 @@ def _carry(msg, ring, axis, step):
     return torch.cat([have.float()[:, None], val], dim=1)
 
 
+def _row_carries(avg, has, ring, axis):
+    """The left and right carries of each row, (n, 3, Hl) each."""
+    return (_carry(_edge_message(has, avg, 2, last=True), ring, axis, 1),
+            _carry(_edge_message(has, avg, 2, last=False), ring, axis, -1))
+
+
+def _up_carry(avg, has, ring, axis_h):
+    """The up carry of each column, (n, 3, Wl)."""
+    return _carry(_edge_message(has, avg, 1, last=True), ring, axis_h, 1)
+
+
+def tiled_fill_reference(avg, cnt, ring, axis, axis_h, dtype, left=None, right=None, up=None):
+    """The tiled fill's plain composition: the carries not given made by
+    ``_edge_message`` and ``_carry`` over the ring (``up`` only where H is
+    tiled), then ``carry_fill_reference``."""
+    has = cnt > 0.0
+    if left is None:
+        left, right = _row_carries(avg, has, ring, axis)
+    if up is None and axis_h:
+        up = _up_carry(avg, has, ring, axis_h)
+    return project_kernel.carry_fill_reference(avg, cnt, left, right, up, dtype)
+
+
 def _tiled_fill(avg, cnt, ring, axis, axis_h, dtype):
     """The hole fill of the cropped tiles, each search continued into the
     other tiles: left and right over ``axis``, up over ``axis_h`` when H is
-    tiled (tile-local otherwise); down dead."""
-    has = cnt > 0.0
-    left = _carry(_edge_message(has, avg, 2, last=True), ring, axis, 1)
-    right = _carry(_edge_message(has, avg, 2, last=False), ring, axis, -1)
-    up = _carry(_edge_message(has, avg, 1, last=True), ring, axis_h, 1) if axis_h else None
-    return project_kernel.carry_fill(avg, cnt, left, right, up, dtype)
+    tiled (tile-local otherwise); down dead.  K3's tile entry fills from
+    ``avg, cnt`` alone along an axis stacked in this process's batch, and
+    takes the carries of an axis across ranks; ``tiled_fill_reference`` is
+    its CPU path and its backward."""
+    stacks = (ring.stacked(axis), ring.stacked(axis_h) if axis_h else None)
+    left = right = up = None
+    across_h = axis_h and stacks[1] is None
+    if stacks[0] is None or across_h:
+        has = cnt > 0.0
+        if stacks[0] is None:
+            left, right = _row_carries(avg, has, ring, axis)
+        if across_h:
+            up = _up_carry(avg, has, ring, axis_h)
+    return project_kernel.tile_fill(
+        avg, cnt, stacks, left, right, up, dtype,
+        lambda a, c, lf, rt, u: tiled_fill_reference(a, c, ring, axis, axis_h, dtype, lf, rt, u))
 
 
 def _tile_average(ring, flow, frame, halo, axis, axis_h, halo_h):

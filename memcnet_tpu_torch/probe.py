@@ -11,8 +11,9 @@ real files have them.
 warp is run on, and ``level_flow`` its coarse flow at each SPyNet level;
 ``level_prologue`` is SPyNet's level input as separate PyTorch ops around
 K5, as the port built it before the fused kernel (bench/kernel_ab.py also
-runs it in another checkout's package); ``device_ops`` counts what one call
-puts on the device.  Nothing here builds or launches a kernel of its own.
+runs it in another checkout's package); ``device_ops`` counts and times
+what one call puts on the device, and ``graph_ops`` counts it where no
+record may be lost.  Nothing here builds or launches a kernel of its own.
 """
 
 import os
@@ -157,10 +158,10 @@ def device_ops(fn):
 
     The profiler keeps the device records whose times, moved onto the host's
     clock, fall inside its session, and has been seen to drop the one kernel
-    of a short call (0 operations for a call whose output was checked); so
-    the call runs with 5 ms of idle time before and after it inside the
-    session, and the largest count of three sessions is kept (a lost record
-    only lowers a count)."""
+    of a short call (0 operations for a call whose output was checked), more
+    often the later in a run; so the call runs with 25 ms of idle time
+    before and after it inside the session, and the largest count of three
+    sessions is kept (a lost record only lowers a count)."""
     import time
 
     from torch.profiler import ProfilerActivity, profile
@@ -170,10 +171,10 @@ def device_ops(fn):
     best = None
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.005)
+            time.sleep(0.025)
             fn()
             torch.cuda.synchronize()
-            time.sleep(0.005)
+            time.sleep(0.025)
         evs = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
@@ -182,3 +183,43 @@ def device_ops(fn):
         if best is None or got[0] > best[0]:
             best = got
     return best
+
+
+# CUgraphNodeType (cuda.h): kernel, memcpy, memset
+_GRAPH_DEVICE_NODES = (0, 1, 2)
+
+
+def graph_ops(fn):
+    """The device operations (kernels, copies, memsets) of one call of
+    ``fn`` after a warm-up, counted as the nodes of a CUDA graph that
+    captures the call: the capture records every operation the call puts on
+    its stream, where the profiler may drop the records of a short call
+    (``device_ops``).  Raises where the call cannot be captured (it waits on
+    the host)."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"graph_ops: {what} returned CUresult {rc}")
+
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    count = 0
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        count += kind.value in _GRAPH_DEVICE_NODES
+    del graph
+    torch.cuda.synchronize()
+    return count

@@ -32,7 +32,7 @@ from memcnet_tpu_torch.ops import cuda as K
 from memcnet_tpu_torch.ops import projection as TP
 from memcnet_tpu_torch.ops.cuda import conv_kernel, gather_kernel, warp_kernel
 from memcnet_tpu_torch.ops.cuda import project_kernel as P
-from memcnet_tpu_torch.probe import device_ops
+from memcnet_tpu_torch.probe import device_ops, graph_ops
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -394,42 +394,68 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                            torch.zeros(1, 9, 8, 8, device=dev), 3)
     with pytest.raises(TypeError):
         TP.flow_project(torch.zeros(1, 2, 8, 8, device=dev, dtype=torch.float16))
-    with pytest.raises(ValueError, match="payload"):  # K2's payload entry takes 3 or 4 planes
-        P.payload_project(torch.zeros(1, 2, 8, 8, device=dev),
-                          torch.zeros(1, 5, 8, 8, device=dev))
-    with pytest.raises(ValueError, match="payload"):  # and a float32 payload
-        P.payload_project(torch.zeros(1, 2, 8, 8, device=dev),
-                          torch.zeros(1, 3, 8, 8, device=dev, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="project_payload"):  # N7 takes a one-plane depth
+        P.payload_project("depth", torch.zeros(1, 2, 8, 8, device=dev),
+                          (torch.zeros(1, 3, 8, 8, device=dev),))
+    with pytest.raises(ValueError, match="project_payload"):  # N8 takes two frames
+        P.payload_project("gated", torch.zeros(1, 2, 8, 8, device=dev),
+                          (torch.zeros(1, 3, 8, 8, device=dev),), 0.1)
 
 
 # ---------------------------------------------------------------- the op library (N2-N11)
 
 
+def payload_inputs(rng, op, B, H, W, dev, dtype):
+    """N7's depth (quarters: its sums exact in any order) or N8's frames
+    (frame2 within about 0.1 of frame1, so the gate passes some and fails
+    others), in ``dtype``."""
+    if op == "depth":
+        depth = rng.randint(1, 8, (B, 1, H, W)) * 0.25
+        return (torch.from_numpy(depth.astype(np.float32)).to(dev, dtype),)
+    f1 = rng.rand(B, 3, H, W).astype(np.float32)
+    f2 = np.clip(f1 + rng.randn(B, 3, H, W).astype(np.float32) * 0.1, 0.0, 1.0)
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(dev, dtype) for a in (f1, f2))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("planes", [3, 4])
+@pytest.mark.parametrize("op", ["depth", "gated"])
 @pytest.mark.parametrize("fillhole", [True, False])
 @pytest.mark.parametrize("kind", ["amp12", "pm200", "all_invalid"])
 @pytest.mark.parametrize("H,W", PROJ_SHAPES)
-def test_payload_entry_matches_plain(rng, dev, dtype, planes, fillhole, kind, H, W):
-    """K2's payload entry: counts (plane P-1 of S, base and folded) and
-    masks exact on 0/1 weights, the result within 1e-3 (float32) or 2 ulps
-    (bf16), the extra plane likewise."""
+def test_payload_entry_matches_plain(rng, dev, dtype, op, fillhole, kind, H, W):
+    """K2's payload entry, the payload built inside it: the last plane of S
+    (N7's depth sums in quarters, N8's count of gated pixels: every gate
+    decision), base and folded, and the masks exact, the result within 1e-3
+    (float32) or 2 ulps (bf16), the extra plane likewise."""
     B = 2
     flow = projection_flow(rng, B, H, W, kind).to(dev, dtype)
-    payload = torch.from_numpy(rng.randn(B, planes, H, W).astype(np.float32) * 5).to(dev)
-    payload[:, -1] = (payload[:, -1] > -3).float()  # a gate: weights 0 or 1
-    payload[:, :-1] *= payload[:, -1:]
-    S, out, extra, masks = P.launch_payload(flow, payload, fillhole)
-    S_ref, out_ref, extra_ref, masks_ref = P.payload_stage_reference(flow, payload, fillhole)
+    ins = payload_inputs(rng, op, B, H, W, dev, dtype)
+    S, out, extra, masks = P.launch_payload(op, flow, ins, 0.1, fillhole)
+    S_ref, out_ref, extra_ref, masks_ref = P.op_stage_reference(op, flow, ins, 0.1, fillhole)
     assert torch.equal(S[:, -1], S_ref[:, -1])
     assert torch.equal(P.fold(S)[:, -1], P.fold(S_ref)[:, -1])
     if fillhole:
         for m, r in zip(masks, masks_ref):
             assert torch.equal(m, r)
     close_projection(out, out_ref)
-    assert (extra is None) == (planes == 3)
+    assert (extra is None) == (op == "depth")
     if extra is not None:
         close_projection(extra, extra_ref)
+
+
+def test_gate_at_the_threshold_matches_plain(rng, dev):
+    """N8's gate on the card at err exactly the threshold (in) and one
+    float32 ulp below it (out), bf16 and float32 frames."""
+    B, H, W = 2, 45, 97
+    flow = projection_flow(rng, B, H, W, "amp12").to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        ins = payload_inputs(rng, "gated", B, H, W, dev, dtype)
+        err = P.brightness_error(flow, *ins)
+        at = float(err[1, 20, 30])
+        for threshold in (at, float(np.nextafter(np.float32(at), np.float32(0)))):
+            S, *_ = P.launch_payload("gated", flow, ins, threshold, False)
+            S_ref, *_ = P.op_stage_reference("gated", flow, ins, threshold, False)
+            assert torch.equal(S[:, -1], S_ref[:, -1]), (dtype, threshold)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -812,7 +838,7 @@ def tile_flow(rng, kind, B, H, W, halo):
 @pytest.mark.parametrize("halo", [16, 32])
 @pytest.mark.parametrize("kind", ["smooth", "noisy", "invalid"])
 def test_tile_entries_match_their_plain_versions(rng, dev, dtype, grid, halo, kind):
-    """K1's tile entry, K2's (counts exact) and K3's carry entry (masks from
+    """K1's tile entry, K2's (counts exact) and K3's tile entry (masks from
     exact counts) against their plain versions on the tiles the tiled ops
     hand them, and the tiled ops against the global ones on the card."""
     from memcnet_tpu_torch.parallel import tiling as T
@@ -841,13 +867,11 @@ def test_tile_entries_match_their_plain_versions(rng, dev, dtype, grid, halo, ki
     assert torch.equal(got[:, 2], ref[:, 2])
     assert float((got - ref).abs().max()) <= 1e-3
     avg, cnt, ring = T._tiled_average(mesh, flow.to(dtype), halo, "tile", axis_h, None)
-    has = cnt > 0
-    carries = [T._carry(T._edge_message(has, avg, 2, last=True), ring, "tile", 1),
-               T._carry(T._edge_message(has, avg, 2, last=False), ring, "tile", -1),
-               T._carry(T._edge_message(has, avg, 1, last=True), ring, axis_h, 1)
-               if axis_h else None]
-    args = (avg.contiguous(), cnt.contiguous(), *carries, dtype)
-    assert torch.equal(P.launch_carry_fill(*args), P.carry_fill_reference(*args))
+    stacks = (ring.stacked("tile"), ring.stacked(axis_h) if axis_h else None)
+    got, masks = P.launch_fill_tiles(avg, cnt, stacks, None, None, None, dtype, with_masks=True)
+    assert torch.equal(got, T.tiled_fill_reference(avg, cnt, ring, "tile", axis_h, dtype))
+    want = P.pack_masks(cnt > 0)
+    assert torch.equal(masks.rows, want.rows) and torch.equal(masks.cols, want.cols)
     if kind == "invalid" and axis_h:
         return  # the vertical clamp moves these landings, by contract
     K.reset_counters()
@@ -862,6 +886,82 @@ def test_tile_entries_match_their_plain_versions(rng, dev, dtype, grid, halo, ki
     for g, r in zip(tw, ops.filter_interp_warp_split((frame, ctx), flow, filt)):
         close(g, r)
     close(tp, ops.flow_project(flow.to(dtype), fillhole=True), long_sums=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid", ["tile4", "tile2x2"])
+@pytest.mark.parametrize("kind", ["sparse", "empty", "uneven", "dense", "nan", "wide"])
+def test_tile_fill_entry_matches_plain(rng, dev, dtype, grid, kind):
+    """K3's tile entry against the tiled fill's plain composition, bits and
+    masks exact, on 70x84 tiles: sparse counts (rows empty in the next tile,
+    so the carry comes from two tiles away, and rows empty in every tile,
+    whose search stops at the frame's edge with no wraparound), no value at
+    all, the last column and row of every tile empty (an owned width of 83
+    of 84), dense counts, and the tiled average of a flow with NaNs; and
+    sparse counts on 20x2100 tiles, whose 66-word rows are scanned word by
+    word; the counts a strided view; with the carries given for every axis
+    (across ranks) and for W alone; one launch and two device operations a
+    call, counted as CUDA-graph nodes."""
+    from memcnet_tpu_torch.parallel import tiling as T
+
+    mesh, axis_h = tile_grid(grid, dev)
+    ring = T._ring(mesh, 2, "tile", axis_h)
+    n, H, W = (ring.n, 20, 2100) if kind == "wide" else (ring.n, 70, 84)
+    if kind == "nan":
+        th, tw = (2, 2) if axis_h else (1, 4)
+        flow = tile_flow(rng, "noisy", 2, th * H, tw * W, 16)
+        flow[:, :, ::7, ::5] = float("nan")
+        avg, cnt, _ = T._tiled_average(mesh, flow.to(dev, dtype), 16, "tile", axis_h, None)
+    else:
+        density = {"sparse": 0.004, "empty": 0.0, "uneven": 0.3, "dense": 0.5,
+                   "wide": 0.0005}[kind]
+        full = torch.from_numpy((rng.rand(n, H, W + 2) < density).astype(np.float32)).to(dev)
+        cnt = full[..., 1:W + 1]
+        if kind == "uneven":
+            cnt[..., -1] = 0.0
+            cnt[:, -1] = 0.0
+        avg = torch.from_numpy(rng.randn(n, 2, H, W).astype(np.float32)).to(dev)
+        avg = avg * (cnt > 0)[:, None]
+    stacks = (ring.stacked("tile"), ring.stacked(axis_h) if axis_h else None)
+    want = T.tiled_fill_reference(avg, cnt, ring, "tile", axis_h, dtype)
+    got, masks = P.launch_fill_tiles(avg, cnt, stacks, None, None, None, dtype, with_masks=True)
+    assert torch.equal(got, want)
+    ref = P.pack_masks(cnt > 0)
+    assert torch.equal(masks.rows, ref.rows) and torch.equal(masks.cols, ref.cols)
+    has = cnt > 0
+    left, right = T._row_carries(avg, has, ring, "tile")
+    up = T._up_carry(avg, has, ring, axis_h) if axis_h else None
+    assert torch.equal(P.launch_fill_tiles(avg, cnt, (None, None), left, right, up, dtype), want)
+    if axis_h:
+        assert torch.equal(P.launch_fill_tiles(avg, cnt, (None, stacks[1]), left, right, None,
+                                               dtype), want)
+    K.reset_counters()
+    T._tiled_fill(avg, cnt, ring, "tile", axis_h, dtype)
+    counts = K.launch_counts()
+    assert counts["fill_holes_carry"] == 1 and sum(counts.values()) == 1, counts
+    assert graph_ops(lambda: T._tiled_fill(avg, cnt, ring, "tile", axis_h, dtype)) == 2
+
+
+def test_tile_fill_gradients_match_plain(rng, dev):
+    """The tiled fill's gradient on the card (autograd of its plain
+    composition) reaches the averages of the tiles a carry came from, as
+    the plain composition's does on the CPU."""
+    from memcnet_tpu_torch.parallel import tiling as T
+
+    mesh, axis_h = tile_grid("tile2x2", dev)
+    ring = T._ring(mesh, 1, "tile", axis_h)
+    n, H, W = ring.n, 40, 48
+    cnt = torch.from_numpy((rng.rand(n, H, W) < 0.01).astype(np.float32))
+    avg = torch.from_numpy(rng.randn(n, 2, H, W).astype(np.float32)) * (cnt > 0)[:, None]
+    g = torch.from_numpy(rng.randn(n, 2, H, W).astype(np.float32))
+    a = avg.to(dev).requires_grad_(True)
+    (got,) = torch.autograd.grad(T._tiled_fill(a, cnt.to(dev), ring, "tile", axis_h,
+                                               torch.float32), a, g.to(dev))
+    a = avg.clone().requires_grad_(True)
+    cpu_ring = T._ring(tile_grid("tile2x2", "cpu")[0], 1, "tile", axis_h)
+    (want,) = torch.autograd.grad(T._tiled_fill(a, cnt, cpu_ring, "tile", axis_h,
+                                                torch.float32), a, g)
+    close(got.cpu(), want)
 
 
 def tile_sums_case(rng, dev, dtype, grid, kind, H=70, W=148, halo=16):
@@ -1214,51 +1314,58 @@ PAYLOAD_TILE_CASES = [("tile4", (64, 256), 0), ("tile2x2", (192, 320), 0),
                       ("tile4", (64, 320), 5), ("tile2x2", (192, 320), 6)]
 
 
-def payload_tile_case(rng, dev, dtype, planes, grid, frame, lvl):
-    """(tiles of a +-20 px flow in ``dtype``, of a float32 payload whose last
-    plane is a count, their origins, samples, level size) on ``grid``."""
+def payload_tile_case(rng, dev, dtype, op, grid, frame, lvl):
+    """(tiles of a +-20 px flow in ``dtype``, ``op``'s inputs -- N7's depth
+    tiles, or N8's frame1 tiles and frame2's whole level -- their origins,
+    samples, level size) on ``grid``."""
     from memcnet_tpu_torch.parallel import active_partition, shard_frames, spatial_tiling
 
     mesh, axis_h = tile_grid(grid, dev)
     H, W = frame[0] >> lvl, frame[1] >> lvl
     flow = torch.from_numpy(((rng.rand(2, 2, H, W) - 0.5) * 40.0).astype(np.float32))
-    payload = torch.from_numpy(rng.rand(2, planes, H, W).astype(np.float32))
-    payload[:, -1] = (payload[:, -1] > 0.3).float()
+    ins = payload_inputs(rng, op, 2, H, W, dev, dtype)
     with spatial_tiling(mesh, halo=16, axis_h=axis_h):
         shard_frames(mesh, torch.zeros((1, 1) + frame, device=dev))
-        f, pl = shard_frames(mesh, flow.to(dev, dtype), payload.to(dev))
+        f, *tiles = shard_frames(mesh, flow.to(dev, dtype), *ins)
         p = active_partition()
         n = f.shape[0]
-        return f, pl, p.origins((H, W), n, f.device), p.samples(n), (H, W)
+        if op == "gated":
+            tiles[1] = p.gather(tiles[1], (H, W))
+        return f, tuple(tiles), p.origins((H, W), n, f.device), p.samples(n), (H, W)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("planes", [3, 4])
+@pytest.mark.parametrize("op", ["depth", "gated"])
 @pytest.mark.parametrize("grid, frame, lvl", PAYLOAD_TILE_CASES)
-def test_payload_tile_entry_matches_plain(rng, dev, dtype, planes, grid, frame, lvl):
-    """K2's payload entry on tile origins against its plain version: the
-    count plane exact, the sums within ATOL of their scale; one launch of
+def test_payload_tile_entry_matches_plain(rng, dev, dtype, op, grid, frame, lvl):
+    """K2's payload entry on tile origins, the payload built inside it,
+    against its plain version: the last plane (depth sums in quarters, the
+    gate's counts) exact, the sums within ATOL of their scale; one launch of
     its counter per call and nothing else."""
-    f, pl, org, samples, (H, W) = payload_tile_case(rng, dev, dtype, planes, grid, frame, lvl)
+    f, ins, org, samples, (H, W) = payload_tile_case(rng, dev, dtype, op, grid, frame, lvl)
     K.reset_counters()
-    got = P.payload_tile_sums(f, pl, org, samples, H, W)
+    got = P.payload_tile(op, f, ins, 0.1, org, samples, H, W)
     counts = K.launch_counts()
     assert counts["base_scatter_payload_tile"] == 1 and sum(counts.values()) == 1, counts
-    ref = P.payload_tile_sums_reference(f, pl, org, samples, H, W)
-    assert got.shape == (samples, planes, H, W)
+    ref = P.payload_tile_reference(op, f, ins, 0.1, org, samples, H, W)
+    assert got.shape == (samples, 4 if op == "gated" else 3, H, W)
     assert torch.equal(got[:, -1], ref[:, -1])
     close(got, ref)
 
 
 def test_payload_tile_entry_gradients_match_plain(rng, dev):
-    f, pl, org, samples, (H, W) = payload_tile_case(rng, dev, torch.float32, 4, "tile2x2",
-                                                    (192, 320), 0)
-    pl = pl.requires_grad_(True)
+    """N8 on tiles: the gradient of the fused entry's sums reaches the flow,
+    frame1 and frame2's whole level as autograd of its plain version does."""
+    f, ins, org, samples, (H, W) = payload_tile_case(rng, dev, torch.float32, "gated",
+                                                     "tile2x2", (192, 320), 0)
+    xs = [x.detach().requires_grad_(True) for x in (f, *ins)]
     g = torch.randn(samples, 4, H, W, device=dev)
-    (got,) = torch.autograd.grad(P.payload_tile_sums(f, pl, org, samples, H, W), pl, g)
-    (want,) = torch.autograd.grad(P.payload_tile_sums_reference(f, pl, org, samples, H, W),
-                                  pl, g)
-    close(got, want)
+    got = torch.autograd.grad(P.payload_tile("gated", xs[0], xs[1:], 0.1, org, samples, H, W),
+                              xs, g)
+    want = torch.autograd.grad(
+        P.payload_tile_reference("gated", xs[0], xs[1:], 0.1, org, samples, H, W), xs, g)
+    for a, b in zip(got, want):
+        close(a, b)
 
 
 @pytest.mark.parametrize("grid", ["tile4", "tile2x2"])
