@@ -2151,6 +2151,8 @@ def oplib_kernels(torch, x, rows):
         ref = P.fill_stage_reference(avg_ref, masks_ref, dt, down=True)
         if torch.equal(got, P.fill_stage_reference(avg_ref, masks_ref, dt)):
             raise CheckFailed("fill_holes[down]: the down search changed no hole")
+        if not torch.equal(got, ref):
+            raise CheckFailed(f"fill_holes[down] {dtype_name}: not the plain version's bits")
         record_row(rows, "fill_holes[down]", dtype_name, compare([(got, ref)], 1e-5),
                    timed_ms(torch, lambda: P.launch_fill(avg_ref, masks_ref, dt, down=True),
                             flush=flush),
@@ -2324,29 +2326,6 @@ def tile_mesh(torch, grid):
 
     devs = [torch.device("cuda")] * 4
     return make_mesh(4, devices=devs) if grid == "tile4" else make_mesh_2d(4, devices=devs)
-
-
-def tile_flows(torch, dev):
-    """phase 8's (2, 2, H, W) float32 flows, within the halo budget:
-    smooth (+-6 px), +-20 px with noise and a band of columns landing left
-    of the frame, and every pixel landing below the frame (fy = 3 H; where H
-    is tiled the vertical clamp brings most of them back)."""
-    ys = torch.arange(H, device=dev, dtype=torch.float32).view(H, 1)
-    xs = torch.arange(W, device=dev, dtype=torch.float32).view(1, W)
-    gen = torch.Generator(device=dev).manual_seed(8)
-    out = {}
-    for name, amp in (("smooth", 6.0), ("pm20", 20.0)):
-        f = torch.stack([amp * torch.sin(2 * np.pi * ys / H) * torch.cos(2 * np.pi * xs / W),
-                         0.6 * amp * torch.cos(2 * np.pi * xs / W).expand(H, W)])
-        f = f.expand(2, 2, H, W).clone()
-        if name == "pm20":
-            f += 0.5 * torch.randn(f.shape, generator=gen, device=dev)
-            f[:, 0, :, :24] = -40.0
-        out[name] = f
-    inv = torch.zeros((2, 2, H, W), device=dev)
-    inv[:, 1] = 3.0 * H
-    out["invalid"] = inv
-    return out
 
 
 def tile_inputs(torch, mesh, axis_h, images, flow, filt):
@@ -2549,19 +2528,38 @@ def phase_tile_entries(torch, results):
     from memcnet_tpu_torch.ops import cuda as K
     from memcnet_tpu_torch.ops.cuda import project_kernel as P
     from memcnet_tpu_torch.ops.cuda import warp_kernel
+    from memcnet_tpu_torch import probe
     from memcnet_tpu_torch.parallel import tiling as T
     from memcnet_tpu_torch.probe import device_ops
 
     dev = torch.device("cuda")
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(9)
-    flows = tile_flows(torch, dev)
+    flows = probe.tile_flows(dev)
     rows, whole = {}, {}
     for dtype_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         esize = torch.tensor([], dtype=dt).element_size()
         frame = torch.rand((1, 3, H, W), generator=gen, device=dev).to(dt)
         ctx = torch.randn((1, 64, H, W), generator=gen, device=dev).to(dt)
         filt = (torch.rand((1, 16, H, W), generator=gen, device=dev) / 8.0).to(dt)
+        # K1's tile entry on tiles whose width (330) is a multiple of neither
+        # its block's 16 columns nor 32: the frame 24 columns narrower, (1, 4)
+        wc = W - 24
+        ring, exts, fl, fi, org, hh = tile_inputs(
+            torch, tile_mesh(torch, "tile4"), None,
+            (frame[..., :wc].contiguous(), ctx[..., :wc].contiguous()),
+            flows["pm20"][:1, :, :, :wc].contiguous(), filt[..., :wc].contiguous())
+        geom = (TILE_HALO, hh, 4, wc, H)
+        got = warp_kernel.launch_tile(exts, fl, fi, org, *geom)
+        ref = warp_kernel.tile_reference(exts, fl, fi, org, *geom)
+        n, _, He, We = exts[0].shape
+        nvalid = int(warp_kernel.tile_taps(fl, org, TILE_HALO, hh, 4, wc, H)[0].sum())
+        record_row(rows, f"filter_interp_warp_tile[tile4 w{fl.shape[3]} pm20]", dtype_name,
+                   compare(list(zip(got, ref)), 1e-4), None, None, None,
+                   nbytes=n * (He * We * 67 * esize + H * wc // n * (2 * 4 + 16 * esize
+                                                                      + 67 * esize)),
+                   flops=nvalid * 2 * 16 * 67, op_dtype="float32",
+                   extra=dict(valid_pixels=nvalid, tiles=n))
         for grid, axis_h in TILE_GRIDS:
             mesh = tile_mesh(torch, grid)
             for fname, flow2 in flows.items():
@@ -3376,12 +3374,14 @@ def part_ops_inputs(torch, dev):
     phase 8's +-20 px flow (within the halo budget, a band landing left of
     the frame), a +-200 px one and a grid of the derived extent
     (H - 16, W - 32), float32 on ``dev``."""
+    from memcnet_tpu_torch import probe
+
     x = oplib_inputs(torch, dev)
     gen = torch.Generator(device=dev).manual_seed(14)
     x["fw"] = torch.rand((PART_OPS_B, 1, H, W), generator=gen, device=dev)
     gh, gw = H - PART_OPS_GRID_CUT[0], W - PART_OPS_GRID_CUT[1]
     x["grid"] = torch.rand((PART_OPS_B, gh, gw, 2), generator=gen, device=dev) * 2.2 - 1.1
-    flows = {"pm20": tile_flows(torch, dev)["pm20"],
+    flows = {"pm20": probe.tile_flows(dev)["pm20"],
              "pm200": torch.rand((PART_OPS_B, 2, H, W), generator=gen, device=dev) * 400.0
              - 200.0}
     del x["flow"]

@@ -24,11 +24,18 @@ untiled kernel), K2's tile entry on the +-20 px flow (counts exact against
 its plain version), K3's tile entry and the whole tiled fill from avg,
 cnt (bit for bit against the carry entry's plain version), the tiled
 flow_project with the fill, K2's payload entry on tile origins (P = 3 and
-4: built inside the scatter where the tree does so, else read, with and
-without its build) and N7 and N8 on partitioned frames, each with its
-device operations; the projection rows add K2's payload entry untiled and
-N7 and N8 whole.  ``--rows`` picks groups of rows: projection, K1, K5, K4,
-tile (all by default).
+4, the payload built inside the scatter) and N7 and N8 on partitioned
+frames, each with its device operations; the projection rows add K2's
+payload entry untiled and N7 and N8 whole.  K1's tile entry (``--rows
+K1tile``) on the tiles of star's split warp (67 channels, B = 1) at
+768x1344, halo 64, on both grids, with phase 8's +-20 px flow
+(``probe.tile_flows``); K3 (``--rows fill``) with and without the down
+search on the +-20 px flow's average and masks, B = 2, bit for bit against
+its plain version, and ``flow_project`` with the down scan whole; these
+rows also count device operations as the nodes of a CUDA graph of the call
+(``probe.graph_ops``).  ``--rows`` picks groups of rows: projection, K1,
+K5, K4, tile, K1tile, fill (all by default).  The other tree must have the
+fused payload entries and K3's tile entry from avg, cnt.
 
 With ``--other DIR`` (a checkout of another commit, e.g. the parent unpacked
 with ``git archive``), the same measurements run on that tree's kernels too,
@@ -49,7 +56,11 @@ for bit on the same sums), and of K3's tile entry and K2's payload entry on
 tile origins (``fill_tiles_steps.cu``: the mask pass and the fill as built,
 with summaries, and with every carry given; the memset, the scatter that
 builds the payload, the first design's scatter of a built payload, the
-fold) are timed in this tree's process, and ``mma_probe.cu`` shows how the tensor
+fold), and of K1's tile entry (``warp_tile_steps.cu``: the first design,
+block shapes, box elements a thread, register caps, channels a stage, bf16
+packed as fetched; each must give the entry's bits; and two diagnostics,
+staging without sums and sums without fetches) are timed in this tree's
+process, and ``mma_probe.cu`` shows how the tensor
 cores add: 1 + 2^-k and 1 - 1 + 2^-k in one MMA, for which k the small term
 survives.  Results go to ``--out`` as JSON (default
 ``chiprun_out/kernel_ab/results.json``) and a table to standard output.
@@ -130,7 +141,7 @@ def max_ulps(torch, got, ref, slack):
     return float((((got.float() - ref.float()).abs() - slack).clamp(min=0.0) / ulp).max())
 
 
-ROW_GROUPS = ("projection", "K1", "K5", "K4", "tile")
+ROW_GROUPS = ("projection", "K1", "K5", "K4", "tile", "K1tile", "fill")
 TILE_HALO = 64
 TILE_GRIDS = (("tile4", None), ("tile2x2", "tile_h"))  # (data 1, tile 4), (1, 2, 2)
 # in the order timed, twice over (the best of the two passes is kept)
@@ -162,6 +173,7 @@ def measure(root, steps, groups=ROW_GROUPS):
     tile_libs = ((build(_lib, "level_tile_steps"), build(_lib, "tile_sums_steps"),
                   build(_lib, "fill_tiles_steps"))
                  if steps and "tile" in groups else (None, None, None))
+    warp_tile_lib = build(_lib, "warp_tile_steps") if steps and "K1tile" in groups else None
     if steps and "K4" in groups:
         res["mma probe"] = mma_probe(torch, build(_lib, "mma_probe"))
     for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
@@ -176,6 +188,10 @@ def measure(root, steps, groups=ROW_GROUPS):
             conv_rows(torch, res, name, dt, gen, flush)
         if "tile" in groups:
             tile_entry_rows(torch, res, name, dt, flush, *tile_libs)
+        if "K1tile" in groups:
+            warp_tile_rows(torch, res, name, dt, gen, flush, warp_tile_lib)
+        if "fill" in groups:
+            fill_rows(torch, res, name, dt, flush)
         torch.cuda.empty_cache()
     return res
 
@@ -223,6 +239,117 @@ def warp_rows(torch, res, name, dt, gen, flush, step_lib):
             res[key]["steps"] = time_steps(torch, step_lib, warp_kernel, _lib, srcs, flow,
                                            filt, flush)
     del frame, ctx, filt, noisy
+
+
+WARP_TILE_STEPS = [(0, "first design (K1's kernel, TILE flag, 32x8, 2 channels a barrier)"),
+                   (1, "as built"), (2, "32x8 blocks"), (3, "3 box elements a thread"),
+                   (4, "at least 4 blocks an SM"), (5, "at least 2 blocks an SM"),
+                   (6, "8-byte elements"), (7, "bf16 packed as fetched"),
+                   (8, "bf16 packed as fetched, 3 box elements (first build)"),
+                   (9, "diagnostic: stage and store, no tap sums"),
+                   (10, "diagnostic: tap sums, no fetch")]
+WARP_TILE_DIAG = (9, 10)  # compute something else: timed only
+
+
+def warp_tile_rows(torch, res, name, dt, gen, flush, step_lib=None):
+    """K1's tile entry on the tiles of star's split warp (frame and context,
+    67 channels, B = 1) at 768x1344 on (1, 4) and (1, 2, 2), halo 64, with
+    phase 8's +-20 px flow (``probe.tile_flows``), against its plain version;
+    with ``step_lib``, its design steps (``warp_tile_steps.cu``), each
+    checked bit for bit against the entry."""
+    from memcnet_tpu_torch.ops.cuda import warp_kernel
+    from memcnet_tpu_torch.parallel import make_mesh, make_mesh_2d
+    from memcnet_tpu_torch.parallel import tiling as T
+
+    dev = torch.device("cuda")
+    devs = [dev] * 4
+    frame = torch.rand((1, 3, H, W), generator=gen, device=dev).to(dt)
+    ctx = torch.randn((1, 64, H, W), generator=gen, device=dev).to(dt)
+    filt = (torch.rand((1, 16, H, W), generator=gen, device=dev) / 8.0).to(dt)
+    flow = PROBE.tile_flows(dev)["pm20"][:1].contiguous()
+    for grid, axis_h in TILE_GRIDS:
+        mesh = make_mesh(4, devices=devs) if grid == "tile4" else make_mesh_2d(4, devices=devs)
+        ring = T._ring(mesh, 1, "tile", axis_h)
+        Wl, Hl, hh = T._grid(mesh, frame.shape, "tile", axis_h, TILE_HALO, None)
+        exts = []
+        for im in (frame, ctx):
+            e = T._exchange_halo(ring.split(im), ring, "tile", TILE_HALO, -1)
+            exts.append((T._exchange_halo(e, ring, axis_h, hh, -2) if axis_h else e).contiguous())
+        org = T._origins(ring, "tile", axis_h, Wl, Hl, dev)
+        fl, fi = ring.split(flow).contiguous(), ring.split(filt).contiguous()
+        geom = (TILE_HALO, hh, 4, W, H)
+
+        def entry():
+            return warp_kernel.launch_tile(exts, fl, fi, org, *geom)
+
+        got = entry()
+        ref = warp_kernel.tile_reference(exts, fl, fi, org, *geom)
+        key = f"K1 tile {grid} {name}"
+        res[key] = timed_row(torch, entry, flush,
+                             err=max(max_ulps(torch, g, r, 0.0) for g, r in zip(got, ref)),
+                             graph_ops=PROBE.graph_ops(entry), tile=f"{tuple(exts[1].shape)}")
+        if step_lib is not None:
+            res[key]["steps"] = warp_tile_steps(torch, step_lib, exts, fl, fi, org, hh, got, flush)
+        del exts, fl, fi, got, ref
+
+
+def warp_tile_steps(torch, lib, exts, fl, fi, org, hh, want, flush):
+    """ms of each design step of K1's tile entry (``warp_tile_steps.cu``) on
+    the entry's inputs, each checked bit for bit against the entry's output."""
+    from memcnet_tpu_torch.ops.cuda import _lib, warp_kernel
+
+    outs = [torch.empty_like(w) for w in want]
+    sources = warp_kernel._WarpSources()
+    for k, (e, o) in enumerate(zip(exts, outs)):
+        sources.src[k], sources.out[k], sources.channels[k] = e.data_ptr(), o.data_ptr(), e.shape[1]
+    sources.n = len(exts)
+    n, _, Hl, Wl = fl.shape
+    ms = {}
+    for step, label in WARP_TILE_STEPS:
+        def run():
+            err = lib.memc_warp_tile_step(step, ctypes.byref(sources), fl.data_ptr(), fi.data_ptr(),
+                                          org.data_ptr(), n, Hl, Wl, TILE_HALO, hh, H, W,
+                                          _lib.dtype_code(fi.dtype),
+                                          torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"warp tile step {label}: CUDA error {err}")
+        for o in outs:
+            o.fill_(float("nan"))
+        run()
+        if step not in WARP_TILE_DIAG and not all(torch.equal(o, w) for o, w in zip(outs, want)):
+            raise RuntimeError(f"warp tile step {label}: not the entry's bits")
+        ms[label] = timed_ms(torch, run, flush)
+    return ms
+
+
+def fill_rows(torch, res, name, dt, flush):
+    """K3 on the average and masks of the +-20 px flow's projection at
+    768x1344, B = 2: with the down search and without, each bit for bit
+    against its plain version; and ``flow_project`` with the down scan whole
+    against its plain composition.  Device operations from a CUDA graph of
+    the call (``probe.graph_ops``)."""
+    from memcnet_tpu_torch.ops import projection
+    from memcnet_tpu_torch.ops.cuda import project_kernel as P
+
+    dev = torch.device("cuda")
+    flow = PROBE.synthetic_flow(2, dev).to(dt)
+    _, avg, masks = P.sums_stage_reference(flow, True)
+    for label, down in (("fill_holes[down]", True), ("fill_holes", False)):
+        def fill():
+            return P.launch_fill(avg, masks, dt, down=down)
+
+        exact = bool(torch.equal(fill(), P.fill_stage_reference(avg, masks, dt, down=down)))
+        res[f"{label} {name}"] = timed_row(torch, fill, flush, bit_equal=exact,
+                                           graph_ops=PROBE.graph_ops(fill))
+
+    def whole():
+        return projection.flow_project(flow, fillhole=True, fix_down_scan_bug=True)
+
+    ref = projection.reference(flow, fillhole=True, fix_down_scan_bug=True)
+    res[f"flow_project[down] {name}"] = timed_row(torch, whole, flush,
+                                                  err=max_ulps(torch, whole(), ref, 0.0),
+                                                  graph_ops=PROBE.graph_ops(whole))
+    del avg, masks
 
 
 def conv_rows(torch, res, name, dt, gen, flush):
@@ -359,41 +486,23 @@ def timed_row(torch, fn, flush, err=None, **extra):
 
 
 def payload_rows(torch, res, name, dt, flush):
-    """K2's payload entry untiled at B = 2, 768x1344 on the +-20 px flow:
-    this PR's tree builds N7's and N8's payloads inside the scatter; an
-    earlier tree's entry reads a payload that PyTorch built (its row times
-    the entry alone, and its ``with build`` row the build and the entry);
-    each with its last plane checked exactly against the tree's plain
-    version.  Then N7 and N8 whole with the fill."""
+    """K2's payload entry untiled at B = 2, 768x1344 on the +-20 px flow,
+    N7's and N8's payloads built inside the scatter, each with its last
+    plane checked exactly against its plain version.  Then N7 and N8 whole
+    with the fill."""
     from memcnet_tpu_torch.ops import projection
     from memcnet_tpu_torch.ops.cuda import project_kernel as P
 
     dev = torch.device("cuda")
     flow = PROBE.synthetic_flow(2, dev).to(dt)
     depth, f1, f2 = op_inputs(torch, dev, dt)
-    fused = hasattr(P, "op_payload")
     for planes, op, ins in ((3, "depth", (depth,)), (4, "gated", (f1, f2))):
-        def build():
-            return projection.depth_payload(flow, depth) if op == "depth" else \
-                projection.weighted_payload(flow, f1, f2, THRESHOLD)
+        def entry():
+            return P.launch_payload(op, flow, ins, THRESHOLD, False)
 
-        if fused:
-            def entry():
-                return P.launch_payload(op, flow, ins, THRESHOLD, False)
-            ref = P.op_stage_reference(op, flow, ins, THRESHOLD, False)
-        else:
-            payload = build()
-
-            def entry():
-                return P.launch_payload(flow, payload, False)
-
-            def with_build():
-                return P.launch_payload(flow, build(), False)
-            ref = P.payload_stage_reference(flow, payload, False)
+        ref = P.op_stage_reference(op, flow, ins, THRESHOLD, False)
         exact = bool(torch.equal(entry()[0][:, -1], ref[0][:, -1]))
         res[f"K2 payload P={planes} {name}"] = timed_row(torch, entry, flush, last_plane_exact=exact)
-        if not fused:
-            res[f"K2 payload P={planes} with build {name}"] = timed_row(torch, with_build, flush)
     for op_name, fn in (("N7", lambda: projection.depth_flow_project(flow, depth, fillhole=True)),
                         ("N8", lambda: projection.weighted_flow_project(flow, f1, f2,
                                                                         fillhole=True))):
@@ -402,16 +511,13 @@ def payload_rows(torch, res, name, dt, flush):
 
 def tile_op_rows(torch, res, name, dt, flush, fill_lib=None):
     """At 768x1344, B = 2, halo 64, on (1, 4) and (1, 2, 2), the +-20 px
-    flow: K3's tile entry (this PR's: from avg, cnt alone; an earlier
-    tree's carry entry: its carries made before it, untimed) and the whole
-    tiled fill, each against the carry entry's plain version with the
-    carries of ``_carry``, bit for bit; the tiled flow_project with the
-    fill; and on (1, 4) K2's payload entry on tile origins (P = 3 and 4:
-    this PR's builds the payload, an earlier tree's reads it, with and
-    without its build), and N7 and N8 on partitioned frames with the fill."""
+    flow: K3's tile entry (from avg, cnt alone) and the whole tiled fill,
+    each against the carry entry's plain version with the carries of
+    ``_carry``, bit for bit; the tiled flow_project with the fill; and on
+    (1, 4) K2's payload entry on tile origins (P = 3 and 4, the payload
+    built inside), and N7 and N8 on partitioned frames with the fill."""
     from memcnet_tpu_torch.ops import projection
     from memcnet_tpu_torch.ops.cuda import project_kernel as P
-    from memcnet_tpu_torch.ops.frame import TileFrame
     from memcnet_tpu_torch.parallel import (active_partition, make_mesh, make_mesh_2d,
                                             shard_frames, spatial_tiling)
     from memcnet_tpu_torch.parallel import tiling as T
@@ -420,7 +526,6 @@ def tile_op_rows(torch, res, name, dt, flush, fill_lib=None):
     devs = [dev] * 4
     flow = PROBE.synthetic_flow(2, dev).to(dt)
     depth, f1, f2 = op_inputs(torch, dev, dt)
-    new = hasattr(P, "launch_fill_tiles")
     for grid, axis_h in TILE_GRIDS:
         mesh = make_mesh(4, devices=devs) if grid == "tile4" else make_mesh_2d(4, devices=devs)
         avg, cnt, ring = T._tiled_average(mesh, flow, TILE_HALO, "tile", axis_h, None)
@@ -430,16 +535,10 @@ def tile_op_rows(torch, res, name, dt, flush, fill_lib=None):
                    T._carry(T._edge_message(has, avg, 1, last=True), ring, axis_h, 1)
                    if axis_h else None]
         ref = P.carry_fill_reference(avg, cnt, *carries, dt)
-        if new:
-            stacks = (ring.stacked("tile"), ring.stacked(axis_h) if axis_h else None)
+        stacks = (ring.stacked("tile"), ring.stacked(axis_h) if axis_h else None)
 
-            def entry():
-                return P.launch_fill_tiles(avg, cnt, stacks, None, None, None, dt)
-        else:
-            a, c = avg.contiguous(), cnt.contiguous()
-
-            def entry():
-                return P.launch_carry_fill(a, c, *carries, dt)
+        def entry():
+            return P.launch_fill_tiles(avg, cnt, stacks, None, None, None, dt)
 
         def whole():
             return T._tiled_fill(avg, cnt, ring, "tile", axis_h, dt)
@@ -462,39 +561,21 @@ def tile_op_rows(torch, res, name, dt, flush, fill_lib=None):
             n = ft.shape[0]
             S, org = p.samples(n), p.origins((H, W), n, dev)
             whole2 = p.gather(t2, (H, W))
-            fr = TileFrame(p, (H, W))
             if grid == "tile4":
                 for planes, op, ins in ((3, "depth", (dtl,)), (4, "gated", (t1, whole2))):
-                    def build():
-                        return projection.depth_payload(ft, dtl) if op == "depth" else \
-                            projection.weighted_payload(ft, t1, t2, THRESHOLD, fr)
-
-                    if new:
-                        def tile_entry():
-                            return P.launch_payload_tile(op, ft, ins, THRESHOLD, org, S, H, W)
-                        got, ref = tile_entry(), P.payload_tile_reference(
-                            op, ft, ins, THRESHOLD, org, S, H, W)
-                    else:
-                        payload = build()
-
-                        def tile_entry():
-                            return P.launch_payload_tile(ft, payload, org, S, H, W)
-
-                        def with_build():
-                            return P.launch_payload_tile(ft, build(), org, S, H, W)
-                        got, ref = tile_entry(), P.payload_tile_sums_reference(ft, payload, org,
-                                                                               S, H, W)
+                    def tile_entry():
+                        return P.launch_payload_tile(op, ft, ins, THRESHOLD, org, S, H, W)
+                    got, ref = tile_entry(), P.payload_tile_reference(
+                        op, ft, ins, THRESHOLD, org, S, H, W)
                     key = f"K2 payload tile P={planes} tile4 {name}"
                     res[key] = timed_row(torch, tile_entry, flush,
                                          err=float((got - ref).abs().max()),
                                          last_plane_exact=bool(torch.equal(got[:, -1],
                                                                            ref[:, -1])))
-                    if not new:
-                        res[f"K2 payload tile P={planes} with build tile4 {name}"] = timed_row(
-                            torch, with_build, flush)
-                    elif fill_lib is not None:
+                    if fill_lib is not None:
                         res[key]["steps"] = payload_tile_steps(
-                            torch, fill_lib, op, ft, ins, projection, build(), org, S, got, flush)
+                            torch, fill_lib, op, ft, ins, P.op_payload(op, ft, ins, THRESHOLD, org),
+                            org, S, got, flush)
                     del got, ref
             for op_name, fn in (
                     ("N7", lambda: projection.depth_flow_project(ft, dtl, fillhole=True)),
@@ -540,7 +621,7 @@ def fill_tiles_steps(torch, lib, avg, cnt, ring, axis_h, carries, ref, flush):
     return {labels[k]: timed_ms(torch, lambda: run(k), flush) for k in labels}
 
 
-def payload_tile_steps(torch, lib, op, ft, ins, projection, payload, org, S, want, flush):
+def payload_tile_steps(torch, lib, op, ft, ins, payload, org, S, want, flush):
     """ms of each step of K2's payload entry on tile origins
     (``fill_tiles_steps.cu``): the memset, the scatter that builds the
     payload (as built), the first design's scatter of a built payload, the
@@ -748,6 +829,9 @@ def build(_lib, name):
     if name == "warp_steps":
         lib.memc_warp_step.argtypes = [i, vp, vp, vp, i, i, i, i, vp]
         lib.memc_warp_step.restype = i
+    elif name == "warp_tile_steps":
+        lib.memc_warp_tile_step.argtypes = [i, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
+        lib.memc_warp_tile_step.restype = i
     elif name == "level_steps":
         lib.memc_level_step.argtypes = [i, i, vp, vp, vp, vp, i, i, i, i, vp]
         lib.memc_level_step.restype = i

@@ -26,10 +26,12 @@
 //                      memory, by columns; plus one summary bit per non-empty
 //                      mask word;
 //   K3  project_fill_kernel
-//                      one thread per pixel: a hole takes the mean of the
-//                      nearest value to its left, right and above (no
-//                      down-scan: the reference disabled it by accident,
-//                      my_lib_kernel.cu:1799; the JAX opt-in
+//                      four pixels a thread, vector loads of the average
+//                      and vector stores where the rows allow them, the row
+//                      mask word read once per 32 pixels: a hole takes the
+//                      mean of the nearest value to its left, right and
+//                      above (no down-scan: the reference disabled it by
+//                      accident, my_lib_kernel.cu:1799; the JAX opt-in
 //                      fix_down_scan_bug adds the nearest value below, the
 //                      mirror of the up search in the same column masks);
 //                      every pixel is written in the flow's type.
@@ -393,58 +395,157 @@ __device__ __forceinline__ int nearest_above(const uint32_t* __restrict__ words,
   return first_from<kSums>(words, wsum, w + 1, n);
 }
 
-// Block: 32 x 8 threads, one pixel each; grid (words_for(W), ceil(H / 8), B).
-// kDown adds the nearest value below (fix_down_scan_bug).
+// K3: 4 pixels a thread, so a warp fills 128 consecutive pixels of a row;
+// kDown adds the nearest value below (fix_down_scan_bug).  Lane 8 k reads
+// the row's mask word k of the warp's four and shares it by shuffle (one
+// read per 32 pixels); each thread loads its 4 pixels of both average
+// planes with one 16-byte load each and stores its 4 outputs with one
+// 16-byte (float32) or 8-byte (bf16) store each, where the row is 16-byte
+// aligned (vec: W % 4 == 0 and the pointers aligned), else pixel by pixel.
+// A thread's holes are searched together, so their loads are in flight at
+// once: left and right from the row word in the register, past it once for
+// all of them (last_before, first_from); up (and down) per hole as
+// nearest_below / nearest_above do, the four columns' words read together;
+// then every value the sums take.  Summed in the plain version's order ((0
+// + left) + right) + up (+ down), the result is the plain version's bit for
+// bit.  Block: 32 x 8 threads; grid (ceil(W / 128), ceil(H / 8), B).
+constexpr int kFillPx = 4;  // pixels a thread
+
+template <typename T>
+struct alignas(kFillPx * sizeof(T)) FillOut {
+  T v[kFillPx];
+};
+
 template <typename T, bool kDown>
 __global__ void __launch_bounds__(256)
 project_fill_kernel(const float* __restrict__ avg, const uint32_t* __restrict__ rows,
-                    const uint32_t* __restrict__ row_sums, const uint32_t* __restrict__ cols,
-                    const uint32_t* __restrict__ col_sums, T* __restrict__ out, int H, int W) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+                     const uint32_t* __restrict__ row_sums, const uint32_t* __restrict__ cols,
+                     const uint32_t* __restrict__ col_sums, T* __restrict__ out, int H, int W,
+                     bool vec) {
+  constexpr int P = kFillPx;
+  const int lane = threadIdx.x;
+  const int x0 = (blockIdx.x * 32 + lane) * P;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int b = blockIdx.z;
-  if (x >= W || y >= H) return;
-  const int64_t HW = static_cast<int64_t>(H) * W;
-  const float* ax = avg + 2 * b * HW;
-  const float* ay = ax + HW;
-  const int64_t p = static_cast<int64_t>(y) * W + x;
-  T* ox = out + 2 * b * HW + p;
+  if (y >= H) return;  // the whole warp: one row
   const int nw = words_for(W), nh = words_for(H);
   const int64_t rline = static_cast<int64_t>(b) * H + y;
   const uint32_t* rw = rows + rline * nw;
-  if ((rw[x / 32] >> (x % 32)) & 1u) {
-    ox[0] = from_f32<T>(ax[p]);
-    ox[HW] = from_f32<T>(ay[p]);
-    return;
-  }
-  // the plain version's order: ((0 + left) + right) + up, a missing
-  // direction adding 0
-  float nx = 0.f, ny = 0.f, den = 0.f;
-  const uint32_t* rs = row_sums + rline * words_for(nw);
-  const int l = nearest_below(rw, rs, x);
+  const int wd = blockIdx.x * 4 + lane / 8;  // this thread's mask word
+  uint32_t word = 0;
+  if (lane % 8 == 0 && wd < nw) word = rw[wd];
+  word = __shfl_sync(kFullMask, word, lane & ~7);
+  if (x0 >= W) return;
+  const int n = min(P, W - x0);  // pixels of this thread in the row
+  const int bit0 = x0 % 32;
+  const int64_t HW = static_cast<int64_t>(H) * W;
   const int64_t row = static_cast<int64_t>(y) * W;
-  nx += l >= 0 ? ax[row + l] : 0.f;
-  ny += l >= 0 ? ay[row + l] : 0.f;
-  den += l >= 0 ? 1.f : 0.f;
-  const int r = nearest_above(rw, rs, x, W);
-  nx += r < W ? ax[row + r] : 0.f;
-  ny += r < W ? ay[row + r] : 0.f;
-  den += r < W ? 1.f : 0.f;
-  const int64_t cline = static_cast<int64_t>(b) * W + x;
-  const int u = nearest_below(cols + cline * nh, col_sums + cline * words_for(nh), y);
-  const int64_t up_at = static_cast<int64_t>(u) * W + x;
-  nx += u >= 0 ? ax[up_at] : 0.f;
-  ny += u >= 0 ? ay[up_at] : 0.f;
-  den += u >= 0 ? 1.f : 0.f;
-  if (kDown) {
-    const int d = nearest_above(cols + cline * nh, col_sums + cline * words_for(nh), y, H);
-    const int64_t down = static_cast<int64_t>(d) * W + x;
-    nx += d < H ? ax[down] : 0.f;
-    ny += d < H ? ay[down] : 0.f;
-    den += d < H ? 1.f : 0.f;
+  const float* ax = avg + 2 * b * HW;
+  const float* ay = ax + HW;
+  T* ox = out + 2 * b * HW + row + x0;
+  float vx[P], vy[P];
+  const bool whole = vec && n == P;
+  if (whole) {
+    const float4 qx = *reinterpret_cast<const float4*>(ax + row + x0);
+    const float4 qy = *reinterpret_cast<const float4*>(ay + row + x0);
+    vx[0] = qx.x, vx[1] = qx.y, vx[2] = qx.z, vx[3] = qx.w;
+    vy[0] = qy.x, vy[1] = qy.y, vy[2] = qy.z, vy[3] = qy.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      vx[k] = k < n ? ax[row + x0 + k] : 0.f;
+      vy[k] = k < n ? ay[row + x0 + k] : 0.f;
+    }
   }
-  ox[0] = from_f32<T>(den > 0.f ? nx / den : ax[p]);
-  ox[HW] = from_f32<T>(den > 0.f ? ny / den : ay[p]);
+  const uint32_t mine = n == P ? 0xfu : (1u << n) - 1u;  // this thread's pixels
+  const uint32_t holes = ~(word >> bit0) & mine;
+  FillOut<T> px, py;
+  if (holes) {
+    // left and right of each hole: in the word, else past it (once for all)
+    int l[P], r[P];
+    bool far_l = false, far_r = false;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const int bit = bit0 + k;
+      const uint32_t lm = word & ((1u << bit) - 1u);
+      const uint32_t rm = word & ~((2u << bit) - 1u);  // 2u << 31 wraps to 0
+      l[k] = lm ? wd * 32 + 31 - __clz(static_cast<int>(lm)) : -1;
+      r[k] = rm ? wd * 32 + __ffs(static_cast<int>(rm)) - 1 : W;
+      far_l |= ((holes >> k) & 1u) && !lm;
+      far_r |= ((holes >> k) & 1u) && !rm;
+    }
+    const uint32_t* rs = row_sums + rline * words_for(nw);
+    const int fl = far_l ? last_before<true>(rw, rs, wd) : -1;
+    const int fr = far_r ? first_from<true>(rw, rs, wd + 1, W) : W;
+    // up (and down) of each hole, the columns' words read together
+    int u[P], d[P];
+    uint32_t um[P], dm[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      um[k] = dm[k] = 0;
+      if ((holes >> k) & 1u) {
+        const uint32_t m = cols[(static_cast<int64_t>(b) * W + x0 + k) * nh + y / 32];
+        um[k] = m & ((1u << (y % 32)) - 1u);
+        dm[k] = m & ~((2u << (y % 32)) - 1u);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      u[k] = -1;
+      d[k] = H;
+      if (!((holes >> k) & 1u)) continue;
+      const int64_t cline = static_cast<int64_t>(b) * W + x0 + k;
+      const uint32_t* cw = cols + cline * nh;
+      const uint32_t* cs = col_sums + cline * words_for(nh);
+      u[k] = um[k] ? (y / 32) * 32 + 31 - __clz(static_cast<int>(um[k]))
+                   : last_before<true>(cw, cs, y / 32);
+      if (kDown) {
+        d[k] = dm[k] ? (y / 32) * 32 + __ffs(static_cast<int>(dm[k])) - 1
+                     : first_from<true>(cw, cs, y / 32 + 1, H);
+      }
+    }
+    // the plain version's order ((0 + left) + right) + up (+ down), a
+    // missing direction adding 0
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      if (!((holes >> k) & 1u)) continue;
+      const int x = x0 + k;
+      const int lk = l[k] >= 0 ? l[k] : fl, rk = r[k] < W ? r[k] : fr;
+      float nx = 0.f, ny = 0.f, den = 0.f;
+      nx += lk >= 0 ? ax[row + lk] : 0.f;
+      ny += lk >= 0 ? ay[row + lk] : 0.f;
+      den += lk >= 0 ? 1.f : 0.f;
+      nx += rk < W ? ax[row + rk] : 0.f;
+      ny += rk < W ? ay[row + rk] : 0.f;
+      den += rk < W ? 1.f : 0.f;
+      const int64_t up_at = static_cast<int64_t>(u[k]) * W + x;
+      nx += u[k] >= 0 ? ax[up_at] : 0.f;
+      ny += u[k] >= 0 ? ay[up_at] : 0.f;
+      den += u[k] >= 0 ? 1.f : 0.f;
+      if (kDown) {
+        const int64_t down = static_cast<int64_t>(d[k]) * W + x;
+        nx += d[k] < H ? ax[down] : 0.f;
+        ny += d[k] < H ? ay[down] : 0.f;
+        den += d[k] < H ? 1.f : 0.f;
+      }
+      vx[k] = den > 0.f ? nx / den : vx[k];
+      vy[k] = den > 0.f ? ny / den : vy[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    px.v[k] = from_f32<T>(vx[k]);
+    py.v[k] = from_f32<T>(vy[k]);
+  }
+  if (whole) {
+    *reinterpret_cast<FillOut<T>*>(ox) = px;
+    *reinterpret_cast<FillOut<T>*>(ox + HW) = py;
+  } else {
+    for (int k = 0; k < n; ++k) {
+      ox[k] = px.v[k];
+      ox[HW + k] = py.v[k];
+    }
+  }
 }
 
 // K2's tile entry's scatter: one thread per source pixel of a tile (B tiles
@@ -890,31 +991,34 @@ MEMC_API int memc_project_fill(const void* avg, const void* rows, const void* ro
                                const void* cols, const void* col_sums, void* out, int B, int H,
                                int W, int dtype, int down, void* stream) {
   if (B == 0 || H == 0 || W == 0) return cudaSuccess;
+  if (dtype != memc::kFloat32 && dtype != memc::kBFloat16) return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(memc::words_for(W), memc::ceil_div(H, 8), B), block(32, 8);
+  const dim3 grid(memc::ceil_div(W, 32 * memc::kFillPx), memc::ceil_div(H, 8), B), block(32, 8);
   const auto* a = static_cast<const float*>(avg);
   const auto* r = static_cast<const uint32_t*>(rows);
   const auto* rs = static_cast<const uint32_t*>(row_sums);
   const auto* c = static_cast<const uint32_t*>(cols);
   const auto* cs = static_cast<const uint32_t*>(col_sums);
+  const int esize = dtype == memc::kFloat32 ? 4 : 2;
+  // whole rows of 4 pixels on 16-byte (and 4-element) boundaries
+  const bool vec = W % memc::kFillPx == 0 && reinterpret_cast<uintptr_t>(avg) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % (memc::kFillPx * esize) == 0;
   if (dtype == memc::kFloat32) {
     auto* o = static_cast<float*>(out);
     if (down) {
-      memc::project_fill_kernel<float, true><<<grid, block, 0, st>>>(a, r, rs, c, cs, o, H, W);
+      memc::project_fill_kernel<float, true><<<grid, block, 0, st>>>(a, r, rs, c, cs, o, H, W, vec);
     } else {
-      memc::project_fill_kernel<float, false><<<grid, block, 0, st>>>(a, r, rs, c, cs, o, H, W);
+      memc::project_fill_kernel<float, false><<<grid, block, 0, st>>>(a, r, rs, c, cs, o, H, W, vec);
     }
-  } else if (dtype == memc::kBFloat16) {
+  } else {
     auto* o = static_cast<__nv_bfloat16*>(out);
     if (down) {
       memc::project_fill_kernel<__nv_bfloat16, true><<<grid, block, 0, st>>>(a, r, rs, c, cs, o,
-                                                                             H, W);
+                                                                              H, W, vec);
     } else {
       memc::project_fill_kernel<__nv_bfloat16, false><<<grid, block, 0, st>>>(a, r, rs, c, cs, o,
-                                                                              H, W);
+                                                                               H, W, vec);
     }
-  } else {
-    return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }

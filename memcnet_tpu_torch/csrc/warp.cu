@@ -38,21 +38,23 @@
 // before.  Tap sums run in the same (j, i) order on both paths, so the two
 // agree bit for bit.
 //
-// The tile entry (memc_filter_interp_warp_tile) is the same kernel with
-// the TILE flag, for parallel/tiling.py's tiled warp (the JAX package's
-// memcnet_tpu/parallel/tiling.py::_local_filter_interp, which runs no Pallas
-// kernel): each sample is one tile of a larger frame, its sources extended
-// by a halo of `halo` columns (and `halo_h` rows) on each side, its flow and
-// filter and its output at the tile's own size.  Per pixel it clamps the
-// flow to the halo budget (+-(halo - fs), and +-(halo_h - fs) when halo_h >
-// 0), gates in the whole frame's coordinates (the tile's origin, per
-// sample, plus the pixel; |f| < frame/2 on the clamped flow), takes the taps
-// in the extended tile's coordinates clamped to its edges, and passes the
-// extended tile's centre through where the gate fails.  The flag is a
-// template parameter, so the global warp's instances are unchanged.
+// The tile entry (memc_filter_interp_warp_tile) serves parallel/tiling.py's
+// tiled warp (the JAX package's memcnet_tpu/parallel/tiling.py::
+// _local_filter_interp, which runs no Pallas kernel): each sample is one tile
+// of a larger frame, its sources extended by a halo of `halo` columns (and
+// `halo_h` rows) on each side, its flow and filter and its output at the
+// tile's own size.  Per pixel it clamps the flow to the halo budget
+// (+-(halo - fs), and +-(halo_h - fs) when halo_h > 0), gates in the whole
+// frame's coordinates (the tile's origin, per sample, plus the pixel; |f| <
+// frame/2 on the clamped flow), takes the taps in the extended tile's
+// coordinates clamped to its edges, and passes the extended tile's centre
+// through where the gate fails (PixelTaps with its TILE flag).  It runs a
+// kernel of its own, filter_interp_warp_tile_kernel below; the TILE flag of
+// the kernel above is its first design, timed by bench/warp_tile_steps.cu.
 #include "common.cuh"
 
 #include <climits>
+#include <type_traits>
 
 namespace memc {
 
@@ -321,7 +323,7 @@ filter_interp_warp_kernel(WarpSources s, const float* __restrict__ flow,
   }
 }
 
-template <typename T, bool TILE>
+template <typename T>
 cudaError_t launch_warp(const WarpSources& s, const float* flow, const T* filt, int B, int H, int W,
                         int fs, const TileGeom& g, cudaStream_t stream) {
   if (static_cast<int64_t>(H + 2 * g.halo_h) * (W + 2 * g.halo) >= (int64_t{1} << 31))
@@ -333,15 +335,315 @@ cudaError_t launch_warp(const WarpSources& s, const float* flow, const T* filt, 
   // a few channels do not repay staging the box: gather them directly
   const bool box = total > kGatherChannels;
   if (fs == 4) {
-    if (box) filter_interp_warp_kernel<T, 4, true, TILE><<<grid, block, 0, stream>>>(s, flow, filt, H, W, g);
-    else filter_interp_warp_kernel<T, 4, false, TILE><<<grid, block, 0, stream>>>(s, flow, filt, H, W, g);
+    if (box) filter_interp_warp_kernel<T, 4, true, false><<<grid, block, 0, stream>>>(s, flow, filt, H, W, g);
+    else filter_interp_warp_kernel<T, 4, false, false><<<grid, block, 0, stream>>>(s, flow, filt, H, W, g);
   } else if (fs == 2) {
-    if (box) filter_interp_warp_kernel<T, 2, true, TILE><<<grid, block, 0, stream>>>(s, flow, filt, H, W, g);
-    else filter_interp_warp_kernel<T, 2, false, TILE><<<grid, block, 0, stream>>>(s, flow, filt, H, W, g);
+    if (box) filter_interp_warp_kernel<T, 2, true, false><<<grid, block, 0, stream>>>(s, flow, filt, H, W, g);
+    else filter_interp_warp_kernel<T, 2, false, false><<<grid, block, 0, stream>>>(s, flow, filt, H, W, g);
   } else {
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K1's tile entry, redesigned for the H100 (its first design was the kernel
+// above with its TILE flag, which bench/warp_tile_steps.cu keeps as its first
+// step).
+//
+// That design ran at 4.7x its bound on the tiles, with a barrier for every
+// pair of channels (34 for star's 67), one pair of loads in flight, a walk
+// of the source list per channel and pair to find its planes, a 4-byte
+// shared load per tap and pair, and 336-column tiles that leave the last
+// column of 32-wide blocks half empty.
+//
+// Design (bench/warp_tile_steps.cu times the alternatives): a block of 256
+// threads owns a 16 x 16 pixel tile, one pixel a thread (336 = 21 x 16 and
+// 672 = 42 x 16 columns fill every block); each thread computes its pixel's
+// gate, taps and fs^2 weights once (PixelTaps, as the kernel above).  The
+// block stages the bounding box of its patches (at most 512 source pixels)
+// G channels at a time, channels-last: one 16-byte box element holds G = 8
+// bf16 (4 float32) channels, so one barrier serves G channels and one
+// 16-byte shared load per tap feeds G float32 accumulators.  Sources are
+// NCHW, so the staging goes through registers: each thread fetches G
+// channels of its two box elements with coalesced 2- or 4-byte loads, the
+// next group's in flight while this group's taps are summed, into a ring of
+// two stages (cp.async copies bytes as they lie and cannot interleave
+// channels).  A bf16 value is fetched into a register of its own and packed
+// only as the stage is written: packed as it lands, every load waited for
+// the one before it, and staging cost more than the sums.  The planes of
+// each group are resolved once per block by 2G threads into shared memory,
+// a group ahead.  Tap sums run in the (j, i) order with fmaf, so this
+// kernel gives the bits of the kernel above.  Blocks whose patches spread
+// wider, and launches of at most 4 channels, gather from global memory as
+// above.
+template <typename T, int G>
+struct alignas(G * sizeof(T)) ChannelGroup {
+  T v[G];
+};
+
+// A box element's shared loads and stores: 16 bytes at a time (8 for a
+// smaller element).
+template <typename Group>
+using GroupWord = std::conditional_t<sizeof(Group) % 16 == 0, uint4, uint2>;
+
+template <typename Group>
+__device__ __forceinline__ Group load_group(const Group* p) {
+  constexpr int n = sizeof(Group) / sizeof(GroupWord<Group>);
+  GroupWord<Group> w[n];
+#pragma unroll
+  for (int k = 0; k < n; ++k) w[k] = reinterpret_cast<const GroupWord<Group>*>(p)[k];
+  return *reinterpret_cast<const Group*>(w);
+}
+
+template <typename Group>
+__device__ __forceinline__ void store_group(Group* p, const Group& g) {
+  constexpr int n = sizeof(Group) / sizeof(GroupWord<Group>);
+#pragma unroll
+  for (int k = 0; k < n; ++k)
+    reinterpret_cast<GroupWord<Group>*>(p)[k] = reinterpret_cast<const GroupWord<Group>*>(&g)[k];
+}
+
+constexpr int kTileThreads = 256;
+
+// A configuration of the tile kernel: BX x (256 / BX) pixel blocks, G
+// channels a stage, at least kMinBlocks blocks an SM, kLoads box elements a
+// thread (a box of at most 256 kLoads source pixels); for 2-byte types,
+// kWideFetch keeps each fetched value in a register of its own until the
+// stage is written (packed as they are fetched, each load waits for the one
+// before it to land beside it); kDiag 0 computes the function, 1 stages and
+// stores but sums no tap, 2 sums the taps of whatever the stage holds and
+// fetches nothing (bench/warp_tile_steps.cu times them all).
+template <int BX, int G, int MinBlocks, int Loads, bool WideFetch = true, int Diag = 0>
+struct TileConfig {
+  static constexpr int kBX = BX, kG = G, kMinBlocks = MinBlocks, kLoads = Loads;
+  static constexpr bool kWideFetch = WideFetch;
+  static constexpr int kDiag = Diag;
+};
+
+// 16 x 16 blocks, 16-byte box elements (8 bf16 or 4 float32 channels), two a
+// thread (boxes of up to 512 source pixels: star's +-20 px flows need about
+// 21 x 21), at least 3 blocks an SM (80 registers a thread)
+template <typename T>
+using TileAsBuilt = TileConfig<16, 16 / static_cast<int>(sizeof(T)), 3, 2>;
+
+template <typename T, int FS, bool BOX, typename Cfg>
+__global__ void __launch_bounds__(kTileThreads, Cfg::kMinBlocks)
+filter_interp_warp_tile_kernel(WarpSources s, const float* __restrict__ flow,
+                               const T* __restrict__ filt, int H, int W, TileGeom g) {
+  constexpr int BX = Cfg::kBX, G = Cfg::kG, kLoads = Cfg::kLoads;
+  constexpr int BY = kTileThreads / BX;
+  constexpr int kWarps = kTileThreads / 32;
+  constexpr int kBoxMax = kLoads * kTileThreads;
+  using Group = ChannelGroup<T, G>;
+  __shared__ Group box_s[BOX ? 2 : 1][BOX ? kBoxMax : 1];
+  __shared__ const T* next_s[2][G];  // a group's source planes, resolved a group ahead
+  __shared__ const T* src_s[2][G];   // the group's source and output planes
+  __shared__ T* out_s[2][G];
+  __shared__ int red_s[4][kWarps];
+  const int tid = threadIdx.x;
+  const int x = blockIdx.x * BX + tid % BX;
+  const int y = blockIdx.y * BY + tid / BX;
+  const int b = blockIdx.z;
+  const bool inside = x < W && y < H;
+  const int plane = H * W;
+  const int pix = y * W + x;
+  const int sW = W + 2 * g.halo;
+  const int src_plane = (H + 2 * g.halo_h) * sW;
+  const int centre = (y + g.halo_h) * sW + x + g.halo;
+
+  PixelTaps<T, FS, true> p;
+  p.valid = false;
+  if (inside) p.init(flow, filt, b, x, y, H, W, g);
+
+  int total = 0;
+  for (int k = 0; k < s.n; ++k) total += s.channels[k];
+  bool use_box = false;
+  int lo_x = 0, lo_y = 0, bw = 0, bh = 0;
+  if constexpr (BOX) {
+    // the block's source box: the bounding box of its valid pixels' patches
+    int hi_x = INT_MIN, hi_y = INT_MIN;
+    lo_x = lo_y = INT_MAX;
+    if (p.valid) {
+      lo_x = p.col[0];
+      hi_x = p.col[FS - 1];
+      lo_y = p.row[0];
+      hi_y = p.row[FS - 1];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      lo_x = min(lo_x, __shfl_xor_sync(0xffffffffu, lo_x, o));
+      hi_x = max(hi_x, __shfl_xor_sync(0xffffffffu, hi_x, o));
+      lo_y = min(lo_y, __shfl_xor_sync(0xffffffffu, lo_y, o));
+      hi_y = max(hi_y, __shfl_xor_sync(0xffffffffu, hi_y, o));
+    }
+    if (tid % 32 == 0) {
+      red_s[0][tid / 32] = lo_x;
+      red_s[1][tid / 32] = hi_x;
+      red_s[2][tid / 32] = lo_y;
+      red_s[3][tid / 32] = hi_y;
+    }
+    if (tid < G && tid < total) {  // the first group's source planes
+      T* unused;
+      channel_planes<T>(s, tid, b, src_plane, plane, &next_s[0][tid], &unused);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      lo_x = min(lo_x, red_s[0][w]);
+      hi_x = max(hi_x, red_s[1][w]);
+      lo_y = min(lo_y, red_s[2][w]);
+      hi_y = max(hi_y, red_s[3][w]);
+    }
+    bw = hi_x - lo_x + 1;
+    bh = hi_y - lo_y + 1;
+    use_box = hi_x >= lo_x && bw <= kBoxMax && bh <= kBoxMax && bw * bh <= kBoxMax;  // uniform
+  }
+
+  if (!use_box) {
+    // patches spread too far (or none valid): gather from global memory
+    if (!inside) return;
+    for (int k = 0; k < s.n; ++k) {
+      const int C = s.channels[k];
+      const T* src = static_cast<const T*>(s.src[k]) + static_cast<int64_t>(b) * C * src_plane;
+      T* out = static_cast<T*>(s.out[k]) + static_cast<int64_t>(b) * C * plane + pix;
+      for (int c = 0; c < C; ++c) {
+        const T* sp = src + static_cast<int64_t>(c) * src_plane;
+        if (!p.valid) {
+          out[static_cast<int64_t>(c) * plane] = sp[centre];
+          continue;
+        }
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < FS; ++j) {
+#pragma unroll
+          for (int i = 0; i < FS; ++i) acc = fmaf(p.wt[j * FS + i], to_f32(sp[p.row[j] * sW + p.col[i]]), acc);
+        }
+        out[static_cast<int64_t>(c) * plane] = from_f32<T>(acc);
+      }
+    }
+    return;
+  }
+
+  // box path: G channels a stage, channels-last
+  int ld_off[kLoads];  // this thread's box elements: offset in the plane, -1 if none
+#pragma unroll
+  for (int r = 0; r < kLoads; ++r) {
+    const int i = tid + r * kTileThreads;
+    const int br = i / bw;
+    ld_off[r] = i < bw * bh ? (lo_y + br) * sW + lo_x + (i - br * bw) : -1;
+  }
+  int row_off[FS], col_off[FS];  // the taps' rows and columns in the box
+  if (p.valid) {
+#pragma unroll
+    for (int j = 0; j < FS; ++j) row_off[j] = (p.row[j] - lo_y) * bw;
+#pragma unroll
+    for (int i = 0; i < FS; ++i) col_off[i] = p.col[i] - lo_x;
+  }
+
+  // the fetched values: packed as staged, or (kWideFetch, 2-byte types) one
+  // a register, so that no load waits for another to be packed beside it
+  constexpr bool kWide = Cfg::kWideFetch && sizeof(T) == 2;
+  Group v[kLoads];
+  uint32_t raw[kWide ? kLoads : 1][kWide ? G : 1];
+  auto fetch_group = [&](int slot, int f0) {
+    if constexpr (Cfg::kDiag == 2) return;
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      if (f0 + u < total) {
+        const T* sp = next_s[slot][u];
+#pragma unroll
+        for (int r = 0; r < kLoads; ++r) {
+          if (ld_off[r] >= 0) {
+            if constexpr (kWide) {
+              raw[r][u] = reinterpret_cast<const uint16_t*>(sp)[ld_off[r]];
+            } else {
+              v[r].v[u] = sp[ld_off[r]];
+            }
+          }
+        }
+      }
+    }
+  };
+  fetch_group(0, 0);
+  for (int f0 = 0, it = 0; f0 < total; f0 += G, ++it) {
+    const int cur = it & 1;
+    Group* buf = box_s[cur];
+    if constexpr (Cfg::kDiag != 2) {
+#pragma unroll
+      for (int r = 0; r < kLoads; ++r) {
+        if constexpr (kWide) {
+#pragma unroll
+          for (int w = 0; w < G / 2; ++w) {
+            reinterpret_cast<uint32_t*>(&v[r])[w] = raw[r][2 * w] | (raw[r][2 * w + 1] << 16);
+          }
+        }
+        if (ld_off[r] >= 0) store_group(buf + tid + r * kTileThreads, v[r]);
+      }
+    }
+    // the next group's source planes and this group's planes, read after the barrier
+    if (tid < G) {
+      if (f0 + G + tid < total) {
+        T* unused;
+        channel_planes<T>(s, f0 + G + tid, b, src_plane, plane, &next_s[cur ^ 1][tid], &unused);
+      }
+    } else if (tid < 2 * G) {
+      const int u = tid - G;
+      if (f0 + u < total) channel_planes<T>(s, f0 + u, b, src_plane, plane, &src_s[cur][u], &out_s[cur][u]);
+    }
+    __syncthreads();
+    if (f0 + G < total) fetch_group(cur ^ 1, f0 + G);
+    if (!inside) continue;
+    float acc[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u) acc[u] = 0.f;
+    if (p.valid && Cfg::kDiag != 1) {
+#pragma unroll
+      for (int j = 0; j < FS; ++j) {
+#pragma unroll
+        for (int i = 0; i < FS; ++i) {
+          const Group q = load_group(buf + row_off[j] + col_off[i]);
+          const float w = p.wt[j * FS + i];
+#pragma unroll
+          for (int u = 0; u < G; ++u) acc[u] = fmaf(w, to_f32(q.v[u]), acc[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      if (f0 + u < total) {
+        out_s[cur][u][pix] = p.valid ? from_f32<T>(acc[u]) : src_s[cur][u][centre];
+      }
+    }
+  }
+}
+
+// One configuration of the tile kernel (the steps file launches others).
+template <typename T, typename Cfg>
+cudaError_t launch_warp_tile_as(const WarpSources& s, const float* flow, const T* filt, int B,
+                                int H, int W, int fs, const TileGeom& g, cudaStream_t stream) {
+  if (static_cast<int64_t>(H + 2 * g.halo_h) * (W + 2 * g.halo) >= (int64_t{1} << 31))
+    return cudaErrorInvalidValue;
+  const dim3 grid(ceil_div(W, Cfg::kBX), ceil_div(H, kTileThreads / Cfg::kBX), B);
+  int total = 0;
+  for (int k = 0; k < s.n; ++k) total += s.channels[k];
+  const bool box = total > kGatherChannels;
+  if (fs == 4) {
+    if (box) filter_interp_warp_tile_kernel<T, 4, true, Cfg><<<grid, kTileThreads, 0, stream>>>(s, flow, filt, H, W, g);
+    else filter_interp_warp_tile_kernel<T, 4, false, Cfg><<<grid, kTileThreads, 0, stream>>>(s, flow, filt, H, W, g);
+  } else if (fs == 2) {
+    if (box) filter_interp_warp_tile_kernel<T, 2, true, Cfg><<<grid, kTileThreads, 0, stream>>>(s, flow, filt, H, W, g);
+    else filter_interp_warp_tile_kernel<T, 2, false, Cfg><<<grid, kTileThreads, 0, stream>>>(s, flow, filt, H, W, g);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_warp_tile(const WarpSources& s, const float* flow, const T* filt, int B, int H,
+                             int W, int fs, const TileGeom& g, cudaStream_t stream) {
+  return launch_warp_tile_as<T, TileAsBuilt<T>>(s, flow, filt, B, H, W, fs, g, stream);
 }
 
 template <bool TILE>
@@ -354,12 +656,14 @@ cudaError_t warp_entry(const WarpSources* sources, const void* flow, const void*
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* fl = static_cast<const float*>(flow);
   if (dtype == kFloat32) {
-    return launch_warp<float, TILE>(*sources, fl, static_cast<const float*>(filt), B, H, W, fs, g,
-                                    st);
+    const auto* fi = static_cast<const float*>(filt);
+    if constexpr (TILE) return launch_warp_tile<float>(*sources, fl, fi, B, H, W, fs, g, st);
+    else return launch_warp<float>(*sources, fl, fi, B, H, W, fs, g, st);
   }
   if (dtype == kBFloat16) {
-    return launch_warp<__nv_bfloat16, TILE>(*sources, fl, static_cast<const __nv_bfloat16*>(filt),
-                                            B, H, W, fs, g, st);
+    const auto* fi = static_cast<const __nv_bfloat16*>(filt);
+    if constexpr (TILE) return launch_warp_tile<__nv_bfloat16>(*sources, fl, fi, B, H, W, fs, g, st);
+    else return launch_warp<__nv_bfloat16>(*sources, fl, fi, B, H, W, fs, g, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -39,9 +39,11 @@ What bounds it on the H100: memory (read the flow, write the result).  Its
 design: float ``atomicAdd`` into S, which stays in L2; one gather pass per
 target pixel for both folds and the divide, which with the fill also packs
 "count > 0" into bit masks by rows and by columns, each with one summary bit
-per non-empty word (``Masks``); the fill finds each nearest value with bit
-scans of its word and, past it, of the summary word, so a search reads
-O(1 + L / 1024) words of a line of L pixels however long the run of holes.
+per non-empty word (``Masks``); the fill takes four pixels a thread (vector
+loads of the average, vector stores, a row's mask word read once per 32
+pixels) and finds each nearest value with bit scans of its word and, past
+it, of the summary word, so a search reads O(1 + L / 1024) words of a line
+of L pixels however long the run of holes.
 The TPU scatter's band plans turned the scatter into shifted vector adds, and
 the TPU fill carried the up search from band to band in ``carry_ref``, which
 needs grid steps that run in order; CUDA blocks do not.  Float sums land in a
@@ -814,11 +816,6 @@ def payload_tile_sums_reference(flow, payload, origins, samples, H, W):
         return t.reshape(*t.shape[:-3], T * h, w)
 
     return fold(scatter_reference(by_sample(payload.float()), by_sample(lin), (H, W)))
-
-
-# the scatter of a finished payload on tile origins, plain, under the name
-# tests/test_torch_partition_ops.py calls it by
-payload_tile_sums = payload_tile_sums_reference
 
 
 def payload_tile_reference(op, flow, ins, threshold, origins, samples, H, W):

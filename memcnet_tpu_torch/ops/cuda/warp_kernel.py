@@ -23,16 +23,21 @@ Landing coordinates are float32 whatever the activation type: the JAX bf16
 path builds its pixel grid in bf16 (``ops/warp.py::_base_coords``), which
 cannot represent most x above 256.
 
-The tile entry (``warp_tile``, ``memc_filter_interp_warp_tile``: the same
-kernel with its TILE flag) serves the tiled warp of ``parallel/tiling.py``:
-the JAX package's ``parallel/tiling.py::_local_filter_interp``, which runs no
-Pallas kernel.  Each sample is one tile: its sources extended by a halo,
-its flow and filter and its output at the tile's size, its origin in the
-whole frame per sample.  The flow is clamped to the halo budget, the gate
-reads whole-frame coordinates, and the taps are clamped to the extended
-tile.  It bounds like K1 over the extended sources: at star's shape in four
-tiles of 336 columns with a 64-column halo it reads the sources 464/336 =
-1.38 times.  Counted by ``tile_counter``.
+The tile entry (``warp_tile``, ``memc_filter_interp_warp_tile``) serves the
+tiled warp of ``parallel/tiling.py``: the JAX package's ``parallel/
+tiling.py::_local_filter_interp``, which runs no Pallas kernel.  Each sample
+is one tile: its sources extended by a halo, its flow and filter and its
+output at the tile's size, its origin in the whole frame per sample.  The
+flow is clamped to the halo budget, the gate reads whole-frame coordinates,
+and the taps are clamped to the extended tile.  It bounds like K1 over the
+extended sources: at star's shape in four tiles of 336 columns with a
+64-column halo it reads the sources 464/336 = 1.38 times.  Its kernel,
+``filter_interp_warp_tile_kernel``, is K1's design taken further for the
+card: 16 x 16 pixel blocks, which fill 336- and 672-column tiles, and the
+source box staged channels-last, 8 bf16 (4 float32) channels to a 16-byte
+element, so that one barrier serves 8 channels and one shared load a tap
+feeds 8 sums; it gives the bits of K1's kernel on the same tile.  Counted by
+``tile_counter``.
 """
 
 import ctypes

@@ -48,7 +48,6 @@ backward read their planes whole (``Partition.gather``).
 import torch
 
 from memcnet_tpu_torch.ops.cuda import _lib, project_kernel
-from memcnet_tpu_torch.ops.cuda.project_kernel import depth_payload
 from memcnet_tpu_torch.ops.frame import WholeFrame, frame_of
 
 
@@ -141,7 +140,8 @@ class _DepthCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, flow, depth):
-        _, avg, cnt = project_kernel.payload_average(flow, depth_payload(flow, depth))
+        payload = project_kernel.depth_payload(flow, depth)
+        _, avg, cnt = project_kernel.payload_average(flow, payload)
         ctx.save_for_backward(flow, depth, avg, cnt)
         ctx.mark_non_differentiable(cnt)
         return avg, cnt
@@ -236,28 +236,9 @@ def depth_flow_project(flow, depth, *, fillhole=False):
 # -- N8: the brightness-gated projection -------------------------------------------
 
 
-def brightness_error(flow, frame1, frame2, fr=None):
-    """err (B, H, W) float32 (``project_kernel.brightness_error``) on the
-    rows of ``fr`` (whole frames by default): frame2 whole, frame1 and err
-    on the rows."""
-    fr = fr or WholeFrame(flow)
-    return project_kernel.brightness_error(flow, frame1, fr.whole(frame2),
-                                           fr.origins(flow.shape[0], flow.device))
-
-
-def weighted_payload(flow, frame1, frame2, threshold, fr=None):
-    """(-fx, -fy, err, 1) in float32 (B, 4, H, W), zero where the gate
-    ``valid landing & err <= threshold`` (threshold compared in float32)
-    fails (``project_kernel.gated_payload``); on the rows of ``fr``, whole
-    frames by default."""
-    fr = fr or WholeFrame(flow)
-    return project_kernel.gated_payload(flow, frame1, fr.whole(frame2), threshold,
-                                        fr.origins(flow.shape[0], flow.device))
-
-
 def weighted_reference(flow, frame1, frame2, *, threshold=20.0 / 255.0, fillhole=False):
     """The plain composition of ``weighted_flow_project``, on any device."""
-    payload = weighted_payload(flow, frame1, frame2, threshold)
+    payload = project_kernel.gated_payload(flow, frame1, frame2, threshold)
     _, avg, cnt = project_kernel.payload_average(flow, payload)
     out = avg[:, :2]
     if fillhole:
@@ -303,9 +284,9 @@ class _WeightedProjectFunction(torch.autograd.Function):
 
 def weighted_flow_project(flow, frame1, frame2, *, threshold=20.0 / 255.0, fillhole=False):
     """Brightness-constancy-gated flow projection (N8): pixels whose landing
-    is in the frame and whose ``brightness_error`` is <= threshold scatter
-    -f with a count of 1, and err into a weight plane; both are divided by
-    the count.  The fill (no down-scan) fills the flow only.
+    is in the frame and whose ``project_kernel.brightness_error`` is <=
+    threshold scatter -f with a count of 1, and err into a weight plane; both
+    are divided by the count.  The fill (no down-scan) fills the flow only.
 
     Args:
       flow: (B, 2, H, W); frame1, frame2: (B, 3, H, W).

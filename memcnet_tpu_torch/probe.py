@@ -125,6 +125,30 @@ def synthetic_flow(B, device, seed=0, size=None):
     return torch.from_numpy(np.stack(flows).astype(np.float32)).to(device)
 
 
+def tile_flows(device):
+    """The (2, 2, H, W) float32 flows the tile entries are held and timed
+    on, within a halo budget of 64: "smooth" (+-6 px), "pm20" (+-20 px with
+    noise and a band of columns landing left of the frame) and "invalid"
+    (every pixel landing below the frame: fy = 3 H; where H is tiled the
+    vertical clamp brings most of them back)."""
+    ys = torch.arange(H, device=device, dtype=torch.float32).view(H, 1)
+    xs = torch.arange(W, device=device, dtype=torch.float32).view(1, W)
+    gen = torch.Generator(device=device).manual_seed(8)
+    out = {}
+    for name, amp in (("smooth", 6.0), ("pm20", 20.0)):
+        f = torch.stack([amp * torch.sin(2 * np.pi * ys / H) * torch.cos(2 * np.pi * xs / W),
+                         0.6 * amp * torch.cos(2 * np.pi * xs / W).expand(H, W)])
+        f = f.expand(2, 2, H, W).clone()
+        if name == "pm20":
+            f += 0.5 * torch.randn(f.shape, generator=gen, device=device)
+            f[:, 0, :, :24] = -40.0
+        out[name] = f
+    inv = torch.zeros((2, 2, H, W), device=device)
+    inv[:, 1] = 3.0 * H
+    out["invalid"] = inv
+    return out
+
+
 def level_flow(B, level, device):
     """The coarse flow (B, 2, h, w) that SPyNet's level ``level`` of the 720p
     pyramid (0 = 768x1344, 5 = 24x42) upsamples: ``synthetic_flow`` at every

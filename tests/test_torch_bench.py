@@ -78,3 +78,28 @@ def test_probe_flow_at_the_ve_window_keeps_its_blocks():
     smooth = flow[0, 0][flow[0, 0] != 2000.0]
     assert 15.0 < float(smooth.abs().max()) <= 20.0
     assert probe.synthetic_flow(1, "cpu").shape == (1, 2, probe.H, probe.W)
+
+
+def test_kernel_ab_k1_tile_and_fill_rows_take_phase_8s_inputs(monkeypatch, capsys):
+    """``--rows K1tile,fill`` is accepted (and refused without a card, an
+    unknown group refused outright); the K1 tile rows take phase 8's +-20 px
+    flow, halo and grids, and time every design step that
+    bench/warp_tile_steps.cu builds."""
+    import os
+    import re
+
+    import pytest
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["kernel_ab.py", "--rows", "K1tile,fill"])
+    assert kernel_ab.main() == 1
+    assert "CUDA" in capsys.readouterr().err
+    monkeypatch.setattr("sys.argv", ["kernel_ab.py", "--rows", "K1tile,K1_tile"])
+    with pytest.raises(SystemExit):
+        kernel_ab.main()
+    assert torch.equal(kernel_ab.PROBE.tile_flows("cpu")["pm20"], probe.tile_flows("cpu")["pm20"])
+    assert (kernel_ab.TILE_HALO, kernel_ab.TILE_GRIDS) == (chip_smoke.TILE_HALO,
+                                                            chip_smoke.TILE_GRIDS)
+    with open(os.path.join(kernel_ab.HERE, "warp_tile_steps.cu")) as f:
+        cases = {int(c) for c in re.findall(r"case (\d+):", f.read())}
+    assert cases == {step for step, _ in kernel_ab.WARP_TILE_STEPS}

@@ -522,8 +522,8 @@ def test_gate_error_on_the_card_equals_the_cpu_bit_for_bit(rng, dev):
     B, H, W = 2, 64, 96
     flow = flow_field(rng, B, H, W, 6.0)
     f1, f2 = (torch.from_numpy(rng.rand(B, 3, H, W).astype(np.float32)) for _ in range(2))
-    got = TP.brightness_error(flow.to(dev), f1.to(dev), f2.to(dev)).cpu()
-    assert torch.equal(got, TP.brightness_error(flow, f1, f2))
+    got = P.brightness_error(flow.to(dev), f1.to(dev), f2.to(dev)).cpu()
+    assert torch.equal(got, P.brightness_error(flow, f1, f2))
 
 
 def test_op_library_on_the_card_matches_cpu(rng, dev):
@@ -1043,6 +1043,91 @@ def test_tiled_ops_under_spatial_tiling_launch_the_tile_entries(rng, dev):
                                  "filter_interp_warp_tile": 2, "base_scatter_tile": 2,
                                  "fill_holes_carry": 1, "level_input_tile": 0,
                                  "base_scatter_payload_tile": 0}
+
+
+# -- K1's tile entry kernel and K3's fill, 4 pixels a thread -----------------------------
+
+TILE_SPLITS = {3: (3,), 5: (3, 2), 8: (3, 5), 9: (1, 8), 67: (3, 64)}  # channels of each source
+
+
+def tile_warp_case(rng, dev, dtype, channels, fs, Wl, halo_h, kind, n=3, Hl=24, halo=16):
+    """n tiles of Hl x Wl side by side in a frame of Hl x (n Wl) (with halo_h,
+    stacked down a frame of (n Hl) x Wl): halo-extended sources of the given
+    channels and the flow ``kind``: "smooth" (the blocks stage their box),
+    with two columns of the first tile landing left of the frame; "budget"
+    -- each tile near one flow, past the clamp budget +-(halo - fs), at it
+    and at minus it (vertically past halo_h's budget too); "wide" -- uniform
+    within +-1.5 halo, so the blocks' patches spread past the box and
+    gather."""
+    ext = [torch.from_numpy(rng.randn(n, c, Hl + 2 * halo_h, Wl + 2 * halo).astype(np.float32))
+           .to(dev, dtype) for c in TILE_SPLITS[channels]]
+    if kind == "wide":
+        f = ((rng.rand(n, 2, Hl, Wl) - 0.5) * 3.0 * halo).astype(np.float32)
+    elif kind == "smooth":
+        f = flow_field(rng, n, Hl, Wl, 3.0).numpy()
+        f[0, 0, :, :2] = -2.5 * Wl
+    else:
+        f = (rng.randn(n, 2, Hl, Wl) * 0.5).astype(np.float32)
+        budget = halo - fs
+        for k, fx in enumerate((budget + 7.5, budget, -budget)):
+            f[k, 0] += fx
+        if halo_h:
+            f[1, 1] -= halo_h - fs + 3.0
+    flow = torch.from_numpy(f).to(dev)
+    filt = torch.from_numpy(rng.rand(n, fs * fs, Hl, Wl).astype(np.float32)).to(dev, dtype)
+    if halo_h:
+        org = torch.tensor([[0, k * Hl] for k in range(n)], dtype=torch.int32, device=dev)
+        geom = (halo, halo_h, fs, Wl, n * Hl)
+    else:
+        org = torch.tensor([[k * Wl, 0] for k in range(n)], dtype=torch.int32, device=dev)
+        geom = (halo, 0, fs, n * Wl, Hl)
+    return ext, flow, filt, org, geom
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels", [3, 5, 8, 9, 67])
+@pytest.mark.parametrize("fs", [4, 2])
+def test_tile_warp_kernel_channels_widths_and_clamps(rng, dev, dtype, channels, fs):
+    """K1's tile entry against its plain version: 3 channels (the gather
+    path), 5, 8 and 9 (one stage, a full stage, a stage and one more channel
+    in bf16) and 67 (star's frame and context: a partial last stage) in
+    split sources; tiles 21 (less than a block), 336 and 672 columns wide;
+    halo_h 0 and 12; smooth flows, flows at and past the clamp budget, and
+    flows spread wider than the staged box."""
+    for Wl in (21, 336, 672):
+        for halo_h in (0, 12):
+            for kind in ("smooth", "budget", "wide"):
+                ext, flow, filt, org, geom = tile_warp_case(rng, dev, dtype, channels, fs, Wl,
+                                                            halo_h, kind)
+                got = warp_kernel.launch_tile(ext, flow, filt, org, *geom)
+                ref = warp_kernel.tile_reference(ext, flow, filt, org, *geom)
+                assert len(got) == len(ext)
+                for g, r in zip(got, ref):
+                    close(g, r)
+
+
+FILL_MASKS = {"sparse": 0.1, "dense": 0.6, "all holes": 0.0, "no hole": 1.0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("down", [False, True])
+@pytest.mark.parametrize("H,W", [(45, 97), (37, 1101), (1100, 42), (33, 1344)])
+def test_fill_is_the_plain_versions_bits(rng, dev, dtype, down, H, W):
+    """K3 (4 pixels a thread) equals fill_stage_reference bit for bit, with
+    and without the down search: widths that are not multiples of 4 (97,
+    1101) or 32 (42), and 1344 (vector loads), on sparse, dense, all-hole and
+    no-hole masks, and on an average one element off 16 bytes."""
+    B = 2
+    for name, density in FILL_MASKS.items():
+        cnt = torch.from_numpy((rng.rand(B, H, W) < density).astype(np.float32)).to(dev)
+        avg = torch.from_numpy(rng.randn(B, 2, H, W).astype(np.float32)).to(dev)
+        avg = avg * (cnt > 0)[:, None]
+        masks = P.pack_masks(cnt > 0)
+        want = P.fill_stage_reference(avg, masks, dtype, down=down)
+        assert torch.equal(P.launch_fill(avg, masks, dtype, down=down), want), name
+    # an average that starts one float past a 16-byte boundary: pixel by pixel
+    off = torch.empty(B * 2 * H * W + 1, device=dev)[1:].view(B, 2, H, W).copy_(avg)
+    assert torch.equal(P.launch_fill(off, masks, dtype, down=down), want)
 
 
 # -- partitioned frames (parallel/partition.py): every layer on its tile -------------------

@@ -15,7 +15,6 @@ import torch
 
 import memcnet_tpu.ops as J
 
-from memcnet_tpu_torch.ops import projection as TP
 from memcnet_tpu_torch.ops.cuda import project_kernel as P
 from memcnet_tpu_torch.ops.frame import TileFrame, WholeFrame
 from memcnet_tpu_torch.parallel import (active_partition, make_mesh, make_mesh_2d, shard_frames,
@@ -92,7 +91,7 @@ def test_fused_payloads_whole_equal_the_compositions_and_jax(rng):
     result matches the JAX ops."""
     B, H, W = 2, 12, 21
     flow, f1, f2, depth = (t(a) for a in gated_inputs(rng, B, H, W))
-    err = TP.brightness_error(flow, f1, f2)
+    err = P.brightness_error(flow, f1, f2)
     at = float(err[1, 5, 7])
     below = float(np.nextafter(np.float32(at), np.float32(0)))
     for threshold, gated in ((at, 1.0), (below, 0.0)):
@@ -134,7 +133,7 @@ def test_fused_payloads_on_tiles_equal_the_compositions_and_jax(rng, grid, frame
         n = ft.shape[0]
         org, S = p.origins((H, W), n, ft.device), p.samples(n)
         assert len({int(w) for w in org[:, 3]}) > 1  # uneven owned widths
-        cases = {"depth": ((dt,), TP.depth_payload(ft, dt)),
+        cases = {"depth": ((dt,), P.depth_payload(ft, dt)),
                  "gated": ((t1, p.gather(t2, (H, W))),
                            parent_weighted_payload(ft, t1, t2, 0.1, fr))}
         for op, (ins, payload) in cases.items():

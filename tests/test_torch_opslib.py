@@ -165,7 +165,7 @@ def test_depth_sums_and_hand_backward_match_jax(rng):
     depth = depth.astype(np.float32)
     g = rng.randn(B, 2, H, W).astype(np.float32)
     javg, jcnt = JP._depth_project_core(jnp.asarray(flow), jnp.asarray(depth))
-    _, tavg, tcnt = P.payload_average(t(flow), TP.depth_payload(t(flow), t(depth)))
+    _, tavg, tcnt = P.payload_average(t(flow), P.depth_payload(t(flow), t(depth)))
     np.testing.assert_array_equal(tcnt.numpy(), np.asarray(jcnt))
     assert (np.asarray(jcnt) == 0).any() and (np.asarray(jcnt) > 0).any()
     close(tavg, javg)
@@ -213,9 +213,9 @@ def test_weighted_gate_and_counts_exact(rng):
     jerr = diff[:, 0] / 3.0 + diff[:, 1] / 3.0 + diff[:, 2] / 3.0 + 1e-8
     valid = JP._landing_cells(f)[0]
     jgate = np.asarray(valid & (jerr <= threshold))
-    terr = TP.brightness_error(t(flow), t(frame1), t(frame2))
+    terr = P.brightness_error(t(flow), t(frame1), t(frame2))
     np.testing.assert_array_equal(terr.numpy(), np.asarray(jerr))
-    payload = TP.weighted_payload(t(flow), t(frame1), t(frame2), threshold)
+    payload = P.gated_payload(t(flow), t(frame1), t(frame2), threshold)
     np.testing.assert_array_equal(payload[:, 3].numpy() > 0, jgate)
     assert 0 < jgate.mean() < np.asarray(valid).mean()
     vals, ixL, ixR, iyT, iyB = JP._landing_cells(f)
@@ -375,7 +375,7 @@ def test_bf16_landing_coordinates_are_float32(rng):
     assert torch.equal(x2, TM._flow_landing(flow, 1.0)[0])
     assert float(x2[0, 0, 513]) == 513.25
     frame1, frame2 = (t(rng.rand(B, 3, H, W).astype(np.float32)) for _ in range(2))
-    err32 = TP.brightness_error(flow, frame1, frame2)
-    assert torch.equal(TP.brightness_error(flow.bfloat16(), frame1, frame2), err32)
+    err32 = P.brightness_error(flow, frame1, frame2)
+    assert torch.equal(P.brightness_error(flow.bfloat16(), frame1, frame2), err32)
     xs = jnp.arange(W, dtype=jnp.bfloat16)
     assert float(xs[513] + 0.25) != 513.25  # the JAX bf16 grid

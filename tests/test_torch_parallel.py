@@ -110,10 +110,13 @@ def test_zero1_partition_matches_jax_on_star_parameters(n):
 # -- the tiled warp ------------------------------------------------------------
 
 
-@pytest.mark.parametrize("halo", [16, 32])
-def test_tiled_warp_matches_jax_and_global(rng, halo):
+@pytest.mark.parametrize("halo, W", [pytest.param(16, 256, id="16"), pytest.param(32, 256, id="32"),
+                                      pytest.param(16, 336, id="16-tiles-of-84")])
+def test_tiled_warp_matches_jax_and_global(rng, halo, W):
+    """Tiles of 64 columns, and of 84 (a multiple of neither 16 nor 32, the
+    tile kernel's block widths)."""
     mesh, jm = mesh_1d()
-    image, flow, filt = warp_inputs(rng, 2, 3, 32, 256, halo)
+    image, flow, filt = warp_inputs(rng, 2, 3, 32, W, halo)
     want = np.asarray(jitted(lambda i, f, k: jtiling.tiled_filter_interp_warp(
         jm, i, f, k, halo=halo), image, flow, filt))
     got = tiling.tiled_filter_interp_warp(mesh, t(image), t(flow), t(filt), halo=halo)

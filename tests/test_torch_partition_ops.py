@@ -231,8 +231,8 @@ def test_counts_and_depth_sums_exact():
     for grid in GRIDS:
         factory, axis_h, (H, W) = GRIDS[grid]
         x = {k: torch.from_numpy(v) for k, v in inputs(H, W, 20.0).items()}
-        payloads = {3: T.projection.depth_payload(x["flow"], x["depth"]),
-                    4: T.projection.weighted_payload(x["flow"], x["frame1"], x["frame2"], 0.2)}
+        payloads = {3: P.depth_payload(x["flow"], x["depth"]),
+                    4: P.gated_payload(x["flow"], x["frame1"], x["frame2"], 0.2)}
         mesh = factory()
         for planes, payload in payloads.items():
             _, _, den = P.payload_average(x["flow"], payload)
@@ -240,8 +240,8 @@ def test_counts_and_depth_sums_exact():
                 f, pl = shard_frames(mesh, x["flow"], payload)
                 p = active_partition()
                 n = f.shape[0]
-                sums = P.payload_tile_sums(f, pl, p.origins((H, W), n, f.device), p.samples(n),
-                                           H, W)
+                sums = P.payload_tile_sums_reference(f, pl, p.origins((H, W), n, f.device),
+                                                     p.samples(n), H, W)
                 assert torch.equal(sums[:, -1], den), (grid, planes)  # the whole frame's
                 got = gather_frames(mesh, p.reduce(sums)[:, -1:])
             assert torch.equal(got[:, 0], den), (grid, planes)
