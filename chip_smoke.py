@@ -12,7 +12,8 @@ Phases (any failed check exits non-zero and prints no result line):
      concat) at each of the six levels, exact in its fst and upsampled-flow
      channels, with its device operations (1) beside those of the separate
      ops it replaces, and K4 at each of the five convs of every SPyNet level,
-     768x1344 down to 24x42 (MEMC_Net_s), and K1 and K4 at MEMC_Net_VE's
+     768x1344 down to 24x42 (MEMC_Net_s; float32 K4 beside two bounds, three
+     TF32 passes at 495 TFLOP/s and the CUDA cores' 67), and K1 and K4 at MEMC_Net_VE's
      320x512 window (K1 over six neighbours and their contexts on the smooth
      flow and on +-20 px noise, K4 over seven frames); K5's tile entry (the
      level input on partitioned frames) on the tiles of three levels of
@@ -45,6 +46,12 @@ Phases (any failed check exits non-zero and prints no result line):
      served frame split into host stages (pad, copy in, forward, copy out); for
      MEMC_Net_s also SPyNet's forward alone (B = 2) with its device
      operations, and the same with the separate-op level input it replaced;
+     then MEMC_Net_s served in float32, the default type, on 2 synthetic
+     1280x720 pairs through PaddedInterp(dtype=torch.float32): 30 K4
+     launches a frame, every one on K4's float32 body (csrc/conv_f32.cu,
+     three TF32 passes on the tensor cores), the forward alone by CUDA
+     events and that body's device ms and launches in one profiled forward,
+     and the small float32 pair against the CPU path;
   5. serve through the demos' own main(), on the card by default, each with
      the launch counts set to 0 just before and read just after: demo_hd720p
      (MEMC_Net_star, bf16) over a synthetic 1280x720 YUV420 stream of 9
@@ -188,7 +195,9 @@ VE_H, VE_W = 320, 512
 VE_WINDOWS = 3
 # published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # float32: CUDA cores
+# float32: CUDA cores; tf32x3: float32 products as three TF32 passes on the
+# tensor cores (495 TFLOP/s), K4's float32 body
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 # launches per served frame (SPyNet: 6 levels of 5 convs and 1 warp at 720p)
 EXPECTED_PER_FRAME = {
     "MEMC_Net_star": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 1,
@@ -339,6 +348,19 @@ def bound(nbytes, flops, dtype):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k4_op(dtype_name):
+    """The operations' type K4 runs in: float32 as three TF32 passes."""
+    return "tf32x3" if dtype_name == "float32" else dtype_name
+
+
+def k4_extra(dtype_name, nbytes, flops):
+    """A float32 K4 row's second bound: the same work on the CUDA cores."""
+    if dtype_name != "float32":
+        return None
+    b_ms, b_by = bound(nbytes, flops, "float32")
+    return dict(bound_cuda_cores_ms=b_ms, bound_cuda_cores_by=b_by)
 
 
 def check_projection_exact(torch, what, S, S_ref, masks, masks_ref):
@@ -525,7 +547,9 @@ def phase_kernels(torch, results):
                timed_ms(torch, lambda: conv_kernel.reference(x, w, None), flush=flush),
                timed_ms(torch, lambda: F.conv2d(x, w, None, padding=3), flush=flush),
                nbytes=2 * H * W * (3 + 64) * esize + w.numel() * esize,
-               flops=2 * 2 * H * W * 64 * 3 * 49, op_dtype=dtype_name)
+               flops=2 * 2 * H * W * 64 * 3 * 49, op_dtype=k4_op(dtype_name),
+               extra=k4_extra(dtype_name, 2 * H * W * (3 + 64) * esize + w.numel() * esize,
+                              2 * 2 * H * W * 64 * 3 * 49))
         del frame, ctx, filt, got, ref
 
         # --- MEMC_Net_VE's shapes (320x512): K1 over one window's six
@@ -561,7 +585,7 @@ def phase_kernels(torch, results):
                timed_ms(torch, lambda: conv_kernel.reference(x, w, None), flush=flush),
                timed_ms(torch, lambda: F.conv2d(x, w, None, padding=3), flush=flush),
                nbytes=7 * VE_H * VE_W * (3 + 64) * esize + w.numel() * esize,
-               flops=2 * 7 * VE_H * VE_W * 64 * 3 * 49, op_dtype=dtype_name,
+               flops=2 * 7 * VE_H * VE_W * 64 * 3 * 49, op_dtype=k4_op(dtype_name),
                extra=dict(shape=f"7x3x{VE_H}x{VE_W}"))
         del vframe, vctx, vfilt, noise, x, w, got, ref
 
@@ -677,7 +701,10 @@ def phase_kernels(torch, results):
                                 reps=10 if lvl == 0 else 5, flush=flush),
                        timed_ms(torch, lib_conv, flush=flush),
                        nbytes=2 * h * w_ * (cin + cout) * esize + w.numel() * esize + 4 * cout,
-                       flops=2 * 2 * h * w_ * cout * cin * 49, op_dtype=dtype_name)
+                       flops=2 * 2 * h * w_ * cout * cin * 49, op_dtype=k4_op(dtype_name),
+                       extra=k4_extra(dtype_name, 2 * h * w_ * (cin + cout) * esize
+                                      + w.numel() * esize + 4 * cout,
+                                      2 * 2 * h * w_ * cout * cin * 49))
                 del x, w, b, got, ref
         torch.cuda.empty_cache()
     results["kernels"] = rows
@@ -891,7 +918,7 @@ def stage(torch, stages, name, fn):
     return out
 
 
-def profile_forward(torch, name, fwd, results):
+def profile_forward(torch, name, fwd, results, dtype_name="bf16"):
     """The model forward alone (CUDA events, no host copies) and its kernels
     by device time (torch.profiler), with the device's idle share over the
     profiled forward."""
@@ -912,7 +939,7 @@ def profile_forward(torch, name, fwd, results):
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     ours = sum(r[1] for r in rows if "memc::" in r[0])  # csrc/*.cu namespace
-    log(f"  {name} forward alone (bf16, device time, 5 runs median): {fwd_ms:.3f} ms; profiled "
+    log(f"  {name} forward alone ({dtype_name}, device time, 5 runs median): {fwd_ms:.3f} ms; profiled "
         f"forward: wall {wall_ms:.3f} ms, kernels {busy:.3f} ms, idle share "
         f"{max(0.0, 1 - busy / wall_ms):.3f}; port kernels {ours:.3f} ms")
     with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as f:
@@ -921,7 +948,8 @@ def profile_forward(torch, name, fwd, results):
     for key, ms_, n in rows[:12]:
         log(f"    {ms_:9.4f} ms {100 * ms_ / max(busy, 1e-9):5.1f}% {n:4d}x  {key[:90]}")
     res = results.setdefault("profile", {})[name] = dict(
-        forward_ms=fwd_ms, wall_ms=wall_ms, kernel_ms=busy, port_kernel_ms=ours, top=rows[:25])
+        forward_ms=fwd_ms, wall_ms=wall_ms, kernel_ms=busy, port_kernel_ms=ours, top=rows[:25],
+        port_kernels=[r for r in rows if "memc::" in r[0]])
     return res
 
 
@@ -979,6 +1007,73 @@ def phase_profile_ve(torch, model, frames, results):
     log(f"  {name}: one served window by stage (host ms): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     prof_res["host_stages_ms"] = stages
+
+
+F32_PAIRS = 2                # MEMC_Net_s served in float32, Config's default type
+# K4's float32 body (csrc/conv_f32.cu): conv2d_tf32x3_kernel and its small-O
+# variant conv2d_tf32x3_taps_kernel
+F32_K4_KERNEL = "conv2d_tf32x3"
+
+
+def phase_serve_f32(torch, results):
+    """MEMC_Net_s served in float32, the port's default type (Config.dtype,
+    build_model and PaddedInterp), on F32_PAIRS synthetic 1280x720 pairs, the
+    counts set to 0 just before and read just after: EXPECTED_PER_FRAME's
+    launches, every K4 launch (30 a frame) on the float32 body; its forward
+    alone by CUDA events and one profiled forward, with the float32 K4
+    body's device ms and launches there; the small float32 pair against the
+    CPU path."""
+    from memcnet_tpu_torch.cli.runner import PaddedInterp, build_model
+    from memcnet_tpu_torch.data import pad_frame, pad_plan
+    from memcnet_tpu_torch.ops import cuda as K
+
+    name = "MEMC_Net_s"
+    small_err = small_pair_check(torch, name)
+    model = build_model(name, seed=0, dtype=torch.float32, device="cuda")
+    interp = PaddedInterp(model, dtype=torch.float32, device="cuda")
+    pairs = [synthetic_frames(s) for s in range(F32_PAIRS)]
+    interp(*pairs[0])  # warm-up (cuDNN algorithm choice), not counted
+    torch.cuda.synchronize()
+
+    K.reset_counters()
+    ms = []
+    outs = []
+    for x0, x2 in pairs:
+        t0 = time.perf_counter()
+        outs.append(interp(x0, x2)[0])  # a host array: the work has finished
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts, f32 = K.launch_counts(), K.body_counts()["conv2d_small[float32]"]
+    log(f"  {name} float32: served {F32_PAIRS} pairs: ms/frame "
+        f"{', '.join(f'{m:.3f}' for m in ms)}; launches {counts}, float32 K4 body {f32}")
+    for kname, per in {**TILE_COUNTERS, **EXPECTED_PER_FRAME[name]}.items():
+        if counts[kname] != per * F32_PAIRS:
+            raise CheckFailed(f"{name} float32: {kname} launched {counts[kname]} times in "
+                              f"{F32_PAIRS} frames, expected {per * F32_PAIRS}")
+    if f32 != EXPECTED_PER_FRAME[name]["conv2d_small"] * F32_PAIRS:
+        raise CheckFailed(f"{name} float32: {f32} launches of K4's float32 body in {F32_PAIRS} "
+                          f"frames, expected {EXPECTED_PER_FRAME[name]['conv2d_small']} a frame")
+    for out in outs:
+        if out.shape != (3, FRAME_H, FRAME_W) or not np.isfinite(out).all():
+            raise CheckFailed(f"{name} float32 served output: shape {out.shape}, "
+                              f"finite {np.isfinite(out).all()}")
+    plan = pad_plan(FRAME_H, FRAME_W)
+    x0, x2 = (torch.from_numpy(np.ascontiguousarray(pad_frame(f, plan)[None]))
+              .to("cuda", torch.float32) for f in pairs[0])
+    prof = profile_forward(torch, f"{name}_float32", lambda: model(x0, x2), results,
+                           dtype_name="float32")
+    k4 = [r for r in prof["port_kernels"] if F32_K4_KERNEL in r[0]]
+    k4_ms, k4_n = sum(r[1] for r in k4), sum(r[2] for r in k4)
+    log(f"  {name} float32 forward: K4's float32 body {k4_ms:.3f} device ms in {k4_n} launches "
+        f"({len(k4)} instances) of {prof['kernel_ms']:.3f} device ms")
+    if k4_n != EXPECTED_PER_FRAME[name]["conv2d_small"]:
+        raise CheckFailed(f"{name} float32: the profiled forward ran {k4_n} launches of "
+                          f"{F32_K4_KERNEL}, expected {EXPECTED_PER_FRAME[name]['conv2d_small']}")
+    results["serve_f32"] = dict(
+        model=name, ms_per_frame=ms, launches=counts, f32_launches=f32, small_pair_err=small_err,
+        forward_ms=prof["forward_ms"], device_ms=prof["kernel_ms"], k4_f32_device_ms=k4_ms,
+        k4_f32_profiled_launches=k4_n, out_dtype=str(interp.last_out_dtype))
+    del model, interp, x0, x2
+    torch.cuda.empty_cache()
 
 
 # phase 5: the three demos through their main(), at full width, on the card
@@ -1646,7 +1741,7 @@ class CountedStep:
     def __init__(self, torch, step):
         self.torch, self.step = torch, step
         self.model, self.optimizer = step.model, step.optimizer
-        self.counts, self.events = [], []
+        self.counts, self.events, self.f32_counts = [], [], []
 
     def __call__(self, *inputs):
         from memcnet_tpu_torch.ops import cuda as K
@@ -1658,6 +1753,7 @@ class CountedStep:
         loss = self.step(*inputs)
         end.record()
         self.counts.append(K.launch_counts())
+        self.f32_counts.append(K.body_counts()["conv2d_small[float32]"])
         self.events.append((start, end))
         return loss
 
@@ -1787,16 +1883,18 @@ def train_run(torch, name, dt_name, steps, root, work, results):
         f"{', '.join(f'{m:.3f}' for m in ms)} (median after the first {per_step:.3f}); peak "
         f"memory {peak / 2 ** 30:.3f} GiB; {len(before)} running statistics moved")
     prof = profile_train_step(torch, tag, step, inputs)
+    f32_per_step = EXPECTED_PER_STEP[name]["conv2d_small"] if dt_name == "float32" else 0
     for i, counts in enumerate(step.counts):  # the profiled step's too
-        if counts != EXPECTED_PER_STEP[name]:
-            raise CheckFailed(f"{tag} step {i}: launches {counts}, expected "
-                              f"{EXPECTED_PER_STEP[name]}")
+        if counts != EXPECTED_PER_STEP[name] or step.f32_counts[i] != f32_per_step:
+            raise CheckFailed(f"{tag} step {i}: launches {counts} ({step.f32_counts[i]} of the "
+                              f"float32 K4 body), expected {EXPECTED_PER_STEP[name]} "
+                              f"({f32_per_step})")
     log(f"  {tag}: launches per step, {len(step.counts)} steps: {step.counts[0]}")
     results.setdefault("train", {})[tag] = dict(
         losses=hist, ms=ms, ms_per_step=per_step, peak_bytes=peak, steps=len(step.counts),
         launches_per_step=step.counts[0],
         launches={k: sum(c[k] for c in step.counts) for k in step.counts[0]},
-        bn_stats_moved=len(before), profile=prof)
+        f32_launches=sum(step.f32_counts), bn_stats_moved=len(before), profile=prof)
     del model, step
     torch.cuda.empty_cache()
 
@@ -3625,6 +3723,8 @@ def main():
             torch.cuda.empty_cache()
         phase_profile_ve(torch, *served.pop("MEMC_Net_VE"), results)
         torch.cuda.empty_cache()
+        log("  MEMC_Net_s served in float32 (the default type)")
+        phase_serve_f32(torch, results)
         log("phase 5: serve through the demos' entry points")
         phase_demos(torch, results, card)
         torch.cuda.empty_cache()
@@ -3714,6 +3814,28 @@ def main():
             **{f"max_abs_err_{d}": max((r["max_abs_err"] for r in held if r["dtype"] == d),
                                        default=None) for d in ("bfloat16", "float32")}}
         kernels.append(entry)
+    # K4's float32 body (csrc/conv_f32.cu), launched by MEMC_Net_s served in
+    # float32 (phase 4) and the float32 train steps; its row SPyNet's widest
+    # conv, 32 -> 64 at 768x1344, with the 30 convs of a 720p frame summed
+    spy = [k for k in krows if k.startswith("conv2d_small[spynet")]
+    top = krows["conv2d_small[spynet 32->64]"]["float32"]
+    by_path = {"serve_f32_MEMC_Net_s": results["serve_f32"]["f32_launches"]}
+    by_path.update({f"train_{tag}": r["f32_launches"] for tag, r in results["train"].items()
+                    if "f32_launches" in r})  # the bf16 768x1344 step records none
+    kernels.append({
+        "name": "conv2d_small[float32]", "route": "cuda",
+        "source": "memcnet_tpu_torch/csrc/conv_f32.cu", "replaces": TPU_KERNELS["conv2d_small"][1],
+        "entry": "memc_conv2d_small (3xTF32)", "launches": sum(by_path.values()),
+        "launches_by_path": by_path, "dtype": "float32",
+        **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "bound_cuda_cores_ms")},
+        "spynet_30": {k: sum(krows[key]["float32"][k] for key in spy)
+                      for k in ("ms", "library_ms", "bound_ms", "bound_cuda_cores_ms")},
+        "spynet_max_abs_err": max(krows[key]["float32"]["max_abs_err"] for key in spy),
+        "ctx": {k: krows["conv2d_small"]["float32"][k]
+                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "serve_f32": {k: results["serve_f32"][k]
+                      for k in ("forward_ms", "k4_f32_device_ms", "k4_f32_profiled_launches")}})
     # phase 7's entries: K2's payload entry (the depth payload's row, the gated
     # one beside it) and K3's down search, launched in the op library's run by
     # depth_flow_project and weighted_flow_project (K2), and flow_project with

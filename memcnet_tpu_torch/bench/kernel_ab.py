@@ -9,7 +9,10 @@ Measures this tree's K1 -- MEMC_Net_star's split warp of (frame, context),
 67 channels, and the 3-channel frame warp, on the smooth +-20 px flow that
 chip_smoke.py checks (``memcnet_tpu_torch/probe.py``), bf16 and float32 --
 and K4 -- the ctx conv (3 -> 64) and SPyNet's five 7x7 convs at each of its
-six pyramid levels, B = 2, bf16 and float32 -- and ``flow_project`` with the fill at B = 2 (both directions of
+six pyramid levels, B = 2, bf16 and float32, each beside ``F.conv2d`` (TF32
+off) and its bounds (float32: 3 TF32 passes at 495 TFLOP/s and the CUDA
+cores' 67), the bf16 rows' output bits digested and held equal between the
+two trees -- and ``flow_project`` with the fill at B = 2 (both directions of
 the smooth flow), bf16 and float32, with its device operations and device ms
 per call from torch.profiler and, in this tree, its K2 and K3 stages -- and
 K5 at SPyNet's top level (B = 2): the level input as separate ops around the
@@ -43,7 +46,13 @@ in separate processes in the order other, this, this, other, so that both
 meet the same card; the table keeps the mean of each tree's two runs.  The
 other tree builds its own kernels into its own ``_build`` directory.
 
-The design steps of K1 (``warp_steps.cu``: tiled and vector-load gathers,
+The design steps of K4's float32 body (``conv_f32_steps.cu``: the old
+direct kernel, the 3xTF32 GEMM at its first geometry, with N = 8 for small
+O, with the wave fitting, with MT = 4, as built with the taps in N for
+O * K <= 16 -- which must give the entry's bits, as must the variants: the
+halo split once a chunk in shared memory, raw weights split in registers,
+the widest instances at one block an SM -- and one TF32 pass), timed at every float32 K4 row, of K1 (``warp_steps.cu``:
+tiled and vector-load gathers,
 and the floor of 16 loads per channel that all hit the pixel itself) and of
 K5's level input (``level_steps.cu``: taps at the pixel, no sample, the copy
 floor, four coarse-flow loads a pixel, 8 pixels a thread), of K5's tile
@@ -174,6 +183,7 @@ def measure(root, steps, groups=ROW_GROUPS):
                   build(_lib, "fill_tiles_steps"))
                  if steps and "tile" in groups else (None, None, None))
     warp_tile_lib = build(_lib, "warp_tile_steps") if steps and "K1tile" in groups else None
+    conv_lib = build(_lib, "conv_f32_steps") if steps and "K4" in groups else None
     if steps and "K4" in groups:
         res["mma probe"] = mma_probe(torch, build(_lib, "mma_probe"))
     for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
@@ -185,7 +195,7 @@ def measure(root, steps, groups=ROW_GROUPS):
         if "K5" in groups:
             level_input_rows(torch, res, name, dt, gen, flush, level_lib)
         if "K4" in groups:
-            conv_rows(torch, res, name, dt, gen, flush)
+            conv_rows(torch, res, name, dt, gen, flush, conv_lib)
         if "tile" in groups:
             tile_entry_rows(torch, res, name, dt, flush, *tile_libs)
         if "K1tile" in groups:
@@ -352,8 +362,16 @@ def fill_rows(torch, res, name, dt, flush):
     del avg, masks
 
 
-def conv_rows(torch, res, name, dt, gen, flush):
-    """K4: the ctx conv and SPyNet's five 7x7 convs at each of its levels."""
+def conv_rows(torch, res, name, dt, gen, flush, step_lib=None):
+    """K4: the ctx conv and SPyNet's five 7x7 convs at each of its levels,
+    each beside ``F.conv2d`` of the same conv (TF32 off) and its bounds; the
+    bf16 rows with a digest of their output bits (main() fails if the two
+    trees' differ); with ``step_lib``, the float32 rows' design steps
+    (``conv_f32_steps``)."""
+    import hashlib
+
+    import torch.nn.functional as F
+
     from memcnet_tpu_torch.nn import init as I
     from memcnet_tpu_torch.ops.cuda import conv_kernel
 
@@ -373,10 +391,77 @@ def conv_rows(torch, res, name, dt, gen, flush):
             b = None
         got = conv_kernel.launch(x, w, b, relu=relu)
         ref = conv_kernel.reference(x, w, b, relu=relu)
-        res[f"K4 {label} {name}"] = dict(
-            ms=timed_ms(torch, lambda: conv_kernel.launch(x, w, b, relu=relu), flush),
-            err=max_ulps(torch, got, ref, 5e-4 if bias else 0.0))
+
+        def library():
+            out = F.conv2d(x, w, None if b is None else b.to(dt), padding=3)
+            return out.clamp_(min=0.0) if relu else out
+
+        flops = 2 * 2 * h * w_ * cout * cin * 49
+        nbytes = 2 * h * w_ * (cin + cout) * x.element_size() + w.numel() * w.element_size()
+        t_bytes = nbytes / 3.35e12 * 1e3
+        row = dict(ms=timed_ms(torch, lambda: conv_kernel.launch(x, w, b, relu=relu), flush),
+                   err=max_ulps(torch, got, ref, 5e-4 if bias else 0.0),
+                   library_ms=timed_ms(torch, library, flush))
+        if dt == torch.float32:
+            row.update(bound_tf32x3_ms=max(t_bytes, 3 * flops / 495e12 * 1e3),
+                       bound_cuda_cores_ms=max(t_bytes, flops / 67e12 * 1e3))
+            if step_lib is not None:
+                row["steps"] = conv_f32_steps(torch, step_lib, conv_kernel, x, w, b, relu, got,
+                                              ref, flush)
+        else:
+            row.update(bound_ms=max(t_bytes, flops / 989e12 * 1e3),
+                       digest=hashlib.sha256(got.view(torch.int16).cpu().numpy().tobytes())
+                       .hexdigest()[:16])
+        res[f"K4 {label} {name}"] = row
         del x, w, b, got, ref
+
+
+def conv_f32_steps(torch, lib, conv_kernel, x, w, b, relu, want, ref, flush):
+    """ms of each design step of K4's float32 body (``conv_f32_steps.cu``) at
+    one conv; the as-built geometry must give the entry's bits, every
+    3-pass step the plain version within 5e-4."""
+    B, C, h, w_ = x.shape
+    O, K = w.shape[0], w.shape[2]
+    built = conv_kernel.f32_geometry(B, C, h, w_, O, K)
+    nt = next(n for n in conv_kernel.F32_NT if n >= min(O, 64))
+    first = dict(conv_kernel.f32_geometry(B, C, h, w_, O, K, small_o=False, max_mt=2),
+                 NT=max(16, nt), MT=2)
+    steps = [(0, None, "0 direct kernel (CUDA cores, the old body)"),
+             (1, first, "1 3xTF32, MT 2, NT >= 16 (first GEMM)"),
+             (1, dict(first, NT=nt), "2 + NT 8 for O <= 8"),
+             (1, conv_kernel.f32_geometry(B, C, h, w_, O, K, small_o=False, max_mt=2),
+              "3 + wave fitting"),
+             (1, conv_kernel.f32_geometry(B, C, h, w_, O, K, small_o=False),
+              "4 + MT 4 for NT 16, 32"),
+             (1, built, "5 + taps in N for O * K <= 16 (as built)"),
+             (2, built, "6 one TF32 pass (TF32 precision; timing only)")]
+    if not built["taps"]:
+        steps += [(4, built, "7 halo split once a chunk in shared memory"),
+                  (5, built, "8 raw weights split in registers")]
+        if built["CG"] == 8 and (built["NT"], built["MT"]) in ((64, 2), (32, 4)):
+            steps.append((3, built, "9 one block an SM (255 registers)"))
+    out = torch.empty_like(want)
+    bias_ptr = None if b is None else b.data_ptr()
+    ms = {}
+    for step, geo, label in steps:
+        g = geo or dict(CG=0, NT=0, MT=0, taps=False)
+        wp = (w if geo is None else conv_kernel.pack_f32_tap_weights(w) if g["taps"]
+              else conv_kernel.pack_f32_weights(w, g["CG"], g["NT"], split=step != 5))
+
+        def run():
+            err = lib.memc_conv_f32_step(step, x.data_ptr(), wp.data_ptr(), bias_ptr,
+                                         out.data_ptr(), B, C, h, w_, O, K, g["CG"], g["NT"],
+                                         g["MT"], int(g["taps"]), int(relu),
+                                         torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"conv f32 step {label}: CUDA error {err}")
+        run()
+        if step != 2 and float((out - ref).abs().max()) > 5e-4:
+            raise RuntimeError(f"conv f32 step {label}: off the plain version")
+        if geo is built and step != 2 and not torch.equal(out, want):
+            raise RuntimeError(f"conv f32 step {label}: not the entry's bits")
+        ms[label] = timed_ms(torch, run, flush)
+    return ms
 
 
 def level_input_rows(torch, res, name, dt, gen, flush, level_lib=None):
@@ -843,6 +928,10 @@ def build(_lib, name):
         lib.memc_tile_sums_step.argtypes = [i, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
         lib.memc_tile_sums_step.restype = i
         lib.memc_tile_sums_vec_atomic.restype = i
+    elif name == "conv_f32_steps":
+        lib.memc_conv_f32_step.argtypes = [i, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i,
+                                           vp]
+        lib.memc_conv_f32_step.restype = i
     elif name == "fill_tiles_steps":
         lib.memc_fill_tiles_step.argtypes = [i, vp, vp, vp, vp, i, i, i, i, i, i, i, vp, vp, vp, i,
                                              vp]
@@ -957,6 +1046,9 @@ def main():
         if "steps" in runs["this"][0].get(key, {}):
             row["steps_ms"] = runs["this"][0][key]["steps"]
         table[key] = row
+    # bf16 K4 rows: the two trees' output bits must agree
+    differ = [k for k, r in table.items()
+              if "other_digest" in r and r["this_digest"] != r["other_digest"]]
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"card": card, "order": order, "rows": table, "mma_probe": probe,
@@ -983,6 +1075,10 @@ def main():
                 print(f"    {n}: " + ", ".join(f"{k} {v}" for k, v in checks.items()))
         for label, ms in row.get("steps_ms", {}).items():
             print(f"    step {label:<32} " + (f"{ms:.4f} ms" if isinstance(ms, float) else str(ms)))
+    if differ:
+        print(f"kernel_ab: bf16 K4 output bits differ between the trees: {differ}",
+              file=sys.stderr)
+        return 1
     return 0
 
 

@@ -8,7 +8,9 @@
 // SPyNet's five-conv stacks, 8 -> 32 -> 64 -> 32 -> 16 -> 2, with ReLU fused
 // on the first four (models/spynet.py).
 //
-// Two kernels, chosen by the element type:
+// This file holds the bf16 body; the float32 body, a 3xTF32 tensor-core
+// implicit GEMM, is csrc/conv_f32.cu (ops/cuda/conv_kernel.py chooses by the
+// element type).
 //
 // bf16: a tensor-core implicit GEMM (conv2d_igemm_kernel).  Bound on the H100:
 // SPyNet's convs by their operations (up to 64*49 multiply-adds per output
@@ -42,152 +44,16 @@
 // the largest and drop what falls below 2^-25 of it (measured on the H100),
 // where a float32 FMA chain rounds each partial sum on its own scale.  So an
 // output whose sum nearly cancels can land several bf16 units away from the
-// float32 conv, which the direct kernel reproduced exactly.  Such a conv has
+// float32 conv, which a float32 FMA chain reproduces exactly.  Such a conv has
 // one chunk: its halo and all its weights are staged once (the product loop
 // then needs no barrier), outputs with |value| < 2^-12 * sum|w| * max|x| are
-// listed in shared memory and recomputed by the direct kernel's float32 FMA
-// chain in (c, ky, kx) order from the staged halo and weights (a small
-// fraction of the outputs), and only then rounded.
-//
-// float32: the direct kernel (conv2d_direct_kernel), exact float32 FMAs on the
-// CUDA cores (no TF32), bound by those FMAs (67 TFLOP/s).  A block owns a
-// 64 x 8 pixel tile and 16 output channels and walks the input channels in
-// chunks of 8: each chunk's input tile with its halo and weight slice are
-// staged in shared memory (56 KB at K = 7, whatever C) and accumulated into
-// 2 pixels x 16 channels of float32 sums per thread.
+// listed in shared memory and recomputed by a float32 FMA chain in (c, ky,
+// kx) order from the staged halo and weights, as the old float32 direct
+// kernel (step 0 of bench/conv_f32_steps.cu) summed them (a small fraction
+// of the outputs), and only then rounded.
 #include "common.cuh"
 
 namespace memc {
-
-// ---------------------------------------------------------------- float32 --
-
-constexpr int kTileW = 64;
-constexpr int kTileH = 8;
-constexpr int kOutGroup = 16;
-constexpr int kChanChunk = 8;
-
-// shared floats of one chunk of CC input channels: the input stage, then the
-// weight stage (float4-aligned)
-inline size_t conv_smem_floats(int CC, int K, size_t* in_floats) {
-  const size_t sh = kTileH + K - 1, sw = kTileW + K - 1;
-  *in_floats = (static_cast<size_t>(CC) * sh * sw + 3) & ~static_cast<size_t>(3);
-  return *in_floats + static_cast<size_t>(CC) * K * K * kOutGroup;
-}
-
-template <int K>
-__global__ void __launch_bounds__(32 * kTileH)
-conv2d_direct_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ bias, float* __restrict__ out, int C, int H, int W,
-                     int O, int relu, int n_groups, int CC, int in_floats) {
-  extern __shared__ __align__(16) float sm[];
-  constexpr int P = K / 2;
-  constexpr int SH = kTileH + K - 1;
-  constexpr int SW = kTileW + K - 1;
-  float* in_s = sm;
-  float* w_s = sm + in_floats;
-
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * 32 + tx;
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * kTileH;
-  const int b = blockIdx.z / n_groups;
-  const int og = blockIdx.z - b * n_groups;
-  const int64_t plane = static_cast<int64_t>(H) * W;
-  const int taps = C * K * K;
-
-  float acc[2][kOutGroup];
-#pragma unroll
-  for (int o = 0; o < kOutGroup; ++o) acc[0][o] = acc[1][o] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += CC) {
-    const int cn = min(CC, C - c0);
-    if (c0 > 0) __syncthreads();  // every thread is done with the previous chunk
-    const float* xb = x + (static_cast<int64_t>(b) * C + c0) * plane;
-    for (int i = tid; i < cn * SH * SW; i += 32 * kTileH) {
-      const int c = i / (SH * SW);
-      const int rem = i - c * (SH * SW);
-      const int r = rem / SW;
-      const int q = rem - r * SW;
-      const int gy = y0 - P + r;
-      const int gx = x0 - P + q;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W) v = xb[c * plane + static_cast<int64_t>(gy) * W + gx];
-      in_s[i] = v;
-    }
-    // the chunk's taps (c, ky, kx) are contiguous in each output channel's row
-    const int ctaps = cn * K * K;
-    for (int i = tid; i < ctaps * kOutGroup; i += 32 * kTileH) {
-      const int tap = i / kOutGroup;
-      const int oc = og * kOutGroup + (i - tap * kOutGroup);
-      w_s[i] = oc < O ? w[static_cast<int64_t>(oc) * taps + c0 * K * K + tap] : 0.f;
-    }
-    __syncthreads();
-
-    for (int c = 0; c < cn; ++c) {
-#pragma unroll
-      for (int ky = 0; ky < K; ++ky) {
-        const float* rowp = in_s + (c * SH + ty + ky) * SW + tx;
-#pragma unroll
-        for (int kx = 0; kx < K; ++kx) {
-          const float v0 = rowp[kx];
-          const float v1 = rowp[kx + 32];
-          const float4* wp = reinterpret_cast<const float4*>(w_s + ((c * K + ky) * K + kx) * kOutGroup);
-#pragma unroll
-          for (int q = 0; q < kOutGroup / 4; ++q) {
-            const float4 wq = wp[q];
-            acc[0][4 * q + 0] = fmaf(v0, wq.x, acc[0][4 * q + 0]);
-            acc[0][4 * q + 1] = fmaf(v0, wq.y, acc[0][4 * q + 1]);
-            acc[0][4 * q + 2] = fmaf(v0, wq.z, acc[0][4 * q + 2]);
-            acc[0][4 * q + 3] = fmaf(v0, wq.w, acc[0][4 * q + 3]);
-            acc[1][4 * q + 0] = fmaf(v1, wq.x, acc[1][4 * q + 0]);
-            acc[1][4 * q + 1] = fmaf(v1, wq.y, acc[1][4 * q + 1]);
-            acc[1][4 * q + 2] = fmaf(v1, wq.z, acc[1][4 * q + 2]);
-            acc[1][4 * q + 3] = fmaf(v1, wq.w, acc[1][4 * q + 3]);
-          }
-        }
-      }
-    }
-  }
-
-  const int y = y0 + ty;
-  if (y >= H) return;
-  float* ob = out + static_cast<int64_t>(b) * O * plane + static_cast<int64_t>(y) * W;
-#pragma unroll
-  for (int o = 0; o < kOutGroup; ++o) {
-    const int oc = og * kOutGroup + o;
-    if (oc >= O) break;
-    const float bv = bias != nullptr ? bias[oc] : 0.f;
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int xx = x0 + tx + 32 * p;
-      if (xx < W) {
-        float v = acc[p][o] + bv;
-        if (relu) v = fmaxf(v, 0.f);
-        ob[oc * plane + xx] = v;
-      }
-    }
-  }
-}
-
-template <int K>
-cudaError_t launch_direct_k(const float* x, const float* w, const float* bias, float* out, int B,
-                            int C, int H, int W, int O, int relu, cudaStream_t stream) {
-  const int CC = C < kChanChunk ? C : kChanChunk;
-  size_t in_floats = 0;
-  const size_t smem = sizeof(float) * conv_smem_floats(CC, K, &in_floats);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        conv2d_direct_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const int n_groups = ceil_div(O, kOutGroup);
-  const dim3 grid(ceil_div(W, kTileW), ceil_div(H, kTileH), B * n_groups);
-  const dim3 block(32, kTileH);
-  conv2d_direct_kernel<K><<<grid, block, smem, stream>>>(x, w, bias, out, C, H, W, O, relu,
-                                                         n_groups, CC, static_cast<int>(in_floats));
-  return cudaGetLastError();
-}
 
 // ------------------------------------------------------------------- bf16 --
 
@@ -549,24 +415,6 @@ cudaError_t launch_igemm_c(const uint16_t* x, const uint4* wp, const float* wabs
 }
 
 }  // namespace memc
-
-// float32 direct conv.  x: (B, C, H, W); w: (O, C, K, K); bias: (O,) or
-// null; out: (B, O, H, W).
-MEMC_API int memc_conv2d_small(const void* x, const void* w, const void* bias, void* out, int B,
-                               int C, int H, int W, int O, int K, int relu, void* stream) {
-  if (B == 0 || C == 0 || H == 0 || W == 0 || O == 0) return cudaSuccess;
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* xs = static_cast<const float*>(x);
-  const auto* ws = static_cast<const float*>(w);
-  const auto* bs = static_cast<const float*>(bias);
-  auto* os = static_cast<float*>(out);
-  switch (K) {
-    case 3: return memc::launch_direct_k<3>(xs, ws, bs, os, B, C, H, W, O, relu, st);
-    case 5: return memc::launch_direct_k<5>(xs, ws, bs, os, B, C, H, W, O, relu, st);
-    case 7: return memc::launch_direct_k<7>(xs, ws, bs, os, B, C, H, W, O, relu, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 // bf16 tensor-core conv.  x: (B, C, H, W) bf16; wp: the weights repacked by
 // ops/cuda/conv_kernel.py::pack_weights for this (CG, NT), bf16; bias: (O,)

@@ -150,7 +150,7 @@ def _declare(lib):
     lib.memc_project_fill_tiles.argtypes = [vp, i64, i, i, vp, i64, i, vp, vp, i, i, i, i, i, i,
                                             i, vp, vp, vp, i, vp]
     lib.memc_project_fill_tiles.restype = i
-    lib.memc_conv2d_small.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
+    lib.memc_conv2d_small.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, vp]
     lib.memc_conv2d_small.restype = i
     lib.memc_conv2d_igemm.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp]
     lib.memc_conv2d_igemm.restype = i

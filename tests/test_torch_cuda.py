@@ -17,7 +17,9 @@ that may flip) -- for K4 beyond 8 input channels, where hundreds of terms are
 summed in another order and may cancel to near zero, beyond the float32
 tolerance as well; projection counts and masks exact, the projection's
 float32 average and result within 1e-3 (float atomics in a run-dependent
-order over sums of up to ~10 flows of up to 200 px).
+order over sums of up to ~10 flows of up to 200 px); K4's float32 body
+(three TF32 passes) within 5e-4 of its plain version, chip_smoke.py's rule
+at SPyNet's sums; K4's bf16 body bit for bit against its earlier outputs.
 """
 
 import numpy as np
@@ -1505,3 +1507,122 @@ def test_partitioned_op_library_on_the_card_matches_untiled(rng, dev, grid):
         assert counts == want, (name, counts)
         for a, b in zip(res[True][0] + list(res[True][1]), res[False][0] + list(res[False][1])):
             assert float((a - b).abs().max()) <= ATOL * max(1.0, float(b.abs().max())), name
+
+
+# -- K4's float32 body and bf16 bits ----------------------------------------------------
+#
+# Last in the file: torch.profiler, which device_ops reads, drops the records
+# of short calls late in a process, and these cases launch many kernels.
+#
+# K4's float32 body (3xTF32, csrc/conv_f32.cu) against its plain version: max
+# abs err <= 5e-4, chip_smoke.py's rule at SPyNet's sums of up to 3,136 terms
+# (the body drops lo * lo, under 2^-22 of each product)
+F32_K4_ATOL = 5e-4
+SPYNET_BASIC = [(8, 32), (32, 64), (64, 32), (32, 16), (16, 2)]
+
+
+def spynet_conv_inputs(dev, cin, cout, h, w, seed, B=2):
+    """SPyNet's conv inputs: x in [-2, 2), torch-0.2 default weights and bias."""
+    from memcnet_tpu_torch.nn import init as I
+
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.rand((B, cin, h, w), generator=gen) * 4.0 - 2.0).to(dev)
+    wt = I.torch_default_uniform((cout, cin, 7, 7), gen).to(dev)
+    b = I.torch_default_uniform((cout,), gen, fan_in=cin * 49).to(dev)
+    return x, wt, b
+
+
+def f32_err(x, w, b, relu):
+    got = conv_kernel.launch(x, w, b, relu=relu)
+    assert got.dtype == torch.float32 and got.shape == (x.shape[0], w.shape[0], *x.shape[2:])
+    return float((got - conv_kernel.reference(x, w, b, relu=relu)).abs().max())
+
+
+@pytest.mark.parametrize("frame", [(768, 1344), (256, 448)])
+@pytest.mark.parametrize("level", range(6))
+def test_conv_f32_at_every_spynet_level(dev, frame, level):
+    """Each of SPyNet's five convs at each level, B = 2: 720p (768x1344 down
+    to 24x42, MEMC_Net_s served) and the train frames (256x448 down to
+    8x14), one launch of the float32 body each."""
+    h, w = frame[0] >> level, frame[1] >> level
+    for j, (cin, cout) in enumerate(SPYNET_BASIC):
+        x, wt, b = spynet_conv_inputs(dev, cin, cout, h, w, seed=10 * level + j)
+        K.reset_counters()
+        err = f32_err(x, wt, b, relu=j < len(SPYNET_BASIC) - 1)
+        assert K.body_counts() == {"conv2d_small[float32]": 1}
+        assert err <= F32_K4_ATOL, (h, w, cin, cout, err)
+
+
+@pytest.mark.parametrize("K", [3, 5, 7])
+@pytest.mark.parametrize("O", [2, 16, 32, 64])
+@pytest.mark.parametrize("C", [3, 8, 16, 32, 64])
+def test_conv_f32_bias_relu_ragged(rng, dev, C, O, K):
+    """Every channel chunking (C = 3: two taps a step) and output group of
+    the float32 body, K 3, 5 and 7, widths 4 does not divide (W % 4 = 1, 2,
+    3), with and without bias and ReLU."""
+    for H, W, bias, relu in ((21, 45, False, False), (19, 38, False, True),
+                             (40, 75, True, False)):
+        x = torch.from_numpy(rng.randn(2, C, H, W).astype(np.float32)).to(dev)
+        w = torch.from_numpy((rng.randn(O, C, K, K) / np.sqrt(C * K * K)).astype(np.float32))
+        b = torch.from_numpy(rng.randn(O).astype(np.float32) * 0.1).to(dev) if bias else None
+        assert f32_err(x, w.to(dev), b, relu) <= F32_K4_ATOL, (H, W, bias, relu)
+
+
+@pytest.mark.parametrize("grid", ["tile4", "tile2x2"])
+@pytest.mark.parametrize("cin,cout", [(32, 64), (16, 2)])
+def test_conv_f32_on_halo_extended_tiles(dev, grid, cin, cout):
+    """SPyNet's convs through nn/layers.py::conv2d_k4 on partitioned frames:
+    one float32 launch over the stacked tiles extended by 3 columns (and
+    rows), equal to the plain conv of the whole frame within the rule."""
+    from memcnet_tpu_torch.nn import layers as L
+    from memcnet_tpu_torch.parallel import active_partition, shard_frames, spatial_tiling
+
+    mesh, axis_h = tile_grid(grid, dev)
+    x, w, b = spynet_conv_inputs(dev, cin, cout, 96, 256, seed=cin)
+    relu = cout != 2
+    want = conv_kernel.reference(x, w, b, relu=relu)
+    K.reset_counters()
+    with spatial_tiling(mesh, halo=16, axis_h=axis_h):
+        shard_frames(mesh, torch.zeros(1, 1, 96, 256, device=dev))
+        p = active_partition()
+        got = p.merge(L.conv2d_k4(p.split(x), w, b, relu=relu))
+    assert K.body_counts() == {"conv2d_small[float32]": 1}
+    assert float((got - want).abs().max()) <= F32_K4_ATOL
+
+
+# bf16 K4 on fixed inputs: (C, O, K, H, W, bias and ReLU)
+BF16_CASES = [(3, 64, 7, 64, 96, False), (8, 32, 7, 48, 84, True), (32, 64, 7, 33, 71, True),
+              (64, 32, 7, 24, 42, True), (32, 16, 7, 37, 72, True), (16, 2, 7, 40, 64, False),
+              (20, 24, 3, 33, 70, True), (6, 40, 5, 33, 70, True)]
+# sha-256 of each case's bf16 output bytes from the bf16 body as it was before
+# the float32 body became the tensor-core one (same inputs, same card type)
+BF16_DIGESTS = {
+    "3->64 k7 64x96": "fadefbe39dac772310a9709d8e437b62f6a62950e370ebadae0d2d0f7baf4479",
+    "8->32 k7 48x84": "a3931f198815ba67359e61a4c071e24ff3cbf864afdcf233b4115bfc87b33a79",
+    "32->64 k7 33x71": "b3c669f9eb9adde4484fbf4092ccc90bf644a2bdc810c4846b2417adf597a109",
+    "64->32 k7 24x42": "2f314ffa54aa54f14b3fabdad8032a3b29c05f296939b25ac950acb2506aa37e",
+    "32->16 k7 37x72": "df7cd3a63eae9f832212d5aee7e2ddefeb155b9fe9c7e6562295b0ae0d80235c",
+    "16->2 k7 40x64": "6b6dfac7fe459161ce6fc43c6f05e1e0c0ab5d92c47a8fb0a87ac8a50f83ff5c",
+    "20->24 k3 33x70": "d5a877360b5bad9b13cf858a8cb823c1bcea10790b01be1425f01e98bf1b6591",
+    "6->40 k5 33x70": "43db73a0b8ca3bad623547d89f13f101454fe72e54d4a5f0c2e3467ea29a147b",
+}
+
+
+def bf16_digests(dev):
+    import hashlib
+
+    out = {}
+    for C, O, k, H, W, bias in BF16_CASES:
+        rng = np.random.RandomState(C * 1000 + O * 10 + k)
+        x = torch.from_numpy(rng.randn(2, C, H, W).astype(np.float32)).to(dev, torch.bfloat16)
+        w = torch.from_numpy((rng.randn(O, C, k, k) / np.sqrt(C * k * k)).astype(np.float32))
+        b = torch.from_numpy(rng.randn(O).astype(np.float32) * 0.1).to(dev) if bias else None
+        y = conv_kernel.launch(x, w.to(dev, torch.bfloat16), b, relu=bias)
+        out[f"{C}->{O} k{k} {H}x{W}"] = hashlib.sha256(
+            y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def test_conv_bf16_body_bits_unchanged(dev):
+    """The bf16 body gives the same bits as before the float32 redesign."""
+    assert bf16_digests(dev) == BF16_DIGESTS
