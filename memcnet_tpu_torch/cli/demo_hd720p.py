@@ -10,10 +10,12 @@ the CUDA device unless --device says otherwise.
 The stream is cut into GOPs (parallel.gop.GopScheduler): independent,
 journaled, restartable work units; `--journal` makes completions durable so
 an interrupted run can be resumed.  `--trace-dir` wraps the run in a
-torch.profiler trace, and StageTimers report proc/total per item (the
-reference's AverageMeter protocol, demo_Vimeo_VE.py:97-98).  Frames are read
-by the native C++ prefetching reader (native.NativeYUVReader, stride 2) when
-its library builds, else by data.yuv.YUVRead, as the JAX demo does.
+torch.profiler trace (trace.json) and writes the model's stage spans and
+counters beside it (stages.json, utils/tracing.py), and StageTimers report
+proc/total per item (the reference's AverageMeter protocol,
+demo_Vimeo_VE.py:97-98).  Frames are read by the native C++ prefetching
+reader (native.NativeYUVReader, stride 2) when its library builds, else by
+data.yuv.YUVRead, as the JAX demo does.
 
 ``--multihost`` joins a process group from torch's own environment contract
 (MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK, as ``torchrun`` sets them):
@@ -158,7 +160,8 @@ def main(argv=None):
     ap.add_argument("--journal", default=None,
                     help="completion journal path (enables crash restart)")
     ap.add_argument("--trace-dir", default=None,
-                    help="write a torch.profiler trace (trace.json) here")
+                    help="write a torch.profiler trace (trace.json) and the model's "
+                         "stage spans and counters (stages.json) here")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--multihost", action="store_true",
                     help="join a process group from MASTER_ADDR, MASTER_PORT, WORLD_SIZE and "

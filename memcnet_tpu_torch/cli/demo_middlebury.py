@@ -70,7 +70,8 @@ def main(argv=None):
     ap.add_argument("--gt-dir", default=None)
     ap.add_argument("--out-dir", default="./MiddleBury-results")
     ap.add_argument("--trace-dir", default=None,
-                    help="write a torch.profiler trace (trace.json) here")
+                    help="write a torch.profiler trace (trace.json) and the model's "
+                         "stage spans and counters (stages.json) here")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     cfg = config_from_args(args)

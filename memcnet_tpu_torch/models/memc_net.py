@@ -42,6 +42,7 @@ from memcnet_tpu_torch.models.mononet import (
 from memcnet_tpu_torch.nn import init as I
 from memcnet_tpu_torch.nn.layers import upsample_bilinear
 from memcnet_tpu_torch.ops import filter_interp_warp, filter_interp_warp_split, flow_project
+from memcnet_tpu_torch.utils import tracing
 
 DIV_FLOW = 20.0
 
@@ -120,8 +121,10 @@ class MEMCNet(nn.Module):
         return upsample_bilinear(self.flownets(pairs) * (DIV_FLOW / 2.0), 4)
 
     def _flows(self, x0, x2, fillhole):
-        f = self._flow(x0, x2)
-        off = flow_project(f, fillhole=fillhole).reshape((x0.shape[0], 2, 2) + f.shape[2:])
+        with tracing.span("flow"):
+            f = self._flow(x0, x2)
+        with tracing.span("project"):
+            off = flow_project(f, fillhole=fillhole).reshape((x0.shape[0], 2, 2) + f.shape[2:])
         return off[:, 0], off[:, 1]
 
     def _filters_and_occlusions(self, pair):
@@ -136,7 +139,18 @@ class MEMCNet(nn.Module):
     def _blend(self, warped0, warped1, occ):
         return occ[0] * warped0 + occ[1] * warped1  # MEMC_Net.py:263
 
-    def _rectify(self, blended, offs, filters, occs):
+    def _contexts(self, x0, x2):
+        """What the warp carries beside the frames: nothing here."""
+        return None
+
+    def _warp(self, x0, x2, offs, filters, ctx):
+        """Both frames warped (K1), and the warped contexts (none here)."""
+        fs = self.filter_size
+        w0 = filter_interp_warp(x0, offs[0], filters[0], filter_size=fs)
+        w1 = filter_interp_warp(x2, offs[1], filters[1], filter_size=fs)
+        return w0, w1, None
+
+    def _rectify(self, blended, offs, filters, occs, ctxs):
         rin = torch.cat((blended, offs[0], offs[1], filters[0], filters[1], occs[0], occs[1]),
                         dim=1)
         return blended + forward_single_path(self.rectifyNet, self.rectify_specs, rin)
@@ -144,15 +158,20 @@ class MEMCNet(nn.Module):
     def forward(self, x0, x2):
         """x0, x2: (B, 3, H, W), H and W multiples of 128 (padded upstream).
         Returns ((interp, rectified), (off0, off1), (filt0, filt1),
-        (occ0, occ1)), as the JAX forward in the module's mode."""
-        fs = self.filter_size
-        pair = torch.cat((x0, x2), dim=1)
-        offs = self._flows(x0, x2, fillhole=not self.training)
-        filters, occs = self._filters_and_occlusions(pair)
-        w0 = filter_interp_warp(x0, offs[0], filters[0], filter_size=fs)
-        w1 = filter_interp_warp(x2, offs[1], filters[1], filter_size=fs)
-        blended = self._blend(w0, w1, occs)
-        return (blended, self._rectify(blended, offs, filters, occs)), offs, filters, occs
+        (occ0, occ1)), as the JAX forward in the module's mode.  Each stage
+        runs in its span (``utils/tracing.py``)."""
+        with tracing.span("forward", x0):
+            offs = self._flows(x0, x2, fillhole=not self.training)
+            with tracing.span("filters"):
+                filters, occs = self._filters_and_occlusions(torch.cat((x0, x2), dim=1))
+            ctx = self._contexts(x0, x2)
+            with tracing.span("warp"):
+                w0, w1, ctxs = self._warp(x0, x2, offs, filters, ctx)
+            with tracing.span("blend"):
+                blended = self._blend(w0, w1, occs)
+            with tracing.span("rectify"):
+                rectified = self._rectify(blended, offs, filters, occs, ctxs)
+            return (blended, rectified), offs, filters, occs
 
     def train_residuals(self, x0, x1, x2):
         """Train-mode loss residuals (MEMC_Net.py:132-137): returns
@@ -215,22 +234,22 @@ class MEMCNetStar(MEMCNet):
     def _init_extra(self, generator):
         self.ctxNet.init_params(generator)
 
-    def forward(self, x0, x2):
-        """x0, x2: (B, 3, H, W), H and W multiples of 128 (padded upstream).
-        Returns ((interp, rectified), (off0, off1), (filt0, filt1),
-        (occ0, occ1)), as the JAX forward in the module's mode."""
-        fs = self.filter_size
+    def _contexts(self, x0, x2):
+        """Both frames' ResNet-conv1 contexts, one call: (B, 2, 64, H, W)."""
         B = x0.shape[0]
-        pair = torch.cat((x0, x2), dim=1)
-        offs = self._flows(x0, x2, fillhole=not self.training)
-        filters, occs = self._filters_and_occlusions(pair)
-        cc = self.ctxNet(torch.stack((x0, x2), dim=1).reshape((2 * B,) + x0.shape[1:]))
-        cc = cc.reshape((B, 2) + cc.shape[1:])
-        w0, ctx0 = filter_interp_warp_split((x0, cc[:, 0]), offs[0], filters[0], filter_size=fs)
-        w1, ctx1 = filter_interp_warp_split((x2, cc[:, 1]), offs[1], filters[1], filter_size=fs)
-        ctxs = (ctx0.detach(), ctx1.detach())  # MEMC_Net_star.py:285
-        blended = self._blend(w0, w1, occs)
+        with tracing.span("ctx"):
+            cc = self.ctxNet(torch.stack((x0, x2), dim=1).reshape((2 * B,) + x0.shape[1:]))
+            return cc.reshape((B, 2) + cc.shape[1:])
+
+    def _warp(self, x0, x2, offs, filters, ctx):
+        """Each frame warped with its context (K1's split warp); the warped
+        contexts detached (MEMC_Net_star.py:285)."""
+        fs = self.filter_size
+        w0, ctx0 = filter_interp_warp_split((x0, ctx[:, 0]), offs[0], filters[0], filter_size=fs)
+        w1, ctx1 = filter_interp_warp_split((x2, ctx[:, 1]), offs[1], filters[1], filter_size=fs)
+        return w0, w1, (ctx0.detach(), ctx1.detach())
+
+    def _rectify(self, blended, offs, filters, occs, ctxs):
         pieces = (blended, offs[0], offs[1], filters[0], filters[1],
                   occs[0], occs[1], ctxs[0], ctxs[1])  # MEMC_Net_star.py:142-147 order
-        rectified = blended + self.rectifyNet.forward_pieces(pieces)
-        return (blended, rectified), offs, filters, occs
+        return blended + self.rectifyNet.forward_pieces(pieces)

@@ -135,12 +135,12 @@ def _declare(lib):
     lib.memc_filter_interp_warp.restype = i
     lib.memc_filter_interp_warp_tile.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp]
     lib.memc_filter_interp_warp_tile.restype = i
-    lib.memc_project_sums.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+    lib.memc_project_sums.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp, vp]
     lib.memc_project_sums.restype = i
     lib.memc_project_payload.argtypes = [i, vp, vp, vp, f, vp, vp, vp, vp, vp, vp, vp, i, i, i,
                                          i, i, i, vp]
     lib.memc_project_payload.restype = i
-    lib.memc_project_fill.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+    lib.memc_project_fill.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp, vp]
     lib.memc_project_fill.restype = i
     lib.memc_project_tile_sums.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
     lib.memc_project_tile_sums.restype = i

@@ -86,6 +86,7 @@ import torch
 
 from memcnet_tpu_torch.ops.cuda import _lib
 from memcnet_tpu_torch.ops.frame import coords, take
+from memcnet_tpu_torch.utils import tracing
 
 scatter_counter = _lib.LaunchCounter("base_scatter")  # K2
 fill_counter = _lib.LaunchCounter("fill_holes")       # K3
@@ -397,13 +398,14 @@ def _buffers(flow, fillhole, P):
     return scratch, torch.empty_like(flow), [None] * 4
 
 
-def _sums(flow, fillhole):
+def _sums(flow, fillhole, flow_px=None):
     """K2.  Returns (scratch, result, mask pointers): the result is the
     float32 average with the fill and the projected flow in its type
     without; the pointers (``Masks`` order, None without the fill) point into
     the scratch, which must live until the fill is enqueued.  The hot path
     hands raw pointers on: building tensor views of the scratch costs more
-    host time than the kernels take."""
+    host time than the kernels take.  ``flow_px``, a float64 tensor on the
+    device or None, gains the sum of the flow's per-pixel |f|."""
     what = "project_sums"
     code = _lib.dtype_code(flow.dtype)
     B, two, H, W = flow.shape
@@ -412,7 +414,9 @@ def _sums(flow, fillhole):
     _lib.check_cuda_args(what, flow)
     scratch, out, ptrs = _buffers(flow, fillhole, 3)
     err = _lib.lib().memc_project_sums(flow.data_ptr(), scratch.data_ptr(), out.data_ptr(), *ptrs,
-                                       B, H, W, code, int(fillhole), _lib.stream_ptr(flow))
+                                       B, H, W, code, int(fillhole),
+                                       None if flow_px is None else flow_px.data_ptr(),
+                                       _lib.stream_ptr(flow))
     _lib.check(err, what)
     scatter_counter.count += 1
     return scratch, out, ptrs
@@ -466,15 +470,18 @@ def _payload_sums(op, flow, ins, threshold, fillhole):
     return scratch, out, extra, ptrs
 
 
-def _fill(avg, mask_ptrs, dtype, down=False):
+def _fill(avg, mask_ptrs, dtype, down=False, holes=None):
     """K3 on masks given as device pointers in ``Masks`` order; ``down``
-    adds the search below (fix_down_scan_bug)."""
+    adds the search below (fix_down_scan_bug); ``holes``, an int64 tensor on
+    the device or None, gains the count of pixels with no projected value."""
     what = "project_fill"
     code = _lib.dtype_code(dtype)
     B, _, H, W = avg.shape
     out = torch.empty((B, 2, H, W), dtype=dtype, device=avg.device)
     err = _lib.lib().memc_project_fill(avg.data_ptr(), *mask_ptrs, out.data_ptr(), B, H, W,
-                                       code, int(down), _lib.stream_ptr(avg))
+                                       code, int(down),
+                                       None if holes is None else holes.data_ptr(),
+                                       _lib.stream_ptr(avg))
     _lib.check(err, what)
     fill_counter.count += 1
     return out
@@ -513,10 +520,11 @@ def launch_payload(op, flow, ins, threshold, fillhole):
     return S, out, extra, masks
 
 
-def launch_fill(avg, masks, dtype, down=False):
+def launch_fill(avg, masks, dtype, down=False, holes=None):
     """K3 alone, for checks.  avg: (B, 2, H, W) float32, contiguous; masks:
     ``Masks`` as K2 writes them; returns (B, 2, H, W) in ``dtype``; ``down``
-    adds the search below."""
+    adds the search below; ``holes``: a 0-dim int64 tensor on the card that
+    gains the count of pixels no mask bit sets, or None."""
     what = "project_fill"
     B, K, H, W = avg.shape
     if K != 2 or avg.dtype != torch.float32:
@@ -525,22 +533,26 @@ def launch_fill(avg, masks, dtype, down=False):
     for got, want in zip(masks, mask_shapes(B, H, W)):
         if tuple(got.shape) != want or got.dtype != torch.int32:
             raise ValueError(f"{what}: mask {got.dtype} {tuple(got.shape)}, want int32 {want}")
-    _lib.check_cuda_args(what, avg, *masks)
-    return _fill(avg, [m.data_ptr() for m in masks], dtype, down)
+    if holes is not None and (holes.dtype != torch.int64 or holes.numel() != 1):
+        raise ValueError(f"{what}: holes must be one int64, got {holes.dtype} "
+                         f"{tuple(holes.shape)}")
+    _lib.check_cuda_args(what, avg, *masks, *(() if holes is None else (holes,)))
+    return _fill(avg, [m.data_ptr() for m in masks], dtype, down, holes)
 
 
 class _ProjectFunction(torch.autograd.Function):
-    """K2 then, with the fill, K3; backward is autograd of the plain
+    """K2 then, with the fill, K3, each adding to its counter where that is
+    not None (``flow_px``, ``holes``); backward is autograd of the plain
     composition."""
 
     @staticmethod
-    def forward(ctx, flow, fillhole, down):
+    def forward(ctx, flow, fillhole, down, flow_px, holes):
         ctx.save_for_backward(flow)
         ctx.fillhole, ctx.down = fillhole, down
         # the fill reads the masks in K2's scratch: keep it until then
-        scratch, out, mask_ptrs = _sums(flow, fillhole)
+        scratch, out, mask_ptrs = _sums(flow, fillhole, flow_px)
         if fillhole:
-            out = _fill(out, mask_ptrs, flow.dtype, down)
+            out = _fill(out, mask_ptrs, flow.dtype, down, holes)
         return out
 
     @staticmethod
@@ -548,16 +560,27 @@ class _ProjectFunction(torch.autograd.Function):
         (flow,) = ctx.saved_tensors
         (gf,) = _lib.reference_grads(lambda f: reference(f, ctx.fillhole, ctx.down), [flow],
                                      [True], [g])
-        return gf, None, None
+        return gf, None, None, None, None
 
 
 def flow_project(flow, fillhole=False, fix_down_scan_bug=False):
     """The projection: the kernels on CUDA tensors, the plain composition on
     CPU tensors.  The fill scans left, right and up, as the reference does;
-    ``fix_down_scan_bug`` (the JAX opt-in) adds the scan down."""
+    ``fix_down_scan_bug`` (the JAX opt-in) adds the scan down.  Inside a
+    span of ``utils/tracing.py`` while a profile records, the flow's
+    per-pixel |f| join the ``flow_px`` counter and, with the fill, the pixels
+    it fills the ``holes`` counter: K2 and K3 add them on the card."""
+    pixels = flow.numel() // 2
+    flow_px = tracing.counter("flow_px", flow, pixels)
+    holes = tracing.counter("holes", flow, pixels, torch.int64) if fillhole else None
     if not _lib.on_cuda(flow):
-        return reference(flow, fillhole, fix_down_scan_bug)
-    return _ProjectFunction.apply(flow.contiguous(), fillhole, fix_down_scan_bug)
+        avg, cnt = average_and_count(flow, fillhole, fix_down_scan_bug)
+        if flow_px is not None:
+            flow_px += torch.linalg.vector_norm(flow.detach().float(), dim=1).sum()
+        if holes is not None:
+            holes += (cnt == 0.0).sum()
+        return avg.to(flow.dtype)
+    return _ProjectFunction.apply(flow.contiguous(), fillhole, fix_down_scan_bug, flow_px, holes)
 
 
 def payload_project(op, flow, ins, threshold=0.0, fillhole=False):

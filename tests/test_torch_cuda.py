@@ -197,6 +197,83 @@ def test_fill_stage_matches_plain(rng, dev, dtype, density, W):
     close_projection(P.launch_fill(avg, masks, dtype), P.fill_stage_reference(avg, masks, dtype))
 
 
+@pytest.mark.parametrize("down", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("density", [0.1, 0.6, 0.0])
+@pytest.mark.parametrize("W", [97, 1100])
+def test_fill_hole_count_matches_plain(rng, dev, down, dtype, density, W):
+    """K3's count of pixels with no projected value (the tracer's holes)
+    equals the plain count, adds up over launches and leaves the fill as it
+    is without it."""
+    B, H = 2, 45
+    cnt = torch.from_numpy((rng.rand(B, H, W) < density).astype(np.float32)).to(dev)
+    avg = torch.from_numpy(rng.randn(B, 2, H, W).astype(np.float32)).to(dev) * (cnt > 0)[:, None]
+    masks = P.pack_masks(cnt > 0)
+    holes = torch.zeros((), dtype=torch.int64, device=dev)
+    got = P.launch_fill(avg, masks, dtype, down=down, holes=holes)
+    P.launch_fill(avg, masks, dtype, down=down, holes=holes)
+    assert int(holes) == 2 * int((cnt == 0).sum())
+    assert torch.equal(got, P.launch_fill(avg, masks, dtype, down=down))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["amp12", "pm200", "all_invalid"])
+def test_flow_project_counters_match_the_plain_path(rng, dev, dtype, kind):
+    """Inside a span under the profiler, K2's sum of |flow| and K3's hole
+    count equal the plain version's on the CPU, and add up over calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from memcnet_tpu_torch.utils import tracing
+
+    flow = projection_flow(rng, 2, 96, 160, kind).to(dtype)
+    counts = []
+    for f in (flow, flow.to(dev)):
+        tracing.reset()
+        with profile(activities=[ProfilerActivity.CPU]), tracing.span("project", f):
+            TP.flow_project(f, fillhole=True)
+            TP.flow_project(f, fillhole=True)
+        counts.append(tracing.snapshot()["counters"])
+    tracing.reset()
+    cpu, card = counts
+    assert cpu["holes"] == card["holes"] and cpu["holes"]["total"] == 2 * 2 * 96 * 160
+    assert cpu["holes"]["value"] > 0
+    assert card["flow_px"]["total"] == cpu["flow_px"]["total"] == 2 * 2 * 96 * 160
+    assert card["flow_px"]["value"] == pytest.approx(cpu["flow_px"]["value"], rel=1e-5)
+
+
+@pytest.mark.parametrize("name", ["MEMC_Net_s", "MEMC_Net_star"])
+def test_stage_spans_time_the_card(dev, name):
+    """Under the profiler every span has device ms from its events, the
+    stages' sum within the forward's, and each forward its allocator calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from memcnet_tpu_torch.utils import tracing
+
+    model = build_model(name, seed=1, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x0, x2 = (torch.rand(2, 3, 128, 256, device=dev, generator=g) for _ in range(2))
+    with torch.inference_mode():
+        model(x0, x2)
+        tracing.reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                model(x0, x2)
+    # the ranges stay on the host: no device event of their name
+    assert not [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name.startswith(tracing.PREFIX)]
+    snap = tracing.snapshot()
+    tracing.reset()
+    spans = snap["spans"]
+    assert snap["forwards"] == 3 and len(spans) == (8 if name == "MEMC_Net_star" else 7)
+    for s in spans.values():
+        assert s["calls"] == 3 and s["device_ms"] > 0.0
+    stages = sum(s["device_ms"] for n, s in spans.items() if n != "memc.forward")
+    assert stages <= spans["memc.forward"]["device_ms"] * 1.0001
+    assert snap["counters"]["cuda_allocs"]["total"] == 3
+    assert snap["counters"]["holes"]["total"] == 3 * 2 * 2 * 128 * 256
+
+
 def close_projection(got, ref):
     """float32 within 1e-3 (the atomics' order); bf16 within 2 ulps of each
     plain value."""

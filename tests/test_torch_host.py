@@ -90,8 +90,6 @@ def test_average_meter_and_stage_timers_match_jax():
     for t in (tt, jt):
         t.proc.avg, t.total.avg = 0.0123, 0.0456
     assert tt.summary() == jt.summary()
-    assert torch_tracing.frames_per_second(10, 2.0, n_chips=2) == \
-        jax_tracing.frames_per_second(10, 2.0, n_chips=2)
     with torch_tracing.device_trace(None):
         pass
 
