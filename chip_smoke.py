@@ -47,8 +47,9 @@ Phases (any failed check exits non-zero and prints no result line):
      MEMC_Net_s also SPyNet's forward alone (B = 2) with its device
      operations, and the same with the separate-op level input it replaced;
      then MEMC_Net_s served in float32, the default type, on 2 synthetic
-     1280x720 pairs through PaddedInterp(dtype=torch.float32): 30 K4
-     launches a frame, every one on K4's float32 body (csrc/conv_f32.cu,
+     1280x720 pairs through PaddedInterp(dtype=torch.float32): 54 K4
+     launches a frame (SPyNet's 30, the spec walkers' 24: thin trunk,
+     filter branches, RectifyNet), every one on K4's float32 body (csrc/conv_f32.cu,
      three TF32 passes on the tensor cores), the forward alone by CUDA
      events and that body's device ms and launches in one profiled forward,
      and the small float32 pair against the CPU path;
@@ -198,7 +199,7 @@ PEAK_BYTES = 3.35e12
 # float32: CUDA cores; tf32x3: float32 products as three TF32 passes on the
 # tensor cores (495 TFLOP/s), K4's float32 body
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
-# launches per served frame (SPyNet: 6 levels of 5 convs and 1 warp at 720p)
+# launches per served frame in bf16 (SPyNet: 6 levels of 5 convs and 1 warp at 720p)
 EXPECTED_PER_FRAME = {
     "MEMC_Net_star": {"filter_interp_warp": 2, "base_scatter": 1, "fill_holes": 1,
                       "conv2d_small": 1, "grid_sample": 0},
@@ -210,6 +211,13 @@ EXPECTED_PER_FRAME = {
     "MEMC_Net_VE": {"filter_interp_warp": 1, "base_scatter": 0, "fill_holes": 0,
                     "conv2d_small": 1, "grid_sample": 0},
 }
+# K4 launches that the spec walkers (models/mononet.py) add to a served float32
+# MEMC_Net_s frame: every 3x3 conv of its thin MonoNet5 trunk (12), two filter
+# branches (2 x 2) and RectifyNet (8) on K4's float32 body; in bf16 and in train
+# steps they run F.conv2d
+S_WALKER_F32_K4 = 24
+
+
 TPU_KERNELS = {
     "filter_interp_warp": ("memcnet_tpu_torch/csrc/warp.cu",
                            "memcnet_tpu/ops/pallas/warp_kernel.py:827"),
@@ -1019,7 +1027,8 @@ def phase_serve_f32(torch, results):
     """MEMC_Net_s served in float32, the port's default type (Config.dtype,
     build_model and PaddedInterp), on F32_PAIRS synthetic 1280x720 pairs, the
     counts set to 0 just before and read just after: EXPECTED_PER_FRAME's
-    launches, every K4 launch (30 a frame) on the float32 body; its forward
+    launches with the walkers' float32 K4 added, every K4 launch (54 a frame)
+    on the float32 body; its forward
     alone by CUDA events and one profiled forward, with the float32 K4
     body's device ms and launches there; the small float32 pair against the
     CPU path."""
@@ -1028,6 +1037,8 @@ def phase_serve_f32(torch, results):
     from memcnet_tpu_torch.ops import cuda as K
 
     name = "MEMC_Net_s"
+    expected = dict(EXPECTED_PER_FRAME[name],
+                    conv2d_small=EXPECTED_PER_FRAME[name]["conv2d_small"] + S_WALKER_F32_K4)
     small_err = small_pair_check(torch, name)
     model = build_model(name, seed=0, dtype=torch.float32, device="cuda")
     interp = PaddedInterp(model, dtype=torch.float32, device="cuda")
@@ -1045,13 +1056,13 @@ def phase_serve_f32(torch, results):
     counts, f32 = K.launch_counts(), K.body_counts()["conv2d_small[float32]"]
     log(f"  {name} float32: served {F32_PAIRS} pairs: ms/frame "
         f"{', '.join(f'{m:.3f}' for m in ms)}; launches {counts}, float32 K4 body {f32}")
-    for kname, per in {**TILE_COUNTERS, **EXPECTED_PER_FRAME[name]}.items():
+    for kname, per in {**TILE_COUNTERS, **expected}.items():
         if counts[kname] != per * F32_PAIRS:
             raise CheckFailed(f"{name} float32: {kname} launched {counts[kname]} times in "
                               f"{F32_PAIRS} frames, expected {per * F32_PAIRS}")
-    if f32 != EXPECTED_PER_FRAME[name]["conv2d_small"] * F32_PAIRS:
+    if f32 != expected["conv2d_small"] * F32_PAIRS:
         raise CheckFailed(f"{name} float32: {f32} launches of K4's float32 body in {F32_PAIRS} "
-                          f"frames, expected {EXPECTED_PER_FRAME[name]['conv2d_small']} a frame")
+                          f"frames, expected {expected['conv2d_small']} a frame")
     for out in outs:
         if out.shape != (3, FRAME_H, FRAME_W) or not np.isfinite(out).all():
             raise CheckFailed(f"{name} float32 served output: shape {out.shape}, "
@@ -1065,9 +1076,9 @@ def phase_serve_f32(torch, results):
     k4_ms, k4_n = sum(r[1] for r in k4), sum(r[2] for r in k4)
     log(f"  {name} float32 forward: K4's float32 body {k4_ms:.3f} device ms in {k4_n} launches "
         f"({len(k4)} instances) of {prof['kernel_ms']:.3f} device ms")
-    if k4_n != EXPECTED_PER_FRAME[name]["conv2d_small"]:
+    if k4_n != expected["conv2d_small"]:
         raise CheckFailed(f"{name} float32: the profiled forward ran {k4_n} launches of "
-                          f"{F32_K4_KERNEL}, expected {EXPECTED_PER_FRAME[name]['conv2d_small']}")
+                          f"{F32_K4_KERNEL}, expected {expected['conv2d_small']}")
     results["serve_f32"] = dict(
         model=name, ms_per_frame=ms, launches=counts, f32_launches=f32, small_pair_err=small_err,
         forward_ms=prof["forward_ms"], device_ms=prof["kernel_ms"], k4_f32_device_ms=k4_ms,

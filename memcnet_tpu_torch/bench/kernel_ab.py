@@ -36,9 +36,15 @@ K1tile``) on the tiles of star's split warp (67 channels, B = 1) at
 search on the +-20 px flow's average and masks, B = 2, bit for bit against
 its plain version, and ``flow_project`` with the down scan whole; these
 rows also count device operations as the nodes of a CUDA graph of the call
-(``probe.graph_ops``).  ``--rows`` picks groups of rows: projection, K1,
-K5, K4, tile, K1tile, fill (all by default).  The other tree must have the
-fused payload entries and K3's tile entry from avg, cnt.
+(``probe.graph_ops``).  K4 at the spec walkers' 3x3 convs (``--rows
+K4walk``, float32, B = 1 and 4): every conv of MonoNet5 thin at its 720p
+level, a filter branch's and RectifyNet2's, each beside ``F.conv2d`` (TF32
+off), its bounds and the float32 body's geometry; and each walk whole
+(``models/mononet.py``: the thin trunk, the two filter branches, the
+RectifyNet) as the measured tree runs it, with its float32 K4 launches.
+``--rows`` picks groups of rows: projection, K1, K5, K4, K4walk, tile,
+K1tile, fill (all by default).  The other tree must have the fused payload
+entries and K3's tile entry from avg, cnt.
 
 With ``--other DIR`` (a checkout of another commit, e.g. the parent unpacked
 with ``git archive``), the same measurements run on that tree's kernels too,
@@ -150,7 +156,18 @@ def max_ulps(torch, got, ref, slack):
     return float((((got.float() - ref.float()).abs() - slack).clamp(min=0.0) / ulp).max())
 
 
-ROW_GROUPS = ("projection", "K1", "K5", "K4", "tile", "K1tile", "fill")
+ROW_GROUPS = ("projection", "K1", "K5", "K4", "K4walk", "tile", "K1tile", "fill")
+# the spec walkers' 3x3 convs (models/mononet.py) at 720p: (part, C, O, level,
+# ReLU fused): MonoNet5 thin in walk order, a filter branch's first conv, RectifyNet2's
+WALKER_CONVS = [("trunk", 6, 16, 0, True), ("trunk", 16, 32, 0, True),
+                ("trunk", 32, 64, 1, True), ("trunk", 64, 128, 2, True),
+                ("trunk", 128, 256, 3, True), ("trunk", 256, 512, 4, True),
+                ("trunk", 512, 512, 5, True), ("trunk", 512, 256, 4, True),
+                ("trunk", 256, 128, 3, True), ("trunk", 128, 64, 2, True),
+                ("trunk", 64, 32, 1, True), ("trunk", 32, 16, 0, True),
+                ("branch", 16, 16, 0, True), ("rectify", 41, 64, 0, True),
+                ("rectify", 64, 64, 0, True), ("rectify", 64, 3, 0, False)]
+WALKER_BATCHES = (1, 4)
 TILE_HALO = 64
 TILE_GRIDS = (("tile4", None), ("tile2x2", "tile_h"))  # (data 1, tile 4), (1, 2, 2)
 # in the order timed, twice over (the best of the two passes is kept)
@@ -196,6 +213,8 @@ def measure(root, steps, groups=ROW_GROUPS):
             level_input_rows(torch, res, name, dt, gen, flush, level_lib)
         if "K4" in groups:
             conv_rows(torch, res, name, dt, gen, flush, conv_lib)
+        if "K4walk" in groups and dt == torch.float32:
+            walker_rows(torch, res, gen, flush)
         if "tile" in groups:
             tile_entry_rows(torch, res, name, dt, flush, *tile_libs)
         if "K1tile" in groups:
@@ -414,6 +433,77 @@ def conv_rows(torch, res, name, dt, gen, flush, step_lib=None):
                        .hexdigest()[:16])
         res[f"K4 {label} {name}"] = row
         del x, w, b, got, ref
+
+
+def walker_rows(torch, res, gen, flush):
+    """float32 K4 at the spec walkers' 3x3 convs (WALKER_CONVS), B = 1 and 4,
+    kaiming weights and uniform biases, each beside ``F.conv2d`` (TF32 off),
+    its bounds (3 TF32 passes at 495 TFLOP/s; the CUDA cores' 67), the
+    body's geometry, and its error from a float64 conv: the largest and the
+    mean of err * sign(exact), which reads below zero where the sums lean
+    toward zero (``F.conv2d``'s largest beside it); then each walk
+    whole as the measured tree's ``models/mononet.py`` runs it (eval mode),
+    with its float32 K4 launches."""
+    import torch.nn.functional as F
+
+    from memcnet_tpu_torch.models import mononet
+    from memcnet_tpu_torch.nn import init as I
+    from memcnet_tpu_torch.ops.cuda import conv_kernel
+
+    dev = torch.device("cuda")
+    wgen = torch.Generator().manual_seed(3)
+    for B in WALKER_BATCHES:
+        for part, cin, cout, lvl, relu in WALKER_CONVS:
+            h, w_ = H >> lvl, W >> lvl
+            x = torch.rand((B, cin, h, w_), generator=gen, device=dev) * 4.0 - 2.0
+            w = I.kaiming_uniform((cout, cin, 3, 3), wgen).to(dev)
+            b = (torch.rand((cout,), generator=wgen) - 0.5).to(dev)
+            got = conv_kernel.launch(x, w, b, relu=relu)
+
+            def library():
+                out = F.conv2d(x, w, b, padding=1)
+                return out.clamp_(min=0.0) if relu else out
+
+            flops = 2 * B * h * w_ * cout * cin * 9
+            t_bytes = (4 * B * h * w_ * (cin + cout) + 4 * w.numel()) / 3.35e12 * 1e3
+            geo = conv_kernel.f32_geometry(B, cin, h, w_, cout, 3)
+            ref64 = F.conv2d(x.double(), w.double(), b.double(), padding=1)
+            ref64 = ref64.clamp(min=0.0) if relu else ref64
+            e64 = got.double() - ref64
+            res[f"K4walk {part} {h}x{w_} {cin}->{cout} B{B}"] = dict(
+                ms=timed_ms(torch, lambda: conv_kernel.launch(x, w, b, relu=relu), flush),
+                err=float((got - conv_kernel.reference(x, w, b, relu=relu)).abs().max()),
+                err_f64=float(e64.abs().max()), lean_f64=float((e64 * ref64.sign()).mean()),
+                library_err_f64=float((library().double() - ref64).abs().max()),
+                library_ms=timed_ms(torch, library, flush),
+                bound_tf32x3_ms=max(t_bytes, 3 * flops / 495e12 * 1e3),
+                bound_cuda_cores_ms=max(t_bytes, flops / 67e12 * 1e3),
+                geometry={k: geo[k] for k in ("CG", "NT", "MT", "taps")})
+            del x, w, b, got, ref64, e64
+    fs2 = 16
+    walks = [("thin trunk", mononet.mononet5_specs(3, True, variant="thin"), 6, False),
+             ("filter branches", mononet.branch_specs(fs2), 16, True),
+             ("rectify", mononet.rectify_specs(3 + 4 + 2 * fs2 + 2), 41, False)]
+    for B in WALKER_BATCHES:
+        for label, specs, cin, dual in walks:
+            nets = [mononet.build_modulelist(specs).to(dev).eval() for _ in range(1 + dual)]
+            for net in nets:
+                mononet.init_specs(net, specs, I.kaiming_uniform, wgen)
+            x = torch.rand((B, cin, H, W), generator=gen, device=dev)
+
+            def walk():
+                with torch.inference_mode():
+                    if dual:
+                        return mononet.forward_dual_path(nets[0], nets[1], specs, x)
+                    return mononet.forward_single_path(nets[0], specs, x)
+
+            before = conv_kernel.f32_counter.count
+            walk()
+            launches = conv_kernel.f32_counter.count - before
+            res[f"K4walk walk {label} B{B}"] = dict(ms=timed_ms(torch, walk, flush),
+                                                   k4_f32=launches)
+            del nets, x
+            torch.cuda.empty_cache()
 
 
 def conv_f32_steps(torch, lib, conv_kernel, x, w, b, relu, want, ref, flush):

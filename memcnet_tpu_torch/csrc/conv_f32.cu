@@ -17,17 +17,21 @@
 // 3xTF32.  Each float32 operand v is split into hi = tf32(v) and
 // lo = tf32(v - hi), both rounded to nearest (cvt.rna.tf32.f32), and each
 // product is taken as lo*hi + hi*lo + hi*hi in three
-// mma.sync.m16n8k8.tf32 -> float32 steps into one float32 accumulator.  The
-// term dropped, lo*lo, is below 2^-22 of the product, and the splits keep
-// v to about 2^-22 of itself, so a sum of N products differs from the float32
-// one by about 2^-21 * sum|x w| at worst, and far less where the errors do not
-// line up (ops/cuda/conv_kernel.py::tf32x3_reference repeats the arithmetic
-// on the CPU).  The tensor cores also cut each MMA's sum short at the
-// accumulator's scale, an error that grows with the MMAs per output (3 per
-// 8-deep step): at SPyNet's 64 -> 32 convs, 1,176 of them, the outputs sit
-// up to 9e-5 from a float32 conv on the H100 (kernel_ab.py), against the
-// card's 5e-4 rule.  Inputs are split in registers as their fragments are
-// loaded; the wrapper splits the weights once (pack_f32_weights).
+// mma.sync.m16n8k8.tf32 -> float32 steps.  The term dropped, lo*lo, is below
+// 2^-22 of the product, and the splits keep v to about 2^-22 of itself, so a
+// sum of N products differs from the float32 one by about 2^-21 * sum|x w|
+// at worst, and far less where the errors do not line up
+// (ops/cuda/conv_kernel.py::tf32x3_reference repeats the arithmetic on the
+// CPU).  The tensor cores cut each MMA's sum short, toward zero, at the scale
+// of the accumulator it adds to.  Fed one running accumulator, that error
+// leans one way and grows with the MMAs an output sums (at 512 -> 512, 3x3,
+// about 1e-4 of the outputs' scale, and more through a net of such convs).
+// So each 8-deep step's three MMAs start from a zeroed accumulator, whose
+// scale is the step's own, and its sum joins the output's running sum by a
+// float32 add, rounded to nearest: the error then stays about that of a
+// float32 conv at any depth.  Inputs are split in registers as their
+// fragments are loaded; the wrapper splits the weights once
+// (pack_f32_weights).
 //
 // GEMM view: M = output pixels, N = output channels, depth = C*K*K ordered
 // (ky, kx, c), channels innermost, 8 deep per MMA step.  Channels go in
@@ -118,6 +122,25 @@ __device__ __forceinline__ void mma_tf32_1688(float (&c)[4], const uint32_t (&a)
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc += one 8-deep step of float32 products in three TF32 passes
+// (lo*hi + hi*lo + hi*hi), summed from zero and added to acc rounded to
+// nearest; PASSES = 1: hi*hi straight into acc
+template <int PASSES>
+__device__ __forceinline__ void mma_step(float (&acc)[4], const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                         uint32_t bl0, uint32_t bl1) {
+  if constexpr (PASSES == 3) {
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_tf32_1688(d, al, bh0, bh1);
+    mma_tf32_1688(d, ah, bl0, bl1);
+    mma_tf32_1688(d, ah, bh0, bh1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] += d[e];
+  } else {
+    mma_tf32_1688(acc, ah, bh0, bh1);
+  }
 }
 
 // shared-memory slot of chunk channel ci within a pixel: CG = 8 keeps
@@ -301,13 +324,7 @@ conv2d_tf32x3_kernel(const float* __restrict__ x, const float4* __restrict__ wp,
           }
         }
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          if constexpr (PASSES == 3) {
-            mma_tf32_1688(acc[m][j], al[m], bh0, bh1);
-            mma_tf32_1688(acc[m][j], ah[m], bl0, bl1);
-          }
-          mma_tf32_1688(acc[m][j], ah[m], bh0, bh1);
-        }
+        for (int m = 0; m < MT; ++m) mma_step<PASSES>(acc[m][j], ah[m], al[m], bh0, bh1, bl0, bl1);
       }
     }
   }
@@ -530,11 +547,7 @@ conv2d_tf32x3_taps_kernel(const float* __restrict__ x, const float4* __restrict_
         for (int m = 0; m < MT; ++m) {
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
-            if constexpr (PASSES == 3) {
-              mma_tf32_1688(acc[m][mt][n], al[m][mt], bh0, bh1);
-              mma_tf32_1688(acc[m][mt][n], ah[m][mt], bl0, bl1);
-            }
-            mma_tf32_1688(acc[m][mt][n], ah[m][mt], bh0, bh1);
+            mma_step<PASSES>(acc[m][mt][n], ah[m][mt], al[m][mt], bh0, bh1, bl0, bl1);
           }
         }
       }

@@ -9,7 +9,8 @@ Pipeline, for frames x0 and x2:
              mode only (memc_net.py:152)
   filter:    MonoNet5 trunk -> two fs^2-channel branches
   occlusion: MonoNet5 trunk -> 0.5 + two 1-channel branches
-             (filter and occlusion nets run as one groups=2 walk)
+             (filter and occlusion nets: two walks or one groups=2 walk,
+              as mononet.on_k4 decides)
              [_s: one thin trunk; occlusions = filter branch 0, channel 0]
   [star]:    ResNet conv1 (3 -> 64, 7x7) contexts of both frames, one call
   warp:      filter_interp_warp per frame [star: of (frame, context)]

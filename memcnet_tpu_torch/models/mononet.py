@@ -7,10 +7,15 @@ nn.ModuleList; ``build_modulelist`` makes that ModuleList, so state-dict keys
 are the reference's (e.g. ``initScaleNets_filter.12.weight``).  The walkers
 push the tensor entering each max-pool and add it back after each upsample
 (MEMC_Net.py:154-178).  BatchNorm follows each module's mode, so
-``model.train()`` switches it to batch statistics.  The JAX package's
-block-diagonal dense weights and its env-gated Pallas routing
-(mononet.py:27-41, 155-160) are TPU workarounds; here the paired
-filter/occlusion walk is a ``groups=2`` conv.
+``model.train()`` switches it to batch statistics.
+
+Each conv is 3x3, stride 1, 'same'.  ``on_k4`` decides, from the input's
+type and device and autograd's mode, whether it runs on kernel K4's float32 body with the
+following ReLU fused (the dispatch the JAX package keeps as
+``_conv_maybe_fast``, mononet.py:27-41) or on ``F.conv2d``, and so whether a
+filter/occlusion pair runs as two walks or as one walk of ``groups=2`` convs
+(where the JAX package builds block-diagonal dense weights,
+mononet.py:155-160).
 """
 
 import torch
@@ -138,17 +143,39 @@ def _bn(m, x):
     return y
 
 
+def on_k4(x):
+    """Whether the walkers run each conv on K4's float32 body
+    (``nn.layers.conv2d_k4``), the ReLU after it fused, and a pair of nets as
+    two walks on their own parameters (K4 takes no groups; no weight tensor is
+    built per call, so K4's packed weights stay cached): in a float32 forward
+    on the card that autograd does not record, as in serving, where cuDNN's
+    float32 convs have no tensor-core path with TF32 off.  Elsewhere each
+    conv is ``F.conv2d`` and a pair one walk of ``groups=2`` convs
+    (``grouped_dual_path``): in bf16 cuDNN runs tensor-core kernels of its
+    own; a train step would pay K4's weight packing after every update and
+    its backward's second forward (the plain version's); on the CPU the
+    grouped conv sums alike on any number of threads, which multi-process
+    runs compared byte for byte rely on."""
+    return x.dtype == torch.float32 and x.is_cuda and not torch.is_grad_enabled()
+
+
 def forward_single_path(modules, specs, x):
     """The reference stack walk (MEMC_Net.forward_singlePath); each BatchNorm
     runs in its module's mode (``model.train()`` / ``model.eval()``)."""
     stack = []
     cur = x
-    for kind, idx, _meta in specs:
+    k4 = on_k4(x)
+    relu_done = False
+    for si, (kind, idx, _meta) in enumerate(specs):
         m = modules[idx]
         if kind == "conv":
-            cur = L.conv2d(cur, m.weight, m.bias, stride=1, padding=1)
+            relu_done = k4 and si + 1 < len(specs) and specs[si + 1][0] == "relu"
+            cur = (L.conv2d_k4(cur, m.weight, m.bias, relu=relu_done) if k4
+                   else L.conv2d(cur, m.weight, m.bias, stride=1, padding=1))
         elif kind == "relu":
-            cur = L.relu(cur)
+            if not relu_done:
+                cur = L.relu(cur)
+            relu_done = False
         elif kind == "bn":
             cur = _bn(m, cur)
         elif kind == "maxpool":
@@ -162,10 +189,19 @@ def forward_single_path(modules, specs, x):
 
 
 def forward_dual_path(modules_a, modules_b, specs, x):
-    """Two identical-spec nets on the same input as one walk of ``groups=2``
-    convs (channels [a | b]).  Each half keeps its own BatchNorm, in that
-    module's mode: per-channel statistics make this the JAX walk's BatchNorm
-    over the concatenated channels.  Returns (out_a, out_b)."""
+    """Two identical-spec nets on the same input, as ``on_k4`` decides: two
+    walks or one grouped walk.  Returns (out_a, out_b)."""
+    if on_k4(x):
+        return (forward_single_path(modules_a, specs, x),
+                forward_single_path(modules_b, specs, x))
+    return grouped_dual_path(modules_a, modules_b, specs, x)
+
+
+def grouped_dual_path(modules_a, modules_b, specs, x):
+    """The two nets as one walk of ``groups=2`` convs (channels [a | b]), on
+    ``F.conv2d`` (where ``on_k4`` is false).  Each half keeps its own BatchNorm, in that module's mode:
+    per-channel statistics make this the JAX walk's BatchNorm over the
+    concatenated channels.  Returns (out_a, out_b)."""
     stack = []
     cur = torch.cat([x, x], dim=1)
     for kind, idx, _meta in specs:

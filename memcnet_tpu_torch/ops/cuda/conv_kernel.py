@@ -11,7 +11,12 @@ type.  It serves any spatial size; the TPU path's 96x96 gate was a TPU
 heuristic.
 
 Its callers: the ctx conv (3 -> 64) and every conv of SPyNet's 7x7 stacks
-(8 -> 32 -> 64 -> 32 -> 16 -> 2, bias, ReLU on the first four).
+(8 -> 32 -> 64 -> 32 -> 16 -> 2, bias, ReLU on the first four); and, in
+a float32 forward on the card that autograd does not record (serving), every
+3x3 conv of the MonoNet5 trunks, their branches and the RectifyNet
+(``models/mononet.py``'s walkers, bias, the following ReLU fused): 54 float32
+launches a MEMC_Net_s forward at 720p (SPyNet 30, thin trunk 12, branches 4,
+RectifyNet 8).
 
 Two kernel bodies, chosen by dtype (no switch, no fallback):
 
@@ -41,7 +46,10 @@ Two kernel bodies, chosen by dtype (no switch, no fallback):
   groups).  Where O * K <= 16 and C <= 64 (SPyNet's 16 -> 2 convs) it runs
   the small-O variant instead: N = (o, kx), so that an MMA's columns hold
   taps rather than 6 of 8 padding channels, and a shifted sum over kx in
-  the epilogue (``pack_f32_tap_weights``).
+  the epilogue (``pack_f32_tap_weights``).  Each 8-deep step's three MMAs
+  sum from zero and join the output's float32 running sum rounded to
+  nearest, so the tensor cores' short, zero-leaning sums do not build up
+  with the depth (``csrc/conv_f32.cu``).
 """
 
 from collections import OrderedDict
@@ -60,7 +68,9 @@ F32_NT = (8, 16, 32, 64)  # output channels per block of the float32 body
 TAP_N = 16      # the float32 body's small-O variant: N = o * K + kx, padded to 16
 TAP_MAX_C = 64  # ... with every chunk's weights staged at once
 SMS = 132  # the H100's SMs; two blocks of the float32 body fit on one
-_PACK_CACHE_SIZE = 64
+# one packing a weight tensor: a float32 MEMC_Net forward packs 92 (SPyNet's 30,
+# its walkers' 62)
+_PACK_CACHE_SIZE = 128
 _packed = OrderedDict()  # weight tensor identity -> (weight, prepared), most recent last
 
 

@@ -103,3 +103,30 @@ def test_kernel_ab_k1_tile_and_fill_rows_take_phase_8s_inputs(monkeypatch, capsy
     with open(os.path.join(kernel_ab.HERE, "warp_tile_steps.cu")) as f:
         cases = {int(c) for c in re.findall(r"case (\d+):", f.read())}
     assert cases == {step for step, _ in kernel_ab.WARP_TILE_STEPS}
+
+
+def test_kernel_ab_k4walk_rows_are_the_walkers_convs(monkeypatch, capsys):
+    """``--rows K4walk`` is accepted (and refused without a card); its rows are
+    every conv of MonoNet5 thin at its 720p level in walk order, a filter
+    branch's first conv and RectifyNet2's, each with the ReLU its walker
+    fuses."""
+    from memcnet_tpu_torch.models import mononet
+
+    def convs(specs, level=0):
+        out = []
+        for i, (kind, _, meta) in enumerate(specs):
+            level += {"maxpool": 1, "upsample": -1}.get(kind, 0)
+            if kind == "conv":
+                fused = i + 1 < len(specs) and specs[i + 1][0] == "relu"
+                out.append((meta[0], meta[1], level, fused))
+        return out
+
+    rows = {part: [(c, o, lvl, relu) for p, c, o, lvl, relu in kernel_ab.WALKER_CONVS if p == part]
+            for part in ("trunk", "branch", "rectify")}
+    assert rows["trunk"] == convs(mononet.mononet5_specs(3, True, variant="thin"))
+    assert rows["branch"] == convs(mononet.branch_specs(16))[:1]
+    assert sorted(set(rows["rectify"])) == sorted(set(convs(mononet.rectify_specs(41))))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["kernel_ab.py", "--rows", "K4walk"])
+    assert kernel_ab.main() == 1
+    assert "CUDA" in capsys.readouterr().err

@@ -42,6 +42,13 @@ ATOL = 1e-4
 NO_TILE_ENTRIES = {"filter_interp_warp_tile": 0, "base_scatter_tile": 0, "fill_holes_carry": 0,
                    "level_input_tile": 0,
                    "base_scatter_payload_tile": 0}
+# K4 launches of the spec walkers (models/mononet.py) in a float32 forward, one
+# for each 3x3 conv: star's two full MonoNet5 trunks (2 x 23) and four branches
+# (4 x 2); MEMC_Net's the same and the RectifyNet (8); MEMC_Net_s's thin trunk
+# (12), two filter branches (2 x 2) and RectifyNet (8); VE's full trunk and one
+# branch.  In bf16, and in a forward autograd records (a train step), the
+# walkers launch no K4.
+WALKER_K4 = {"MEMC_Net_star": 54, "MEMC_Net": 62, "MEMC_Net_s": 24, "MEMC_Net_VE": 25}
 
 
 @pytest.fixture
@@ -637,8 +644,27 @@ def test_served_path_launches_every_kernel_and_matches_cpu(rng, dev):
     K.reset_counters()
     got, _ = PaddedInterp(build_model(seed=1, device=dev), device=dev)(a, b)
     assert K.launch_counts() == {"filter_interp_warp": 2, "base_scatter": 1,
-                                 "fill_holes": 1, "conv2d_small": 1, "grid_sample": 0,
-                                 **NO_TILE_ENTRIES}
+                                 "fill_holes": 1,
+                                 "conv2d_small": 1 + WALKER_K4["MEMC_Net_star"],
+                                 "grid_sample": 0, **NO_TILE_ENTRIES}
+    assert float(np.abs(got - ref).max()) <= 1e-3
+
+
+def test_memc_net_float32_served_path_runs_its_walkers_on_k4_and_matches_cpu(rng, dev):
+    """MEMC_Net in float32 at 128x128 (padded from 60x90): its dual MonoNet5
+    trunks, four branches and RectifyNet run every 3x3 conv on K4's float32
+    body (62 launches, FlowNetS none); the output within 1e-3 of the CPU
+    path's, as its siblings'."""
+    a = rng.rand(3, 60, 90).astype(np.float32)
+    b = np.roll(a, (1, 2), axis=(1, 2))
+    ref, _ = PaddedInterp(build_model("MEMC_Net", seed=1, device="cpu"), device="cpu")(a, b)
+    K.reset_counters()
+    got, _ = PaddedInterp(build_model("MEMC_Net", seed=1, device=dev), device=dev)(a, b)
+    assert K.launch_counts() == {"filter_interp_warp": 2, "base_scatter": 1,
+                                 "fill_holes": 1, "conv2d_small": WALKER_K4["MEMC_Net"],
+                                 "grid_sample": 0, **NO_TILE_ENTRIES}
+    assert K.body_counts() == {"conv2d_small[float32]": WALKER_K4["MEMC_Net"]}
+    assert np.isfinite(got).all() and got.shape == (3, 60, 90)
     assert float(np.abs(got - ref).max()) <= 1e-3
 
 
@@ -656,7 +682,8 @@ def offset_spynet(model):
 
 def test_memc_s_served_path_launches_its_kernels_and_matches_cpu(rng, dev):
     """MEMC_Net_s at 128x128 (padded from 60x90): SPyNet runs three levels,
-    so K4 launches 15 times and K5 3 times."""
+    so K4 launches 15 times there and K5 3 times; the walkers' convs add
+    theirs."""
     a = rng.rand(3, 60, 90).astype(np.float32)
     b = np.roll(a, (1, 2), axis=(1, 2))
     models = [offset_spynet(build_model("MEMC_Net_s", seed=1, device=d)) for d in ("cpu", dev)]
@@ -664,16 +691,17 @@ def test_memc_s_served_path_launches_its_kernels_and_matches_cpu(rng, dev):
     K.reset_counters()
     got, _ = PaddedInterp(models[1], device=dev)(a, b)
     assert K.launch_counts() == {"filter_interp_warp": 2, "base_scatter": 1,
-                                 "fill_holes": 1, "conv2d_small": 15, "grid_sample": 3,
-                                 **NO_TILE_ENTRIES}
+                                 "fill_holes": 1, "conv2d_small": 15 + WALKER_K4["MEMC_Net_s"],
+                                 "grid_sample": 3, **NO_TILE_ENTRIES}
     assert np.isfinite(got).all() and got.shape == (3, 60, 90)
     assert float(np.abs(got - ref).max()) <= 1e-3
 
 
 def test_ve_served_path_launches_its_kernels_and_matches_cpu(rng, dev):
     """MEMC_Net_VE at 128x128 (padded from 40x100): one split warp and one
-    ctx conv per window, no projection; within 1e-3 of the output's scale of
-    the CPU path (random kaiming weights put it in the thousands)."""
+    ctx conv per window, no projection, and the walkers' float32 convs;
+    within 1e-3 of the output's scale of the CPU path (random kaiming weights
+    put it in the thousands)."""
     base = rng.rand(3, 60, 120).astype(np.float32)
     frames = [np.ascontiguousarray(base[:, 10 + d:50 + d, 10 + 2 * d:110 + 2 * d])
               for d in range(-3, 4)]
@@ -681,8 +709,8 @@ def test_ve_served_path_launches_its_kernels_and_matches_cpu(rng, dev):
     K.reset_counters()
     got = PaddedVE(build_model("MEMC_Net_VE", seed=1, device=dev), device=dev)(frames)
     assert K.launch_counts() == {"filter_interp_warp": 1, "base_scatter": 0,
-                                 "fill_holes": 0, "conv2d_small": 1, "grid_sample": 0,
-                                 **NO_TILE_ENTRIES}
+                                 "fill_holes": 0, "conv2d_small": 1 + WALKER_K4["MEMC_Net_VE"],
+                                 "grid_sample": 0, **NO_TILE_ENTRIES}
     assert np.isfinite(got).all() and got.shape == (3, 40, 100)
     assert float(np.abs(got - ref).max()) <= 1e-3 * max(1.0, float(np.abs(ref).max()))
 
@@ -702,9 +730,10 @@ def run_demo(main, args, device):
 
 
 def test_hd720p_demo_launches_its_kernels_and_matches_cpu(dev, tmp_path):
-    """MEMC_Net_star over a 5-frame 64x128 stream, 2 pairs: 2 K1, 1 K2, 1 K3
-    and 1 K4 a pair; ground truth in the output stream byte-equal, the
-    reconstructions within 1 level of the CPU run's."""
+    """MEMC_Net_star in float32 over a 5-frame 64x128 stream, 2 pairs: 2 K1,
+    1 K2, 1 K3 and 1 + 54 K4 a pair (the ctx conv, the walkers' convs);
+    ground truth in the output stream byte-equal, the reconstructions within
+    1 level of the CPU run's."""
     src = probe.write_yuv(str(tmp_path / "in.yuv"), probe.moving_frames(0, 5, 64, 128))
     streams = {}
     for d in ("cpu", "cuda"):
@@ -713,15 +742,17 @@ def test_hd720p_demo_launches_its_kernels_and_matches_cpu(dev, tmp_path):
             "--out-dir", str(tmp_path / d), "--net-name", "MEMC_Net_star", "--uid", "u"], d)
         streams[d] = np.fromfile(str(tmp_path / d / "u" / "in.yuv"), np.uint8).reshape(4, -1)
     assert counts == {"filter_interp_warp": 4, "base_scatter": 2, "fill_holes": 2,
-                      "conv2d_small": 2, "grid_sample": 0, **NO_TILE_ENTRIES}
+                      "conv2d_small": 2 * (1 + WALKER_K4["MEMC_Net_star"]), "grid_sample": 0,
+                      **NO_TILE_ENTRIES}
     np.testing.assert_array_equal(streams["cuda"][0::2], streams["cpu"][0::2])
     assert_levels_close(streams["cuda"][1::2], streams["cpu"][1::2])
 
 
 def test_middlebury_demo_memc_s_launches_its_kernels_and_matches_cpu(dev, tmp_path):
-    """MEMC_Net_s on two 64x96 sequences (padded to 128x128: SPyNet runs
-    three levels, 15 K4 and 3 K5 launches a pair), weights offset as in
-    offset_spynet and shared through one .pth."""
+    """MEMC_Net_s in float32 on two 64x96 sequences (padded to 128x128:
+    SPyNet runs three levels, 15 K4 and 3 K5 launches a pair, and the
+    walkers 24 K4), weights offset as in offset_spynet and shared through one
+    .pth."""
     data, gt = probe.write_middlebury(str(tmp_path / "mb"), ["A", "B"], 64, 96)
     pth = str(tmp_path / "s.pth")
     torch.save(offset_spynet(build_model("MEMC_Net_s", seed=1, device="cpu")).state_dict(), pth)
@@ -734,7 +765,8 @@ def test_middlebury_demo_memc_s_launches_its_kernels_and_matches_cpu(dev, tmp_pa
         (uid,) = out.iterdir()
         outs[d] = (results, [imread(str(uid / n / "frame10i11.png")) for n in ("A", "B")])
     assert counts == {"filter_interp_warp": 4, "base_scatter": 2, "fill_holes": 2,
-                      "conv2d_small": 30, "grid_sample": 6, **NO_TILE_ENTRIES}
+                      "conv2d_small": 2 * (15 + WALKER_K4["MEMC_Net_s"]), "grid_sample": 6,
+                      **NO_TILE_ENTRIES}
     for (_, ie, _), (_, ie_cpu, _) in zip(outs["cuda"][0], outs["cpu"][0]):
         assert abs(ie - ie_cpu) <= 0.01
     for got, want in zip(outs["cuda"][1], outs["cpu"][1]):
@@ -742,7 +774,8 @@ def test_middlebury_demo_memc_s_launches_its_kernels_and_matches_cpu(dev, tmp_pa
 
 
 def test_vimeo_ve_demo_launches_its_kernels_and_matches_cpu(dev, tmp_path):
-    """MEMC_Net_VE on one 64x96 septuplet: 1 K1 and 1 K4 a window.  The .pth
+    """MEMC_Net_VE in float32 on one 64x96 septuplet: 1 K1 and 1 + 25 K4 a
+    window (the ctx conv, the walkers' convs).  The .pth
     scales the rectifier's last conv by 1e-3, so the output is not all 0 or
     255 (random kaiming EDSR outputs are in the thousands)."""
     root = probe.write_vimeo(str(tmp_path / "vimeo"), 1, 64, 96)
@@ -758,7 +791,8 @@ def test_vimeo_ve_demo_launches_its_kernels_and_matches_cpu(dev, tmp_path):
             "--pretrained", pth], d)
         recs[d] = imread(str(tmp_path / d / "00001" / "0001" / "im4.png"))
     assert counts == {"filter_interp_warp": 1, "base_scatter": 0, "fill_holes": 0,
-                      "conv2d_small": 1, "grid_sample": 0, **NO_TILE_ENTRIES}
+                      "conv2d_small": 1 + WALKER_K4["MEMC_Net_VE"], "grid_sample": 0,
+                      **NO_TILE_ENTRIES}
     assert_levels_close(recs["cuda"], recs["cpu"])
 
 
@@ -1289,8 +1323,9 @@ def scale_flows(model, flow, px=3.0):
 def test_partitioned_forward_on_the_card_launches_tile_entries_and_matches(rng, dev, name):
     """The partitioned float32 forward on (1, 2, 2) at 128x128: 2 K1 tile, 1
     K2 tile and 1 K3 carry launches (and star's 1 K4; MEMC_Net_s's SPyNet 3
-    levels of 5 K4 and 1 K5 tile entry), no global K1-K3 or K5, and every
-    output within 1e-4 of its scale of the untiled forward on the card."""
+    levels of 5 K4 and 1 K5 tile entry; the walkers' K4 on halo-extended
+    tiles), no global K1-K3 or K5, and every output within 1e-4 of its scale
+    of the untiled forward on the card."""
     from memcnet_tpu_torch.parallel import gather_frames, shard_frames, spatial_tiling
 
     model = build_model(name, seed=0, device=dev)
@@ -1306,7 +1341,8 @@ def test_partitioned_forward_on_the_card_launches_tile_entries_and_matches(rng, 
             got = [gather_frames(mesh, t) for t in (gi, gr, *goffs)]
     spy = name == "MEMC_Net_s"
     assert K.launch_counts() == {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
-                                 "conv2d_small": 15 if spy else int(name == "MEMC_Net_star"),
+                                 "conv2d_small": WALKER_K4[name] + (
+                                     15 if spy else int(name == "MEMC_Net_star")),
                                  "grid_sample": 0, "filter_interp_warp_tile": 2,
                                  "base_scatter_tile": 1, "fill_holes_carry": 1,
                                  "level_input_tile": 3 if spy else 0,
@@ -1317,9 +1353,9 @@ def test_partitioned_forward_on_the_card_launches_tile_entries_and_matches(rng, 
 
 def test_partitioned_ve_on_the_card_launches_tile_entries_and_matches(rng, dev):
     """MEMC_Net_VE's partitioned float32 forward on (1, 2, 2) at 128x128: one
-    K1 tile launch (the 6B split warp) and one K4 (the 7B ctx conv on
-    halo-extended tiles), nothing else, within 1e-4 of the output's scale of
-    the untiled forward on the card."""
+    K1 tile launch (the 6B split warp), one K4 (the 7B ctx conv on
+    halo-extended tiles) and the walkers' K4, nothing else, within 1e-4 of
+    the output's scale of the untiled forward on the card."""
     from memcnet_tpu_torch.parallel import gather_frames, shard_frames, spatial_tiling
 
     model = build_model("MEMC_Net_VE", seed=0, device=dev)
@@ -1334,7 +1370,7 @@ def test_partitioned_ve_on_the_card_launches_tile_entries_and_matches(rng, dev):
             got = [gather_frames(mesh, t)
                    for t in model(list(shard_frames(mesh, *frames)), debug=True)]
     assert K.launch_counts() == {"filter_interp_warp": 0, "base_scatter": 0, "fill_holes": 0,
-                                 "conv2d_small": 1, "grid_sample": 0,
+                                 "conv2d_small": 1 + WALKER_K4["MEMC_Net_VE"], "grid_sample": 0,
                                  "filter_interp_warp_tile": 1, "base_scatter_tile": 0,
                                  "fill_holes_carry": 0, "level_input_tile": 0,
                                  "base_scatter_payload_tile": 0}
@@ -1632,11 +1668,11 @@ def test_conv_f32_at_every_spynet_level(dev, frame, level):
 
 @pytest.mark.parametrize("K", [3, 5, 7])
 @pytest.mark.parametrize("O", [2, 16, 32, 64])
-@pytest.mark.parametrize("C", [3, 8, 16, 32, 64])
+@pytest.mark.parametrize("C", [3, 8, 16, 32, 64, 136])
 def test_conv_f32_bias_relu_ragged(rng, dev, C, O, K):
     """Every channel chunking (C = 3: two taps a step) and output group of
     the float32 body, K 3, 5 and 7, widths 4 does not divide (W % 4 = 1, 2,
-    3), with and without bias and ReLU."""
+    3), with and without bias and ReLU; C = 136 sums 153 8-deep steps."""
     for H, W, bias, relu in ((21, 45, False, False), (19, 38, False, True),
                              (40, 75, True, False)):
         x = torch.from_numpy(rng.randn(2, C, H, W).astype(np.float32)).to(dev)
@@ -1665,6 +1701,108 @@ def test_conv_f32_on_halo_extended_tiles(dev, grid, cin, cout):
         got = p.merge(L.conv2d_k4(p.split(x), w, b, relu=relu))
     assert K.body_counts() == {"conv2d_small[float32]": 1}
     assert float((got - want).abs().max()) <= F32_K4_ATOL
+
+
+# the spec walkers' 3x3 convs (models/mononet.py), (C, O): MonoNet5 thin's, then
+# RectifyNet2's (64 -> 3 on the small-O variant, N = (o, kx))
+WALKER_CONVS = [(6, 16), (16, 32), (32, 64), (256, 512), (512, 512), (41, 64), (64, 64),
+                (64, 3)]
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("cin,cout", WALKER_CONVS)
+def test_conv_f32_at_the_walkers_3x3_shapes(dev, cin, cout, B):
+    """K4's float32 body at the walkers' 3x3 shapes, 24x42 (a 720p trunk's
+    deepest level), B = 1 and 4, bias, ReLU fused unless the conv is the last
+    to 3 channels, kaiming weights as the models draw them: one launch,
+    within F32_K4_ATOL of F.conv2d in float64."""
+    import torch.nn.functional as F
+
+    from memcnet_tpu_torch.nn import init as I
+
+    gen = torch.Generator().manual_seed(1000 * cin + 10 * cout + B)
+    x = torch.rand((B, cin, 24, 42), generator=gen) * 4.0 - 2.0
+    w = I.kaiming_uniform((cout, cin, 3, 3), gen)
+    b = torch.rand((cout,), generator=gen) - 0.5
+    relu = cout != 3
+    want = F.conv2d(x.double(), w.double(), b.double(), padding=1)
+    want = want.clamp(min=0.0) if relu else want
+    assert conv_kernel.f32_geometry(B, cin, 24, 42, cout, 3)["taps"] == (cout == 3)
+    K.reset_counters()
+    got = conv_kernel.conv2d_small(x.to(dev), w.to(dev), b.to(dev), relu=relu)
+    assert K.body_counts() == {"conv2d_small[float32]": 1}
+    assert float((got.cpu().double() - want).abs().max()) <= F32_K4_ATOL, (cin, cout, B)
+
+
+@pytest.mark.parametrize("cin,cout,h,w", [(256, 512, 24, 42), (512, 512, 24, 42),
+                                         (512, 256, 48, 84)])
+def test_conv_f32_error_does_not_lean_toward_zero(dev, cin, cout, h, w):
+    """The tensor cores cut each MMA's sum short, toward zero, at the scale of
+    the accumulator it adds to: fed one running accumulator, K4's float32
+    error leaned toward zero and grew with the input channels (at 512 -> 512,
+    3x3, a max error of 2.6e-4 and a mean err x sign(exact) of -1.7e-5 on
+    the H100).  Each 8-deep step summed from zero and added in float32 keeps
+    the walkers' widest convs, B = 4, within 5e-5 of a float64 conv and that
+    mean within +-1e-6."""
+    import torch.nn.functional as F
+
+    from memcnet_tpu_torch.nn import init as I
+
+    gen = torch.Generator().manual_seed(cin + cout + h)
+    x = torch.rand((4, cin, h, w), generator=gen) * 4.0 - 2.0
+    wt = I.kaiming_uniform((cout, cin, 3, 3), gen)
+    b = torch.rand((cout,), generator=gen) - 0.5
+    want = F.conv2d(x.double(), wt.double(), b.double(), padding=1)
+    err = conv_kernel.conv2d_small(x.to(dev), wt.to(dev), b.to(dev)).cpu().double() - want
+    assert float(err.abs().max()) <= 5e-5
+    assert abs(float((err * want.sign()).mean())) <= 1e-6
+
+
+def span_kernels(prof, name):
+    """Names of the device kernels launched under each host range ``name`` of
+    a torch.profiler profile (each CPU event's kernels, over its subtree)."""
+    found = []
+
+    def walk(e):
+        found.extend(k.name for k in e.kernels)
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in prof.events():
+        if e.name == name:
+            walk(e)
+    return found
+
+
+def test_memc_s_float32_walkers_run_on_k4_with_their_weights_packed_once(dev):
+    """A MEMC_Net_s float32 forward at 128x640 (SPyNet's six levels, as at
+    720p), B = 2, under inference_mode: 54 launches of K4's float32 body
+    (SPyNet 30, thin trunk 12, branches 4, RectifyNet 8); a second forward
+    packs no weight (every walker weight hits conv_kernel's cache); under the
+    profiler memc.filters runs 16 of K4's kernels (trunk 12, branches 4) and
+    memc.rectify 8, and neither a cuDNN, FFT or complex-GEMM kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = build_model("MEMC_Net_s", seed=1, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x0, x2 = (torch.rand(2, 3, 128, 640, device=dev, generator=g) for _ in range(2))
+    with torch.inference_mode():
+        K.reset_counters()
+        model(x0, x2)
+        assert K.body_counts() == {"conv2d_small[float32]": 30 + WALKER_K4["MEMC_Net_s"]}
+        packed = list(conv_kernel._packed)
+        K.reset_counters()
+        model(x0, x2)
+        assert K.body_counts() == {"conv2d_small[float32]": 30 + WALKER_K4["MEMC_Net_s"]}
+        assert len(packed) >= 54 and set(conv_kernel._packed) == set(packed)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model(x0, x2)
+            torch.cuda.synchronize()
+    for span, n in (("memc.filters", 16), ("memc.rectify", 8)):
+        names = span_kernels(prof, span)
+        assert sum("conv2d_tf32x3" in k for k in names) == n, (span, names)
+        assert not [k for k in names
+                    if any(t in k.lower() for t in ("cudnn", "fft", "cf32", "xmma", "gemm"))], names
 
 
 # bf16 K4 on fixed inputs: (C, O, K, H, W, bias and ReLU)

@@ -13,6 +13,7 @@ last convs get a constant bias besides, so its flow sits near (0.35, 0.21) px
 after halving, at least MARGIN from every cell boundary.
 """
 
+import copy
 import functools
 
 import numpy as np
@@ -156,3 +157,74 @@ def test_thin_mononet_matches_jax(rng, with_bn):
 
 def test_rectify_specs_match_jax():
     assert mononet.rectify_specs(41) == jmono.rectify_specs(41)
+
+
+DUAL_WALKS = {  # specs and input channels of each paired walk the models run
+    "full trunk": (mononet.mononet5_specs(3, True, variant="full"), 6),
+    "full trunk, no BatchNorm": (mononet.mononet5_specs(3, False, variant="full"), 6),
+    "thin trunk": (mononet.mononet5_specs(3, True, variant="thin"), 6),
+    "filter branch": (mononet.branch_specs(16), 16),
+    "occlusion branch": (mononet.branch_specs(1), 16),
+}
+
+
+def k4_route_on_the_cpu(monkeypatch):
+    """Take the walkers' card route (``mononet.on_k4``) on float32 CPU tensors,
+    where ``nn.layers.conv2d_k4`` runs K4's plain version; count its convs."""
+    from memcnet_tpu_torch.ops.cuda import conv_kernel
+
+    monkeypatch.setattr(mononet, "on_k4", lambda x: x.dtype == torch.float32)
+    calls = []
+    plain = conv_kernel.conv2d_small
+    monkeypatch.setattr(conv_kernel, "conv2d_small",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    return calls
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("walk", sorted(DUAL_WALKS))
+def test_float32_dual_walk_equals_the_grouped_walk(rng, monkeypatch, walk, train):
+    """On K4's route the paired walk runs as two single walks (each conv on
+    K4's float32 body, its ReLU fused); it equals the groups=2 walk to float32
+    rounding (1e-5 of each output's scale), in eval mode and in train mode,
+    where the running statistics it writes agree too."""
+    calls = k4_route_on_the_cpu(monkeypatch)
+    specs, cin = DUAL_WALKS[walk]
+    mods = torch.nn.ModuleDict({"a": mononet.build_modulelist(specs),
+                                "b": mononet.build_modulelist(specs)})
+    flat = numpy_params({k: v for k, v in state_shapes(mods).items()
+                         if "num_batches_tracked" not in k}, 7)
+    for k in flat:
+        if k.endswith("running_var"):
+            flat[k] = (rng.rand(*flat[k].shape) + 0.5).astype(np.float32)
+    load_jax_params(mods, flat)
+    twin = copy.deepcopy(mods)
+    for m in (mods, twin):
+        m.train(train)
+    x = torch.from_numpy(rng.rand(2, cin, 64, 64).astype(np.float32))
+    with torch.no_grad():
+        got = mononet.forward_dual_path(mods["a"], mods["b"], specs, x)
+        want = mononet.grouped_dual_path(twin["a"], twin["b"], specs, x)
+    assert len(calls) == 2 * sum(kind == "conv" for kind, _, _ in specs)
+    for g, w in zip(got, want):
+        close(g, w.numpy(), 1e-5)
+    for (k, g), w in zip(mods.state_dict().items(), twin.state_dict().values()):
+        close(g.float(), w.float().numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("name,convs", [("MEMC_Net", 62), ("MEMC_Net_s", 15 + 24)])
+def test_forward_on_the_k4_route_matches_jax(monkeypatch, name, convs):
+    """The forward with the walkers on K4's route (every 3x3 conv of the
+    trunks, branches and RectifyNet through conv2d_k4, ReLU fused, each pair
+    as two walks; MEMC_Net_s's SPyNet 15 convs there already) matches the
+    JAX package's as the plain route does."""
+    calls = k4_route_on_the_cpu(monkeypatch)
+    net = built(name)
+    with torch.no_grad():
+        got = net["model"](torch.from_numpy(net["x0"]), torch.from_numpy(net["x2"]))
+    assert len(calls) == convs
+    (gi, gr), goffs, gfilts, goccs = got
+    (wi, wr), woffs, wfilts, woccs = net["want"]
+    for g, w in [(gi, wi), (gr, wr), *zip(goffs, woffs), *zip(gfilts, wfilts),
+                 *zip(goccs, woccs)]:
+        close(g, w, MODEL_TOL)
