@@ -3,9 +3,9 @@
 The run keeps a sample of the window's frames, drawn from its seed, as they
 reached the host.  Once the window has closed and the program's state is
 freed, the configuration's plain float32 reference (``benchmark/reference``,
-TF32 off) computes each sampled pair again, one pair at a time, from the same
-padded frames and the same seeded weights, and each frame is compared with
-the reference's:
+TF32 off) computes each sampled frame again, one sample at a time, from the
+same padded input frames and the same seeded weights, and each frame is
+compared with the reference's:
 
   rms_rel   RMS of (frame - reference) over the RMS of the reference frame
   p50_rel   the median of |frame - reference| over the same RMS
@@ -54,14 +54,15 @@ class Reference:
             f"benchmark.reference.{config['reference']}").forward
         self.tensors = W.make(template, config["init"], seed, device)
 
-    def frames(self, x0, x2, crop, operands="float32"):
-        """The reference's rectified frame of each pair, cropped."""
+    def frames(self, frames, crop, operands="float32"):
+        """The reference's output frame of each sample, cropped: ``frames``
+        are the sample's inputs, each (B, 3, H, W) float32."""
         flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
             with torch.inference_mode():
-                out = self.forward(Params(self.tensors, Operands(operands)), x0, x2)
+                out = self.forward(Params(self.tensors, Operands(operands)), *frames)
         finally:
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
         return out[crop]

@@ -2,9 +2,9 @@
 
 Each model has a module here, named in its configuration's ``counts``, with
 ``flops(H, W)``: the multiply-adds (two operations each) of every conv and
-transposed conv of one interpolated pair at the padded size H x W, as
+transposed conv of one sample's output frame at the padded size H x W, as
 ``torch.utils.flop_counter`` counts them; and ``kernels(B, H, W, esize)``:
-for each hand kernel of the program that the forward of B pairs runs, the
+for each hand kernel of the program that the forward of B samples runs, the
 list of its launches' (bytes, operations, peak) -- each input byte read once,
 each output byte written once -- against which its roofline share is read.
 """
@@ -24,19 +24,25 @@ def deconv(b, cin, cout, k, hi, wi):
     return 2 * b * cin * cout * k * k * hi * wi
 
 
-def unet(blocks, h, w, b=1):
-    """Operations of a MonoNet5 trunk of ``blocks`` (reference/layers.py)
-    at h x w: 3x3 convs at each level, max-pools halve, upsamples double."""
-    total = 0
+def unet_convs(blocks, h, w, b=1):
+    """(b, cin, cout, 3, h, w) of each 3x3 conv of a MonoNet5 trunk of
+    ``blocks`` (reference/layers.py) entered at h x w: max-pools halve,
+    upsamples double."""
+    convs = []
     for kind, cin, cout in blocks:
         if kind == "uc":
             h, w = 2 * h, 2 * w
-        total += conv(b, cin, cout, 3, h, w)
+        convs.append((b, cin, cout, 3, h, w))
         if kind == "cp":
             h, w = h // 2, w // 2
         elif kind == "cu":
             h, w = 2 * h, 2 * w
-    return total
+    return convs
+
+
+def unet(blocks, h, w, b=1):
+    """Operations of a MonoNet5 trunk of ``blocks`` at h x w."""
+    return sum(conv(*c) for c in unet_convs(blocks, h, w, b))
 
 
 def k1(b, h, w, channels, esize, taps=16):

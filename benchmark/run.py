@@ -7,7 +7,8 @@ names a configuration file and a traffic file; the run builds the program's
 model from the configuration with weights drawn from the seed on the card,
 makes the moving clip from the seed on the card, warms up the cell's shapes
 (all of that is ``setup_s``), then drives the traffic for ``--seconds``
-(``benchmark/driver.py``).  With ``--trace 1`` it then drives a further
+(``benchmark/driver.py``), each sample through the configuration's call
+(``benchmark/calls/<call>.py``).  With ``--trace 1`` it then drives a further
 traced window and reads the cell's per-layer metrics, each from its own
 reader ``benchmark/metrics/<metric>.py``.  Last, once the program's state is
 freed, the configuration's plain reference checks a sample of the window's
@@ -96,7 +97,7 @@ def run_cell(config, traffic, *, seed, seconds, trace=False, device="cuda", cont
     import torch
 
     from benchmark import check, clip, driver, weights
-    from benchmark.trace import Trace, capture, hooked
+    from benchmark.trace import Trace, capture
     from memcnet_tpu_torch.models import get_model
 
     dev = torch.device(device)
@@ -113,7 +114,8 @@ def run_cell(config, traffic, *, seed, seconds, trace=False, device="cuda", cont
     model = wrap(core) if wrap else core
     h, w = traffic["frame"]
     frames = clip.make(seed, traffic["clip_frames"], h, w, dev).to(dtype)
-    drv = driver.Driver(model, frames, traffic, dev)
+    call = importlib.import_module(f"benchmark.calls.{config['call']}")
+    drv = driver.Driver(model, call, frames, traffic, dev)
     drv.run(frames=traffic["warmup_batches"] * traffic["batch"])
     if cuda:
         torch.cuda.synchronize()
@@ -128,9 +130,8 @@ def run_cell(config, traffic, *, seed, seconds, trace=False, device="cuda", cont
 
     tr = None
     if trace:
-        with hooked(core.flownets, "bench.flow"):
-            prof, twin = capture(lambda: drv.run(frames=traffic["trace_frames"],
-                                                 span=torch.profiler.record_function))
+        prof, twin = capture(lambda: drv.run(frames=traffic["trace_frames"],
+                                             span=torch.profiler.record_function))
         tr = Trace(prof)
         tr.frames = twin.frames
         tr.forwards = twin.frames // traffic["batch"]
@@ -143,15 +144,14 @@ def run_cell(config, traffic, *, seed, seconds, trace=False, device="cuda", cont
 
     ref = check.Reference(config, template, seed, dev)
     gap = traffic["pair_gap"]
-    pairs = sorted({pair for pair, _ in sample.items.values()})
+    firsts = sorted({first for first, _ in sample.items.values()})
     want, ctrl = {}, {}
-    for pair in pairs:
-        x0 = frames[pair:pair + 1].float()
-        x2 = frames[pair + gap:pair + gap + 1].float()
-        want[pair] = ref.frames(x0, x2, crop)[0]
+    for s in firsts:
+        inputs = [frames[i:i + 1].float() for i in driver.inputs_of(s, call.INPUTS, gap)]
+        want[s] = ref.frames(inputs, crop)[0]
         if control:
-            ctrl[pair] = ref.frames(x0, x2, crop, config["control"])[0]
-    per_frame = [check.readings(f.to(dev), want[pair]) for pair, f in sample.items.values()]
+            ctrl[s] = ref.frames(inputs, crop, config["control"])[0]
+    per_frame = [check.readings(f.to(dev), want[s]) for s, f in sample.items.values()]
     limits = config["compare"]
     bad = sum(any(limits.get(k) is not None and r[k] > limits[k] for k in r)
               for r in per_frame)
@@ -159,7 +159,7 @@ def run_cell(config, traffic, *, seed, seconds, trace=False, device="cuda", cont
         config=config, traffic=traffic, window=win, trace=tr, setup_s=setup_s,
         peak_bytes=max(peak_setup, peak_window), peak_window_bytes=peak_window,
         readings=check.worst(per_frame), sampled=len(per_frame),
-        control=check.worst([check.readings(ctrl[p], want[p]) for p in pairs]) if control
+        control=check.worst([check.readings(ctrl[s], want[s]) for s in firsts]) if control
         else None,
         failed=(win.attempted - win.frames) + bad, complete=win.frames == win.attempted,
         padded=tuple(frames.shape[2:]), device=dev)

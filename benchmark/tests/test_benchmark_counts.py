@@ -44,6 +44,18 @@ def test_published_sizes_at_720p():
         nbytes / peaks.HBM_BYTES_PER_S
 
 
+@pytest.mark.parametrize("B", [1, 4])
+def test_every_conv_of_memc_net_s_float32_is_counted_on_k4(B):
+    """A float32 forward on the card runs all of MEMC_Net_s's convs on K4's
+    float32 body: SPyNet's 30 and the walkers' 24."""
+    from benchmark.counts import memc_net_s
+
+    for hw, n in [((128, 256), 5 * 4 + 24), ((768, 1344), 5 * 6 + 24)]:
+        launches = memc_net_s.kernels(B, *hw, 4)["k4"]
+        assert len(launches) == n and {p for *_, p in launches} == {"tf32"}
+        assert sum(f for _, f, _ in launches) == B * memc_net_s.flops(*hw)
+
+
 def test_union_counts_overlaps_once():
     ivs = [(0.0, 2.0), (1.0, 3.0), (5.0, 6.0), (5.5, 5.7), (8.0, 12.0)]
     assert union_seconds(ivs, 0.0, 10.0) == pytest.approx(3.0 + 1.0 + 2.0)

@@ -1,6 +1,8 @@
 """BENCHMARK.json keeps to the contract's shape, and every name in it finds
 its file."""
 
+import importlib
+import inspect
 import json
 import os
 import re
@@ -93,6 +95,21 @@ def test_cell_finds_its_files(bench, cell):
     for mod in ("reference", "counts"):
         assert os.path.isfile(os.path.join(ROOT, "benchmark", mod, f"{config[mod]}.py"))
     assert all(v is not None for v in config["compare"].values())
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in json.load(
+    open(os.path.join(ROOT, "BENCHMARK.json")))["configs"]])
+def test_config_call_and_its_reference_take_the_same_inputs(bench, name):
+    entry = next(c for c in bench["configs"] if c["name"] == name)
+    config = R.load_json(os.path.join(ROOT, entry["file"]))
+    assert os.path.isfile(os.path.join(ROOT, "benchmark", "calls", f"{config['call']}.py"))
+    call = importlib.import_module(f"benchmark.calls.{config['call']}")
+    assert isinstance(call.INPUTS, int) and call.INPUTS >= 1 and callable(call.rectified)
+    forward = importlib.import_module(f"benchmark.reference.{config['reference']}").forward
+    params = list(inspect.signature(forward).parameters.values())[1:]  # after the weights
+    if any(p.kind is p.VAR_POSITIONAL for p in params):
+        return
+    assert len(params) == call.INPUTS, f"{config['reference']}.forward takes {len(params)}"
 
 
 def test_every_file_under_paths_is_named_from_name_characters(bench):

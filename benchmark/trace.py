@@ -14,8 +14,6 @@ operation belongs to a host range when the runtime call that launched it
 (matched by its correlation id) lies inside the range.
 """
 
-import contextlib
-
 import torch
 
 WINDOW = "bench.window"
@@ -33,27 +31,6 @@ def capture(fn):
         with torch.profiler.record_function(WINDOW):
             out = fn()
     return prof, out
-
-
-@contextlib.contextmanager
-def hooked(module, name):
-    """A host range ``name`` around every forward of ``module``."""
-    ranges = []
-
-    def pre(_mod, _args):
-        rf = torch.profiler.record_function(name)
-        rf.__enter__()
-        ranges.append(rf)
-
-    def post(_mod, _args, _out):
-        ranges.pop().__exit__(None, None, None)
-
-    handles = [module.register_forward_pre_hook(pre), module.register_forward_hook(post)]
-    try:
-        yield
-    finally:
-        for h in handles:
-            h.remove()
 
 
 def busy_intervals(intervals, lo, hi):
